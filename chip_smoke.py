@@ -8,8 +8,8 @@ Run from the repository root with no arguments:
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. setup   — print torch's version and the card (``nvidia-smi``), turn
-             TF32 off and cuDNN deterministic, build the CUDA codec
-             kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+             TF32 off and cuDNN deterministic, build both CUDA sources of
+             ``src/repro_torch/kernels/csrc`` with nvcc, in parallel;
 2. plan    — MobileNetV2 (224x224, 10 classes, batch 8) on the
              ``pi_chain4`` scenario with one codec per hop (int8, fp8,
              topk); the port's own ``solve`` picks the cuts;
@@ -24,19 +24,39 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 5. profile — one lone batch under ``torch.profiler``: device busy time
              by kernel against the batch's wall time (full table in
              ``chiprun_out/smoke_profile.txt``).
+6. lm kernels — flash attention, decode attention and RMSNorm against
+             their plain versions on the card, fp32 and bf16, at the LM
+             slice's shapes and ragged ones (S = T = 1000, non-causal
+             S = 64 / T = 1500, Smax = 1056 at pos 0/1/511/1055, d = 128,
+             2048, 3), within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16);
+             then timed at the slice's shapes beside their bound, their
+             plain version and one PyTorch call;
+7. lm slice — ``repro_torch.launch.serve.main`` on qwen3-1.7b at full
+             width and depth, bf16, batch 8, prompt 1024, 32 new tokens
+             (cache 1056), with the launch counters reset just before; each
+             LM kernel's count must be what the path implies;
+8. lm parity — the same weights and prompt through the model's plain
+             ``"xla"`` route: bf16 prefill logits within 5e-2 and the same
+             argmax, four teacher-forced decode steps within 5e-2; then
+             fp32 with TF32 off, full width, 2 layers, within 2e-4;
+9. lm profile — one prefill and one decode step under ``torch.profiler``:
+             device busy time and the largest kernels against each
+             step's wall time.
 
-The last two lines of standard output are the kernel table (JSON) and
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
+The last three lines of standard output are the kernel table (JSON), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -45,7 +65,18 @@ BATCH, HW, CLASSES = 8, 224, 10
 CODECS = ("int8", "fp8", "topk")
 CHECK_SIZES = (1, 7, 127, 129, 1_000_003)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/codec_pack.cu"
+LM_SOURCE = "src/repro_torch/kernels/csrc/lm_kernels.cu"
+# the LM slice: qwen3-1.7b, batch 8, prompt 1024, 32 new tokens
+LM_B, LM_S, LM_NEW = 8, 1024, 32
+LM_ARGS = ["--arch", "qwen3-1.7b", "--batch", str(LM_B), "--prompt-len",
+           str(LM_S), "--new-tokens", str(LM_NEW), "--seed", "0"]
+LM_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:30",
+    "decode_attention": "src/repro/kernels/decode_attention.py:26",
+    "fused_rmsnorm": "src/repro/kernels/fused_rmsnorm.py:16",
+}
 # the __global__ functions of codec_pack.cu, as the profiler names them
 CUDA_KERNELS = ("absmax_kernel", "int8_pack_kernel", "fp8_pack_kernel",
                 "int8_unpack_kernel", "fp8_unpack_kernel", "topk_keys_kernel")
@@ -97,13 +128,261 @@ def device_ms(torch, what: str, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def lm_tol(torch, dtype) -> float:
+    """rtol = atol of tests/test_kernels.py:14-15 for ``dtype``."""
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
+    """Each LM kernel against its plain version, fp32 and bf16, at the
+    slice's shapes and ragged ones → max |kernel - plain| per kernel."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = {name: 0.0 for name in LM_REPLACES}
+    by_dtype = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def hold(name, out, exp, what):
+        tol = lm_tol(torch, exp.dtype)
+        d = (out.float() - exp.float()).abs()
+        bad = (out.shape != exp.shape or out.dtype != exp.dtype
+               or not bool(torch.isfinite(out).all())
+               or bool((d > tol + tol * exp.float().abs()).any()))
+        worst = float(d.max()) if d.numel() else 0.0
+        if bad:
+            raise AssertionError(f"{name} {what} {exp.dtype}: kernel and "
+                                 f"plain version differ (max {worst})")
+        err[name] = max(err[name], worst)
+        key = (name, str(exp.dtype).split(".")[-1])
+        by_dtype[key] = max(by_dtype.get(key, 0.0), worst)
+
+    H, KV, hd = 16, 8, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, T, causal in ((LM_B, LM_S, LM_S, True),
+                                (2, 1000, 1000, True),
+                                (2, 64, 1500, False)):
+            q = randn((B, S, H, hd), dtype)
+            k, v = randn((B, T, KV, hd), dtype), randn((B, T, KV, hd), dtype)
+            hold("flash_attention", ops.flash_attention(q, k, v, causal=causal),
+                 ref.flash_attention_ref(q, k, v, causal=causal),
+                 f"B={B} S={S} T={T} causal={causal}")
+        smax = LM_S + LM_NEW
+        q = randn((LM_B, H, hd), dtype)
+        kc = randn((LM_B, smax, KV, hd), dtype)
+        vc = randn((LM_B, smax, KV, hd), dtype)
+        for pos in (0, 1, 511, smax - 1):
+            hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
+                 ref.decode_attention_ref(q, kc, vc, pos),
+                 f"Smax={smax} pos={pos}")
+        for shape in ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
+                      (LM_B, 2048), (LM_B * H, hd), (1000, 3)):
+            x, sc = randn(shape, dtype), randn((shape[-1],), dtype)
+            hold("fused_rmsnorm", ops.fused_rmsnorm(x, sc),
+                 ref.fused_rmsnorm_ref(x, sc), f"shape={shape}")
+    torch.cuda.synchronize()
+    log("lm kernels: within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16) of the "
+        "plain versions; max |diff| "
+        + ", ".join(f"{n} {d} {e:.3g}" for (n, d), e in by_dtype.items()))
+    return err
+
+
+def time_lm_kernels(torch, ops, ref, dev) -> dict[str, dict]:
+    """Each LM kernel at the slice's bf16 shapes: ms, bound, plain ms and
+    one PyTorch call's ms.  Decode rotates over three caches (three times
+    the 50 MB L2), as its layers do on the path."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    B, S, H, KV, hd = LM_B, LM_S, 16, 8, 128
+    rows = {}
+    q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flops = 4 * B * H * S * S * hd / 2
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    rows["flash_attention"] = dict(
+        shape=f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KV},{hd}) causal bf16",
+        ms=device_ms(torch, "flash_attention",
+                     lambda: ops.flash_attention(q, k, v), 10),
+        plain_ms=device_ms(torch, "flash_attention plain",
+                           lambda: ref.flash_attention_ref(q, k, v), 5),
+        library_ms=device_ms(
+            torch, "scaled_dot_product_attention",
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True), 10),
+        flops=flops, bytes=nbytes)
+    del q, k, v, qt, kt, vt
+
+    smax, pos = LM_S + LM_NEW, LM_S + LM_NEW - 1
+    q = randn(B, H, hd)
+    caches = [(randn(B, smax, KV, hd), randn(B, smax, KV, hd))
+              for _ in range(3)]
+    lib_caches = [tuple(c[:, :pos + 1].transpose(1, 2).contiguous()
+                        for c in pair) for pair in caches]
+    q4 = q[:, :, None]
+    cyc, pcyc, lcyc = (itertools.cycle(c) for c in (caches, caches,
+                                                    lib_caches))
+    rows["decode_attention"] = dict(
+        shape=f"q ({B},{H},{hd}) caches ({B},{smax},{KV},{hd}) pos {pos} bf16",
+        ms=device_ms(torch, "decode_attention",
+                     lambda: ops.decode_attention(q, *next(cyc), pos), 30),
+        plain_ms=device_ms(torch, "decode_attention plain",
+                           lambda: ref.decode_attention_ref(q, *next(pcyc),
+                                                            pos), 30),
+        library_ms=device_ms(
+            torch, "scaled_dot_product_attention",
+            lambda: F.scaled_dot_product_attention(q4, *next(lcyc),
+                                                   enable_gqa=True), 30),
+        flops=4 * B * H * (pos + 1) * hd,
+        bytes=2 * (2 * B * (pos + 1) * KV * hd + 2 * B * H * hd))
+    del caches, lib_caches
+
+    rows_n, d = B * S, 2048
+    x, sc = randn(rows_n, d), randn(d)
+    rows["fused_rmsnorm"] = dict(
+        shape=f"x ({rows_n},{d}) scale ({d},) bf16",
+        ms=device_ms(torch, "fused_rmsnorm",
+                     lambda: ops.fused_rmsnorm(x, sc), 50),
+        plain_ms=device_ms(torch, "fused_rmsnorm plain",
+                           lambda: ref.fused_rmsnorm_ref(x, sc), 50),
+        library_ms=device_ms(torch, "F.rms_norm",
+                             lambda: F.rms_norm(x, (d,), sc, eps=1e-6), 50),
+        flops=4 * rows_n * d, bytes=2 * (2 * rows_n * d + d))
+    for name, t in rows.items():
+        by_ops = t["flops"] / BF16_FLOP_PER_S
+        by_bytes = t["bytes"] / HBM_BYTES_PER_S
+        t["bound_ms"] = max(by_ops, by_bytes) * 1e3
+        t["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
+        log(f"  {name:16s} {t['shape']}: kernel {t['ms']:.4f} ms  bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})  plain "
+            f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
+    return rows
+
+
+def lm_slice(torch, ops, serve) -> dict[str, int]:
+    """The LM serving path through its entry point, counters reset just
+    before; → the launch counts of that run."""
+    from repro_torch import configs
+    args = serve.parse_args(LM_ARGS)
+    n_layers = (configs.reduced if args.reduced
+                else configs.get)(args.arch).n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(LM_ARGS)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # two prefills (warm-up + timed) and LM_NEW decode steps (warm-up +
+    # LM_NEW - 1 timed); per step 4 norms a layer (ln1, ln2, q_norm,
+    # k_norm) and the final one
+    steps = 2 + LM_NEW
+    expect = {"flash_attention": n_layers * 2,
+              "decode_attention": n_layers * LM_NEW,
+              "fused_rmsnorm": (4 * n_layers + 1) * steps}
+    log(f"lm slice: prefill {res['prefill_ms']:.2f} ms "
+        f"({res['prefill_tok_s']:.0f} tok/s), decode "
+        f"{res['decode_ms_per_token']:.3f} ms/token "
+        f"({res['decode_tok_s']:.1f} tok/s aggregate), peak allocated "
+        f"{peak / 2**30:.3f} GiB ({peak} B)")
+    log(f"lm slice: launches {json.dumps(launches)}")
+    wrong = {k: (launches[k], n) for k, n in expect.items()
+             if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"LM kernel launches (got, expected): {wrong}")
+    toks = res["tokens"]
+    if tuple(toks.shape) != (LM_B, LM_NEW) or not res["valid"]:
+        raise AssertionError(f"bad generated tokens: {tuple(toks.shape)}")
+    return launches
+
+
+def lm_parity(torch, serve, lm, dev):
+    """Kernel route against the plain route on the same weights; → the
+    bf16 model and inputs, for the profile."""
+    def compare(what, a, b, tol):
+        d = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=tol, atol=tol):
+            raise AssertionError(f"lm parity: {what} differ by {d} "
+                                 f"(rtol = atol = {tol})")
+        return d
+
+    def routes(cfg, model, inputs, cache_len, tol, label):
+        plain = cfg.replace(attn_impl="xla")
+        lk, ck = lm.forward_prefill(cfg, model, inputs, cache_len)
+        lp, cp = lm.forward_prefill(plain, model, inputs, cache_len)
+        diffs = [compare(f"{label} prefill logits", lk, lp, tol)]
+        if not torch.equal(lk.argmax(-1), lp.argmax(-1)):
+            raise AssertionError(f"lm parity: {label} prefill argmax differs")
+        g = torch.Generator(device=dev).manual_seed(4)
+        feed = torch.randint(0, cfg.vocab, (4, LM_B, 1), generator=g,
+                             device=dev, dtype=torch.int32)
+        for t in range(4):
+            lk, ck = lm.forward_decode(cfg, model, feed[t], ck)
+            lp, cp = lm.forward_decode(plain, model, feed[t], cp)
+            diffs.append(compare(f"{label} decode step {t} logits", lk, lp,
+                                 tol))
+        log(f"lm parity ({label}): kernel vs plain route max |diff| of "
+            f"logits, prefill then 4 decode steps: "
+            f"{[f'{d:.3g}' for d in diffs]} (rtol = atol = {tol}); prefill "
+            f"argmax equal")
+
+    args = serve.parse_args(LM_ARGS)
+    cfg, model, inputs, cache_len = serve.setup(args)
+    routes(cfg, model, inputs, cache_len, 5e-2,
+           f"{cfg.dtype}, {cfg.n_layers} layers")
+    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    model32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    routes(cfg32, model32, inputs, cache_len, 2e-4, "float32, 2 layers")
+    del model32
+    return cfg, model, inputs, cache_len
+
+
+def lm_profile(torch, cfg, model, inputs, cache_len) -> None:
+    """One prefill and one decode step under torch.profiler: device busy
+    time by kernel against the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg, cache_len), make_decode_step(cfg)
+    tok, cache = prefill(model, inputs)
+    torch.cuda.synchronize()
+    for what in ("prefill", "decode step"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                prefill(model, inputs)
+            else:
+                decode(model, tok, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA
+                and r.self_device_time_total]
+        if not rows:
+            log(f"lm profile ({what}): wall {wall_ms:.2f} ms; the profiler "
+                f"saw no device time (busy share not measured)")
+            continue
+        busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+        log(f"lm profile ({what}): wall {wall_ms:.2f} ms under the profiler, "
+            f"device busy {busy_ms:.3f} ms (idle share "
+            f"{1 - busy_ms / wall_ms:.4f})")
+        for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:12]:
+            log(f"  {r.self_device_time_total / 1e3:8.3f} ms  x{r.count:<5d} "
+                f"{r.key[:90]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from repro_torch.core import best_throughput, scenarios, solve
-    from repro_torch.kernels import codec_pack, ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.models.cnn import zoo
     from repro_torch.runtime import EdgePipeline
 
@@ -121,12 +400,16 @@ def main() -> int:
         f"cudnn.deterministic={torch.backends.cudnn.deterministic} "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
     t0 = time.perf_counter()
-    lib = codec_pack.build(force=True)
-    log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in (codec_pack.BUILD_DIR / "nvcc.log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line:
-            log("  ptxas " + line.split("ptxas info")[-1].strip(" :"))
-    codec_pack.library()
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        built = list(pool.map(lambda lib: lib.build(force=True),
+                              _build.LIBRARIES))
+    log(f"built {[str(p.relative_to(ROOT)) for p in built]} in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in _build.LIBRARIES:
+        for line in lib.log.read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                log("  ptxas " + line.split("ptxas info")[-1].strip(" :"))
+        lib.library()
     dev = torch.device("cuda")
 
     # ----------------------------------------------------------------- plan
@@ -258,7 +541,7 @@ def main() -> int:
             f"(per batch: wire {net.total_bytes // net.total_transfers} B, "
             f"raw {net.total_raw_bytes // net.total_transfers} B)")
     log(f"slice: launches {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in REPLACES if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -331,6 +614,19 @@ def main() -> int:
         log(f"profile: lone batch wall {wall_ms:.2f} ms; the profiler saw "
             f"no device time (device busy share not measured)")
 
+    # ---------------------------------------------------------- lm kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    lm_err = check_lm_kernels(torch, ops, ref, dev)
+    lm_timings = time_lm_kernels(torch, ops, ref, dev)
+    log(f"lm kernels (check-phase launches): {json.dumps(ops.launch_counts())}")
+
+    # ------------------------------------------------------------ lm slice
+    lm_launches = lm_slice(torch, ops, serve)
+
+    # ----------------------------------------------------- lm parity, profile
+    lm_profile(torch, *lm_parity(torch, serve, lm, dev))
+
     # --------------------------------------------------------------- report
     rows = []
     for name in REPLACES:
@@ -341,6 +637,13 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})
+    for name, t in lm_timings.items():
+        rows.append({
+            "name": name, "route": "cuda", "source": LM_SOURCE,
+            "replaces": LM_REPLACES[name], "launches": lm_launches[name],
+            "max_abs_err": lm_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,5 @@
-"""Hand-written CUDA kernels for the wire codecs (``csrc/codec_pack.cu``),
-their ``ctypes`` binding (``codec_pack``), plain PyTorch versions
-(``ref``) and the dispatching wrappers (``ops``)."""
+"""Hand-written CUDA kernels of the port (``csrc/codec_pack.cu`` for the
+wire codecs, ``csrc/lm_kernels.cu`` for LM attention and RMSNorm), their
+``ctypes`` bindings (``codec_pack``, ``flash_attention``,
+``decode_attention``, ``fused_rmsnorm``, built by ``_build``), plain
+PyTorch versions (``ref``) and the dispatching wrappers (``ops``)."""

@@ -1,0 +1,143 @@
+"""Build and bind the port's CUDA sources (``csrc/*.cu``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, at the first call that hands one of
+its kernels a CUDA tensor, and bound through ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries go to the git-ignored
+``kernels/build/``; the compiler's output is kept beside each as
+``<name>.nvcc.log``.  Importing this module needs neither ``nvcc`` nor
+a card.
+
+Every entry point of a source takes its pointers and the stream as
+``c_void_p``, returns ``cudaGetLastError()`` as an ``int``, and
+``launch`` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_int64
+F32 = ctypes.c_float
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit")
+    return found
+
+
+class KernelLibrary:
+    """One ``csrc/<name>.cu`` and the shared library built from it.
+
+    ``functions`` maps each C entry point to its argument types, the
+    trailing stream excluded; ``error_fn`` names the entry point that
+    turns a CUDA error code into its message."""
+
+    def __init__(self, name: str, functions: dict[str, list],
+                 error_fn: str):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.path = BUILD_DIR / f"lib{name}.so"
+        self.log = BUILD_DIR / f"{name}.nvcc.log"
+        self.functions = functions
+        self.error_fn = error_fn
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+
+    def build(self, force: bool = False) -> Path:
+        """Compile the source unless an up-to-date library exists;
+        → the library's path."""
+        with self._lock:
+            if (not force and self.path.exists()
+                    and self.path.stat().st_mtime
+                    >= self.source.stat().st_mtime):
+                return self.path
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+                   str(self.source)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  check=False)
+            self.log.write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source.name} "
+                                   f"({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, self.path)
+            return self.path
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, built on first use."""
+        if self._lib is None:
+            path = self.build()
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(path))
+                    for fn, argtypes in self.functions.items():
+                        getattr(lib, fn).argtypes = [*argtypes, P]
+                        getattr(lib, fn).restype = I32
+                    err = getattr(lib, self.error_fn)
+                    err.argtypes = [I32]
+                    err.restype = ctypes.c_char_p
+                    self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Call entry point ``fn`` on ``device``'s current stream (no
+        synchronisation); raise if the launch was refused."""
+        lib = self.library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(*args, P(stream))
+        if err:
+            msg = getattr(lib, self.error_fn)(err).decode()
+            raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on a CUDA device (checked before
+    anything is built, so no ``nvcc`` is needed to see the refusal)."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, "
+                             f"got one on {t.device}")
+
+
+CODEC_PACK = KernelLibrary("codec_pack", {
+    "codec_int8_pack": [P, I64, P, P],
+    "codec_fp8_pack": [P, I64, P, P],
+    "codec_int8_unpack": [P, F32, P, I64],
+    "codec_fp8_unpack": [P, F32, P, I64],
+    "codec_topk_keys": [P, I64, P],
+}, error_fn="codec_error_string")
+
+# dtype codes of lm_kernels.cu's entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LM_KERNELS = KernelLibrary("lm_kernels", {
+    # q, k, v, out, B, S, T, H, KV, hd, causal, scale, dtype
+    "lm_flash_attention": [P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
+                           F32, I32],
+    # q, k_cache, v_cache, out, B, H, KV, Smax, hd, pos, scale, dtype
+    "lm_decode_attention": [P, P, P, P, I32, I32, I32, I32, I32, I32, F32,
+                            I32],
+    # x, scale, out, rows, d, eps, x dtype, scale dtype
+    "lm_rmsnorm": [P, P, P, I64, I32, F32, I32, I32],
+}, error_fn="lm_error_string")
+
+LIBRARIES = (CODEC_PACK, LM_KERNELS)

@@ -1,8 +1,10 @@
-"""Public wrappers for the wire-codec kernels.
+"""Public wrappers for the port's kernels: the wire codecs and the LM
+serving path's attention and RMSNorm.
 
 A tensor on the CPU goes to its plain version in ``ref`` (the CPU tests
 run that path, as the reference's tests run Pallas in interpret mode).
-Any other tensor goes to the CUDA kernel in ``codec_pack``, which
+Any other tensor goes to the CUDA kernel in ``codec_pack``,
+``flash_attention``, ``decode_attention`` or ``fused_rmsnorm``, which
 launches or raises: there is no fallback.  Each wrapper counts its
 kernel launches in a plain integer attribute, ``<wrapper>.launches``,
 so a run can show that its main path went through the kernels.
@@ -14,6 +16,9 @@ import threading
 import torch
 
 from . import codec_pack, ref
+from . import decode_attention as _decode
+from . import flash_attention as _flash
+from . import fused_rmsnorm as _rms
 
 _count_lock = threading.Lock()
 
@@ -79,7 +84,42 @@ def topk_select(x: torch.Tensor, *, k: int
     return out
 
 
-WRAPPERS = (int8_pack, int8_unpack, fp8_pack, fp8_unpack, topk_select)
+@_counted
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,KV,hd) → (B,S,H,hd); GQA, online softmax."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    out = _flash.flash_attention(q, k, v, causal=causal)
+    _launched(flash_attention)
+    return out
+
+
+@_counted
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """q (B,H,hd), caches (B,Smax,KV,hd), int pos → (B,H,hd) over the
+    cache positions ``<= pos``."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos)
+    out = _decode.decode_attention(q, k_cache, v_cache, pos)
+    _launched(decode_attention)
+    return out
+
+
+@_counted
+def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), scale (d,) → ``x * rsqrt(mean(x²) + eps) * scale``."""
+    if x.device.type == "cpu":
+        return ref.fused_rmsnorm_ref(x, scale, eps=eps)
+    out = _rms.fused_rmsnorm(x, scale, eps=eps)
+    _launched(fused_rmsnorm)
+    return out
+
+
+WRAPPERS = (int8_pack, int8_unpack, fp8_pack, fp8_unpack, topk_select,
+            flash_attention, decode_attention, fused_rmsnorm)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,9 +1,16 @@
-"""Plain PyTorch versions of the wire-codec kernels (the ground truth).
+"""Plain PyTorch versions of the port's kernels (the ground truth).
 
 ``ops`` takes these for tensors on the CPU; ``chip_smoke.py`` and the
 ``cuda``-marked tests hold each CUDA kernel in ``csrc/codec_pack.cu``
-to them on the card.  Each repeats its kernel's arithmetic step for
-step, because the wire carries the kernel's bytes:
+and ``csrc/lm_kernels.cu`` to them on the card.
+
+The LM kernels' versions (attention and RMSNorm) follow the reference's
+``kernels/ref.py``: dense score matrices in fp32, cast back to the
+input's dtype.  Unlike the reference's Pallas kernels they take any
+``S``, ``T`` and ``Smax``.
+
+The codec versions repeat their kernel's arithmetic step for step,
+because the wire carries the kernel's bytes:
 
   * the scale is ``max(max|x|, 1e-12) * fp32(1/127)`` (``1/448`` for
     fp8).  The reference writes ``/ 127.0``, but XLA folds a division by
@@ -16,6 +23,8 @@ step, because the wire carries the kernel's bytes:
     ``lax.top_k`` does (a stable descending sort).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,3 +83,50 @@ def topk_select_ref(x: torch.Tensor, *, k: int
     order = torch.sort(flat.abs(), descending=True, stable=True).indices
     idx = torch.sort(order[:k]).values
     return idx.to(torch.int32), flat[idx]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd) → (B,S,H,hd).  Query head ``h``
+    reads KV head ``h // (H // KV)``; causal masking aligns the last
+    query with the last key (query ``i`` sees keys ``<= i + T - S``)."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kk = k.repeat_interleave(G, dim=2).to(torch.float32)
+    vv = v.repeat_interleave(G, dim=2).to(torch.float32)
+    s = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), kk) \
+        / math.sqrt(hd)
+    if causal:
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device) \
+            .tril(diagonal=T - S)
+        s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", w, vv).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """q: (B,H,hd); caches: (B,Smax,KV,hd); attends positions ``<= pos``
+    → (B,H,hd)."""
+    H, hd = q.shape[1], q.shape[2]
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    kk = k_cache.repeat_interleave(G, dim=2).to(torch.float32)
+    vv = v_cache.repeat_interleave(G, dim=2).to(torch.float32)
+    s = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kk) \
+        / math.sqrt(hd)
+    mask = torch.arange(Smax, device=q.device) <= pos
+    s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", w, vv).to(q.dtype)
+
+
+def fused_rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d); scale: (d,) → ``x * rsqrt(mean(x²) + eps) * scale``
+    per row, in fp32, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * scale.to(torch.float32)).to(x.dtype)

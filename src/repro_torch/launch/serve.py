@@ -1,0 +1,125 @@
+"""Serving launcher: batched prefill + greedy decode with KV caches
+(counterpart of ``src/repro/launch/serve.py``).
+
+Builds a registered arch with random weights from ``--seed``, prefills
+a batch of synthetic prompts, decodes ``--new-tokens`` tokens, and
+reports prefill latency and decode throughput — the paper's two
+metrics, on the LM serving path.  It serves with
+``attn_impl="pallas"``: on the card attention and every RMSNorm run the
+port's CUDA kernels, on the CPU (``--device cpu``) their plain versions.
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
+      --device cpu --batch 2 --prompt-len 16 --new-tokens 4
+  python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
+
+``main`` prints the reference's lines and returns the numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..data.pipeline import DataConfig, SyntheticLM
+from ..models import lm
+from ..models.cnn.zoo import resolve_device
+from ..runtime.steps import make_decode_step, make_prefill_step
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCH_NAMES))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.new_tokens < 2:
+        ap.error("--new-tokens must be at least 2 (one warm-up decode step)")
+    return args
+
+
+def setup(args: argparse.Namespace):
+    """→ (cfg, model, inputs, cache_len) for ``args``: weights from a
+    ``torch.Generator`` on the device seeded with ``--seed``, one
+    synthetic batch without its targets."""
+    dev = resolve_device(args.device)
+    cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
+    cfg = cfg.replace(attn_impl="pallas")
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                    dev)
+    data = SyntheticLM(cfg, DataConfig(args.batch, args.prompt_len,
+                                       args.seed), device=dev)
+    inputs = {k: v for k, v in next(data).items() if k != "targets"}
+    cache_len = args.prompt_len + args.new_tokens \
+        + (cfg.n_patches if cfg.family == "vlm" else 0)
+    return cfg, model, inputs, cache_len
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int) -> dict:
+    """The reference's schedule: one warm-up prefill, a timed prefill,
+    one warm-up decode step, then ``new_tokens - 1`` timed decode steps.
+    → seconds, the step count and the tokens (B, new_tokens): the
+    prefill's and the timed steps' (the warm-up step's token is fed on
+    but not kept, as in the reference)."""
+    dev = model.device
+    prefill = make_prefill_step(cfg, cache_len)
+    decode = make_decode_step(cfg)
+
+    tok, cache = prefill(model, inputs)                 # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    tok, cache = prefill(model, inputs)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    toks = [tok]
+    tok, cache = decode(model, tok, cache)              # warm-up decode
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        tok, cache = decode(model, tok, cache)
+        toks.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {"prefill_s": t_prefill, "decode_s": t_decode,
+            "decode_steps": new_tokens - 1,
+            "tokens": torch.cat(toks, dim=1)}
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    cfg, model, inputs, cache_len = setup(args)
+    res = serve(cfg, model, inputs, cache_len, args.new_tokens)
+    B, S = args.batch, args.prompt_len
+    n_dec = res["decode_steps"]
+    prefill_tok_s = B * S / res["prefill_s"]
+    ms_per_token = res["decode_s"] / n_dec * 1e3
+    decode_tok_s = B * n_dec / res["decode_s"]
+    out = res["tokens"]
+    finite = bool((out >= 0).all() and (out < cfg.vocab).all())
+    print(f"arch={cfg.name} batch={B} prompt={S} device={model.device}")
+    print(f"prefill latency: {res['prefill_s'] * 1e3:.1f} ms "
+          f"({prefill_tok_s:.0f} tok/s)")
+    print(f"decode: {ms_per_token:.2f} ms/token "
+          f"({decode_tok_s:.0f} tok/s aggregate)")
+    print(f"generated shape {tuple(out.shape)}, finite={finite}")
+    return {"arch": cfg.name, "device": str(model.device),
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "prefill_tok_s": prefill_tok_s,
+            "decode_ms_per_token": ms_per_token,
+            "decode_tok_s": decode_tok_s, "tokens": out, "valid": finite}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,160 @@
+"""Shared LM machinery: norms, activations, RoPE, embedding, logits and
+seeded weight init (counterpart of ``src/repro/models/common.py``).
+
+The reference declares every weight through a ``Builder`` (real arrays,
+abstract shapes with shardings, partition specs).  The port needs only
+real tensors on one card, so ``Init`` draws each leaf directly from a
+``torch.Generator`` with the reference builder's shapes and scales; the
+abstract and spec builders wait for sharding (ROADMAP queue 1, item
+12).  A ``torch.Generator`` gives other numbers than ``jax.random`` from
+the same seed: parity loads the reference's weights
+(``lm.from_reference``) instead.  The tree itself keeps the reference's
+keys and leaf shapes (``Leaves``).
+
+Numerics mirror the reference: norms and RoPE compute in fp32 and cast
+back; SiLU rounds the fp32 sigmoid to the working dtype before the
+product; GELU is the tanh approximation (``jax.nn.gelu``'s default);
+logits are fp32 from working-dtype operands.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+# --------------------------------------------------------------------------- #
+# Weight init and the parameter tree
+# --------------------------------------------------------------------------- #
+class Init:
+    """Draws leaves as the reference's ``InitBuilder.leaf`` shapes and
+    scales them: ``"normal"`` is N(0, 1) in fp32 times ``scale``
+    (default 1/sqrt(fan_in), fan_in = shape[0] for a matrix, the length
+    of a vector), cast to ``dtype``; ``"ones"``/``"zeros"`` are
+    constant.  Draws come from ``generator`` in call order."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
+                 device):
+        self.generator, self.dtype, self.device = generator, dtype, device
+
+    def __call__(self, shape: tuple[int, ...], init: str = "normal",
+                 scale: float | None = None) -> torch.Tensor:
+        if init == "ones":
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if init != "normal":
+            raise ValueError(init)
+        if scale is None:
+            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
+                        device=self.device)
+        return (w * scale).to(self.dtype)
+
+
+class Leaves(nn.Module):
+    """One node of the reference's parameter tree: every tensor of
+    ``tree`` becomes a frozen ``Parameter`` under its key, every dict a
+    child node, so ``node.attn.wq`` reads ``params["attn"]["wq"]``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, Leaves(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+
+# --------------------------------------------------------------------------- #
+# Normalization / activations (fp32 internals, cast back)
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm as ``cfg.attn_impl`` selects it: ``"pallas"`` → the fused
+    kernel (``ops.fused_rmsnorm``), ``"xla"`` → the plain ``rms_norm``."""
+    if cfg.attn_impl == "pallas":
+        return ops.fused_rmsnorm(x, scale, eps=cfg.norm_eps)
+    return rms_norm(x, scale, cfg.norm_eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x.to(torch.float32)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
+    split-halves form, angles in fp32 from the positions."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs      # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Embedding / head
+# --------------------------------------------------------------------------- #
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+def lm_logits(x: torch.Tensor, table: torch.Tensor,
+              head: torch.Tensor | None) -> torch.Tensor:
+    """x: (B, S, D) → (B, S, V) fp32.  ``head`` is the untied (D, V)
+    weight; tied models use ``table.T``.  The product takes x's dtype
+    for both operands and accumulates and returns fp32, as the
+    reference's ``preferred_element_type=f32`` does (a bf16 product
+    upcast afterwards would round each logit to bf16 first)."""
+    w = (head if head is not None else table.t()).to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = x2 @ w
+    elif x.is_cuda:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        # products of two bf16/fp16 values are exact in fp32, so an fp32
+        # product of the upcast operands is the same function
+        out = x2.to(torch.float32) @ w.to(torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])

@@ -14,7 +14,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import codec_pack, ops
+from repro_torch.kernels import (codec_pack, decode_attention,
+                                 flash_attention, fused_rmsnorm, ops)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "psutil", "repro"}
@@ -40,7 +41,7 @@ def test_port_file_imports_nothing_forbidden(path):
 
 def test_runtime_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.runtime.edge, "
-            "repro_torch.core.codecs; "
+            "repro_torch.core.codecs, repro_torch.launch.serve; "
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -50,13 +51,23 @@ def test_runtime_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# each wrapper on a 16-element tensor, and the module of its kernel
 WRAPPERS = {
     "int8_pack": lambda t: ops.int8_pack(t),
     "fp8_pack": lambda t: ops.fp8_pack(t),
     "topk_select": lambda t: ops.topk_select(t, k=2),
     "int8_unpack": lambda t: ops.int8_unpack(t.to(torch.int8), 0.5),
     "fp8_unpack": lambda t: ops.fp8_unpack(t.to(torch.float8_e4m3fn), 0.5),
+    "flash_attention": lambda t: ops.flash_attention(
+        t.reshape(1, 4, 2, 2), t.reshape(1, 4, 2, 2), t.reshape(1, 4, 2, 2)),
+    "decode_attention": lambda t: ops.decode_attention(
+        t[:4].reshape(1, 2, 2), t.reshape(1, 4, 2, 2), t.reshape(1, 4, 2, 2),
+        1),
+    "fused_rmsnorm": lambda t: ops.fused_rmsnorm(t.reshape(4, 4), t[:4]),
 }
+KERNEL_MODULES = {"flash_attention": flash_attention,
+                  "decode_attention": decode_attention,
+                  "fused_rmsnorm": fused_rmsnorm}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -70,7 +81,7 @@ def test_wrapper_raises_instead_of_falling_back(name, monkeypatch):
         calls.append(args)
         raise RuntimeError("stub: kernel launch refused")
 
-    monkeypatch.setattr(codec_pack, name, refuse)
+    monkeypatch.setattr(KERNEL_MODULES.get(name, codec_pack), name, refuse)
     ops.reset_launch_counts()
     x = torch.empty(16, device="meta")
     with pytest.raises(RuntimeError, match="stub: kernel launch refused"):

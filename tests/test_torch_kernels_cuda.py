@@ -1,4 +1,6 @@
-"""The CUDA codec kernels on the card, against their plain versions.
+"""The CUDA kernels on the card, against their plain versions: the
+codec kernels bit for bit, the LM kernels (attention, RMSNorm) within
+``tests/test_kernels.py``'s tolerances (2e-5 in fp32, 2e-2 in bf16).
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports no jax, so it runs on the GPU machine without the repository's
@@ -72,3 +74,84 @@ def test_launches_are_counted(cuda):
     counts = ops.launch_counts()
     assert counts["int8_pack"] == counts["int8_unpack"] == 1
     assert counts["topk_select"] == 1 and counts["fp8_pack"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# LM kernels (csrc/lm_kernels.cu)
+# --------------------------------------------------------------------------- #
+def _lm_tol(dtype):
+    """rtol = atol, as ``assert_allclose`` in tests/test_kernels.py."""
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def _randn(shape, dtype, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (1, 128, 128, 4, 4, 64, True),       # MHA
+    (2, 256, 256, 4, 2, 64, False),      # GQA
+    (1, 1000, 1000, 16, 8, 128, True),   # ragged, the slice's heads
+    (2, 64, 1500, 4, 2, 96, False),      # ragged kv, phi3-vision head_dim
+    (1, 24, 75, 8, 1, 128, True),        # S < T causal, MQA
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(B, S, T, H, KV, hd, causal,
+                                              dtype, cuda):
+    q = _randn((B, S, H, hd), dtype, cuda, 1)
+    k = _randn((B, T, KV, hd), dtype, cuda, 2)
+    v = _randn((B, T, KV, hd), dtype, cuda, 3)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    exp = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
+                               atol=_lm_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,KV,hd,Smax,pos", [
+    (8, 16, 8, 128, 1056, 0),
+    (8, 16, 8, 128, 1056, 511),
+    (8, 16, 8, 128, 1056, 1055),
+    (2, 8, 1, 128, 256, 100),            # MQA, G = 8
+    (2, 4, 4, 96, 77, 76),               # ragged Smax, full cache
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(B, H, KV, hd, Smax, pos,
+                                               dtype, cuda):
+    q = _randn((B, H, hd), dtype, cuda, 4)
+    kc = _randn((B, Smax, KV, hd), dtype, cuda, 5)
+    vc = _randn((B, Smax, KV, hd), dtype, cuda, 6)
+    out = ops.decode_attention(q, kc, vc, pos)
+    exp = ref.decode_attention_ref(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
+                               atol=_lm_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(8192, 2048), (8, 16, 128), (5, 3),
+                                   (2, 33, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_fused_rmsnorm_kernel_matches_plain(shape, dtype, scale_dtype, cuda):
+    x = _randn(shape, dtype, cuda, 7)
+    sc = _randn((shape[-1],), scale_dtype, cuda, 8)
+    out = ops.fused_rmsnorm(x, sc)
+    exp = ref.fused_rmsnorm_ref(x, sc)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
+                               atol=_lm_tol(dtype))
+
+
+def test_lm_kernel_launches_are_counted(cuda):
+    ops.reset_launch_counts()
+    x = _randn((2, 8, 4, 64), torch.bfloat16, cuda, 9)
+    ops.flash_attention(x, x, x)
+    ops.decode_attention(x[:, 0], x, x, 3)
+    ops.fused_rmsnorm(x, x[0, 0, 0])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["decode_attention"] == 1
+    assert counts["fused_rmsnorm"] == 1 and counts["int8_pack"] == 0
