@@ -8,8 +8,8 @@ Run from the repository root with no arguments:
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. setup   — print torch's version and the card (``nvidia-smi``), turn
-             TF32 off and cuDNN deterministic, build both CUDA sources of
-             ``src/repro_torch/kernels/csrc`` with nvcc, in parallel;
+             TF32 off and cuDNN deterministic, build the three CUDA sources
+             of ``src/repro_torch/kernels/csrc`` with nvcc, in parallel;
 2. plan    — MobileNetV2 (224x224, 10 classes, batch 8) on the
              ``pi_chain4`` scenario with one codec per hop (int8, fp8,
              topk); the port's own ``solve`` picks the cuts;
@@ -27,28 +27,58 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 6. lm kernels — flash attention, decode attention and RMSNorm against
              their plain versions on the card, fp32 and bf16, at the LM
              slice's shapes and ragged ones (S = T = 1000, non-causal
-             S = 64 / T = 1500, Smax = 1056 at pos 0/1/511/1055, d = 128,
-             2048, 3), within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16);
+             S = 64 / T = 1500, Smax = 1056 at pos 0/1/511/1055, RMSNorm
+             rows of d = 128, 2048 and 3, and of the SSM slice's d = 4096
+             at prefill and decode), within rtol = atol = 2e-5 (fp32) /
+             2e-2 (bf16);
              then timed at the slice's shapes beside their bound, their
              plain version and one PyTorch call;
 7. lm slice — ``repro_torch.launch.serve.main`` on qwen3-1.7b at full
              width and depth, bf16, batch 8, prompt 1024, 32 new tokens
              (cache 1056), with the launch counters reset just before; each
-             LM kernel's count must be what the path implies;
+             kernel's count must be what the path implies (0 for those
+             off it);
 8. lm parity — the same weights and prompt through the model's plain
              ``"xla"`` route: bf16 prefill logits within 5e-2 and the same
              argmax, four teacher-forced decode steps within 5e-2; then
-             fp32 with TF32 off, full width, 2 layers, within 2e-4;
+             fp32 with TF32 off, full width, 2 layers, within 2e-4 with
+             the same argmax and final cache;
 9. lm profile — one prefill and one decode step under ``torch.profiler``:
              device busy time and the largest kernels against each
-             step's wall time.
+             step's wall time;
+10. ssm kernel — the selective scan against its plain version on the card
+             within rtol = atol = 1e-4: at the SSM slice's prefill chunk
+             (8, 256, 8192, 16) and decode step (8, 1, 8192, 16) with bf16
+             x/B/C, at the reference sweep's fp32 shapes, at a ragged
+             di = 200, two chained chunks (views, state in place) against
+             one long plain scan; then timed at the prefill chunk and at
+             decode beside its bound and its plain version;
+11. ssm slice — ``serve.main`` on falcon-mamba-7b at full width and depth,
+             bf16, batch 8, prompt 1024, 32 new tokens, with the launch
+             counters reset just before; each kernel's count must be what
+             the path implies (2560 scans, 2210 RMSNorms, no attention);
+12. ssm parity — the same weights and prompt through the plain ``"xla"``
+             route, as in phase 8 but with bf16 logits within 2e-1 (64
+             layers round to bf16 independently on each route), the
+             argmax agreement printed and the final state within 1e-3;
+             the kernel route's mean error
+             against an fp32 run of the same weights at most 1.1x the
+             plain route's; then faults planted in the scan (A off by
+             2^-8 of itself, dt rounded to bf16, B and C swapped, the
+             state not carried in) read against every gate of both runs,
+             as a control;
+13. ssm profile — one prefill and one decode step under ``torch.profiler``.
 
-The last three lines of standard output are the kernel table (JSON), the
+The kernel table's row for the scan carries its prefill-chunk time; the
+decode-step time is printed in phase 10.  The last three lines of
+standard output are the kernel table (JSON), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
 """
 from __future__ import annotations
 
+import copy
+import gc
 import itertools
 import json
 import math
@@ -56,6 +86,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -66,8 +97,29 @@ CODECS = ("int8", "fp8", "topk")
 CHECK_SIZES = (1, 7, 127, 129, 1_000_003)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+# expf on the special-function units: 16 a clock per SM (CUDA programming
+# guide, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/codec_pack.cu"
 LM_SOURCE = "src/repro_torch/kernels/csrc/lm_kernels.cu"
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+SSM_REPLACES = "src/repro/kernels/ssm_scan.py:28"
+# the SSM slice: falcon-mamba-7b, batch 8, prompt 1024, 32 new tokens
+SSM_B, SSM_S, SSM_NEW = 8, 1024, 32
+# its widths: d_model, d_inner, state size, chunk length and dt_rank
+SSM_D, SSM_DI, SSM_N, SSM_L, SSM_R = 4096, 8192, 16, 256, 256
+SSM_ARGS = ["--arch", "falcon-mamba-7b", "--batch", str(SSM_B),
+            "--prompt-len", str(SSM_S), "--new-tokens", str(SSM_NEW),
+            "--seed", "0"]
+SCAN_TOL = 1e-4                # tests/test_kernels.py's for the scan
+# kernel route against plain route, bf16, 64 layers: each route's logits
+# lie up to 0.13 from an fp32 run of the same weights (one bf16 ulp of
+# difference a layer, accumulated), so the two routes differ by as much
+SSM_BF16_TOL = 2e-1
+# their final states (fp32) lie 5.2e-5 apart in that run; a gate there
+# reads the scan's own output, not through 64 layers of bf16 rounding
+SSM_STATE_TOL = 1e-3
 # the LM slice: qwen3-1.7b, batch 8, prompt 1024, 32 new tokens
 LM_B, LM_S, LM_NEW = 8, 1024, 32
 LM_ARGS = ["--arch", "qwen3-1.7b", "--batch", str(LM_B), "--prompt-len",
@@ -175,8 +227,11 @@ def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
             hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
                  ref.decode_attention_ref(q, kc, vc, pos),
                  f"Smax={smax} pos={pos}")
+        # the LM slice's rows (d_model, q/k heads) at prefill and decode,
+        # the SSM slice's (d_model) and a ragged width
         for shape in ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
-                      (LM_B, 2048), (LM_B * H, hd), (1000, 3)):
+                      (LM_B, 2048), (LM_B * H, hd), (SSM_B * SSM_S, SSM_D),
+                      (SSM_B, SSM_D), (1000, 3)):
             x, sc = randn(shape, dtype), randn((shape[-1],), dtype)
             hold("fused_rmsnorm", ops.fused_rmsnorm(x, sc),
                  ref.fused_rmsnorm_ref(x, sc), f"shape={shape}")
@@ -263,85 +318,143 @@ def time_lm_kernels(torch, ops, ref, dev) -> dict[str, dict]:
     return rows
 
 
-def lm_slice(torch, ops, serve) -> dict[str, int]:
-    """The LM serving path through its entry point, counters reset just
-    before; → the launch counts of that run."""
+def lm_expect(cfg, args) -> dict[str, int]:
+    """The LM kernels' launches on the dense serving path: two prefills
+    (warm-up + timed) and ``new_tokens`` decode steps (warm-up + the
+    timed rest); per prefill or step 4 norms a layer (ln1, ln2, q_norm,
+    k_norm) and the final one."""
+    steps = 2 + args.new_tokens
+    return {"flash_attention": 2 * cfg.n_layers,
+            "decode_attention": cfg.n_layers * args.new_tokens,
+            "fused_rmsnorm": (4 * cfg.n_layers + 1) * steps}
+
+
+def ssm_expect(cfg, args) -> dict[str, int]:
+    """The same for the SSM path: per prefill one scan a chunk a layer
+    (the model's chunking), per decode step one a layer; one norm a
+    layer and the final one per prefill or step."""
+    S = args.prompt_len
+    L = min(cfg.ssm_chunk, S)
+    n_chunks = S // L if S % L == 0 else 1
+    return {"ssm_scan_chunk": cfg.n_layers * (2 * n_chunks + args.new_tokens),
+            "fused_rmsnorm": (cfg.n_layers + 1) * (2 + args.new_tokens)}
+
+
+def serve_slice(torch, ops, serve, name, argv, expect_of) -> dict[str, int]:
+    """A serving path through its entry point, counters reset just
+    before; each kernel's count must be ``expect_of(cfg, args)``'s, 0
+    where that names none; → the launch counts of that run."""
     from repro_torch import configs
-    args = serve.parse_args(LM_ARGS)
-    n_layers = (configs.reduced if args.reduced
-                else configs.get)(args.arch).n_layers
+    args = serve.parse_args(argv)
+    cfg = (configs.reduced if args.reduced else configs.get)(args.arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    res = serve.main(LM_ARGS)
+    res = serve.main(argv)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    # two prefills (warm-up + timed) and LM_NEW decode steps (warm-up +
-    # LM_NEW - 1 timed); per step 4 norms a layer (ln1, ln2, q_norm,
-    # k_norm) and the final one
-    steps = 2 + LM_NEW
-    expect = {"flash_attention": n_layers * 2,
-              "decode_attention": n_layers * LM_NEW,
-              "fused_rmsnorm": (4 * n_layers + 1) * steps}
-    log(f"lm slice: prefill {res['prefill_ms']:.2f} ms "
+    expect = {k: 0 for k in launches}
+    expect.update(expect_of(cfg, args))
+    log(f"{name} slice: prefill {res['prefill_ms']:.2f} ms "
         f"({res['prefill_tok_s']:.0f} tok/s), decode "
         f"{res['decode_ms_per_token']:.3f} ms/token "
         f"({res['decode_tok_s']:.1f} tok/s aggregate), peak allocated "
         f"{peak / 2**30:.3f} GiB ({peak} B)")
-    log(f"lm slice: launches {json.dumps(launches)}")
+    log(f"{name} slice: launches {json.dumps(launches)}")
     wrong = {k: (launches[k], n) for k, n in expect.items()
              if launches[k] != n}
     if wrong:
-        raise AssertionError(f"LM kernel launches (got, expected): {wrong}")
+        raise AssertionError(f"{name} kernel launches (got, expected): "
+                             f"{wrong}")
     toks = res["tokens"]
-    if tuple(toks.shape) != (LM_B, LM_NEW) or not res["valid"]:
+    if tuple(toks.shape) != (args.batch, args.new_tokens) or not res["valid"]:
         raise AssertionError(f"bad generated tokens: {tuple(toks.shape)}")
     return launches
 
 
-def lm_parity(torch, serve, lm, dev):
-    """Kernel route against the plain route on the same weights; → the
-    bf16 model and inputs, for the profile."""
-    def compare(what, a, b, tol):
-        d = float((a - b).abs().max())
-        if not torch.allclose(a, b, rtol=tol, atol=tol):
-            raise AssertionError(f"lm parity: {what} differ by {d} "
-                                 f"(rtol = atol = {tol})")
-        return d
+def route_logits(lm, cfg, model, inputs, cache_len, feed):
+    """Prefill logits, then one decode step's logits for each token of
+    ``feed`` (teacher-forced); and the final cache."""
+    logits, cache = lm.forward_prefill(cfg, model, inputs, cache_len)
+    out = [logits]
+    for tok in feed:
+        logits, cache = lm.forward_decode(cfg, model, tok, cache)
+        out.append(logits)
+    return out, cache
 
-    def routes(cfg, model, inputs, cache_len, tol, label):
-        plain = cfg.replace(attn_impl="xla")
-        lk, ck = lm.forward_prefill(cfg, model, inputs, cache_len)
-        lp, cp = lm.forward_prefill(plain, model, inputs, cache_len)
-        diffs = [compare(f"{label} prefill logits", lk, lp, tol)]
-        if not torch.equal(lk.argmax(-1), lp.argmax(-1)):
-            raise AssertionError(f"lm parity: {label} prefill argmax differs")
-        g = torch.Generator(device=dev).manual_seed(4)
-        feed = torch.randint(0, cfg.vocab, (4, LM_B, 1), generator=g,
-                             device=dev, dtype=torch.int32)
-        for t in range(4):
-            lk, ck = lm.forward_decode(cfg, model, feed[t], ck)
-            lp, cp = lm.forward_decode(plain, model, feed[t], cp)
-            diffs.append(compare(f"{label} decode step {t} logits", lk, lp,
-                                 tol))
-        log(f"lm parity ({label}): kernel vs plain route max |diff| of "
+
+def held_to(torch, gate, out, cache) -> dict[str, tuple]:
+    """A kernel route's logits ``out`` and final ``cache`` against the
+    plain route's in ``gate`` → {check: (max |diff| or the number of
+    equal prefill argmaxes, whether the check fails)}."""
+    tol, plain = gate["tol"], gate["plain"]
+    res = {"logits": (
+        max(float((a - b).abs().max()) for a, b in zip(out, plain)),
+        not all(torch.allclose(a, b, rtol=tol, atol=tol)
+                for a, b in zip(out, plain)))}
+    agree = int((out[0].argmax(-1) == plain[0].argmax(-1)).sum())
+    res["argmax equal"] = (agree,
+                           gate["argmax"] and agree != out[0].shape[0])
+    for k, t in gate["cache_tol"].items():
+        a, b = cache[k].float(), gate["plain_cache"][k].float()
+        res[f"cache {k}"] = (float((a - b).abs().max()),
+                             not torch.allclose(a, b, rtol=t, atol=t))
+    return res
+
+
+def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
+           bf16_cache_tol=None):
+    """Kernel route against the plain ``"xla"`` route on the same weights:
+    prefill logits and 4 teacher-forced decode steps at full depth in the
+    working dtype within ``bf16_tol`` (with the same prefill argmax when
+    ``bf16_argmax``, and each final-cache entry named in
+    ``bf16_cache_tol`` within its limit); then fp32, TF32 off, full
+    width, 2 layers, within 2e-4 with the same argmax and final cache.
+    → the full-depth model, its inputs, the decode feed, and for each of
+    the two runs its gate: config, model, each route's logits, the plain
+    route's final cache and the limits."""
+    def routes(cfg, model, tol, argmax, cache_tol, label):
+        kern, ck = route_logits(lm, cfg, model, inputs, cache_len, feed)
+        plain, cp = route_logits(lm, cfg.replace(attn_impl="xla"), model,
+                                 inputs, cache_len, feed)
+        if cache_tol is None:
+            cache_tol = {k: tol for k, v in cp.items() if torch.is_tensor(v)}
+        gate = dict(cfg=cfg, model=model, label=label, tol=tol,
+                    argmax=argmax, cache_tol=cache_tol, kern=kern,
+                    plain=plain, plain_cache=cp)
+        diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+        cache = {k: float((v.float() - cp[k].float()).abs().max())
+                 for k, v in ck.items() if torch.is_tensor(v)}
+        res = held_to(torch, gate, kern, ck)
+        log(f"{name} parity ({label}): kernel vs plain route max |diff| of "
             f"logits, prefill then 4 decode steps: "
-            f"{[f'{d:.3g}' for d in diffs]} (rtol = atol = {tol}); prefill "
-            f"argmax equal")
+            f"{[f'{d:.3g}' for d in diffs]} (rtol = atol = {tol}); final "
+            f"cache {', '.join(f'{k} {d:.3g}' for k, d in cache.items())} "
+            f"(held: {', '.join(f'{k} {t}' for k, t in cache_tol.items())}"
+            f"); prefill argmax agrees for {res['argmax equal'][0]} of "
+            f"{feed.shape[1]}")
+        failed = [k for k, (_, bad) in res.items() if bad]
+        if failed:
+            raise AssertionError(f"{name} parity ({label}): the routes "
+                                 f"differ in {failed}")
+        return gate
 
-    args = serve.parse_args(LM_ARGS)
+    args = serve.parse_args(argv)
     cfg, model, inputs, cache_len = serve.setup(args)
-    routes(cfg, model, inputs, cache_len, 5e-2,
-           f"{cfg.dtype}, {cfg.n_layers} layers")
+    g = torch.Generator(device=dev).manual_seed(4)
+    feed = torch.randint(0, cfg.vocab, (4, args.batch, 1), generator=g,
+                         device=dev, dtype=torch.int32)
+    gates = [routes(cfg, model, bf16_tol, bf16_argmax, bf16_cache_tol or {},
+                    f"{cfg.dtype}, {cfg.n_layers} layers")]
     cfg32 = cfg.replace(n_layers=2, dtype="float32")
     model32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    routes(cfg32, model32, inputs, cache_len, 2e-4, "float32, 2 layers")
-    del model32
-    return cfg, model, inputs, cache_len
+    gates.append(routes(cfg32, model32, 2e-4, True, None,
+                        "float32, 2 layers"))
+    return cfg, model, inputs, cache_len, feed, gates
 
 
-def lm_profile(torch, cfg, model, inputs, cache_len) -> None:
+def lm_profile(torch, cfg, model, inputs, cache_len, label="lm") -> None:
     """One prefill and one decode step under torch.profiler: device busy
     time by kernel against the step's wall time."""
     from torch.autograd import DeviceType
@@ -364,16 +477,176 @@ def lm_profile(torch, cfg, model, inputs, cache_len) -> None:
                 if r.device_type == DeviceType.CUDA
                 and r.self_device_time_total]
         if not rows:
-            log(f"lm profile ({what}): wall {wall_ms:.2f} ms; the profiler "
-                f"saw no device time (busy share not measured)")
+            log(f"{label} profile ({what}): wall {wall_ms:.2f} ms; the "
+                f"profiler saw no device time (busy share not measured)")
             continue
         busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
-        log(f"lm profile ({what}): wall {wall_ms:.2f} ms under the profiler, "
-            f"device busy {busy_ms:.3f} ms (idle share "
+        log(f"{label} profile ({what}): wall {wall_ms:.2f} ms under the "
+            f"profiler, device busy {busy_ms:.3f} ms (idle share "
             f"{1 - busy_ms / wall_ms:.4f})")
         for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:12]:
             log(f"  {r.self_device_time_total / 1e3:8.3f} ms  x{r.count:<5d} "
                 f"{r.key[:90]}")
+
+
+def scan_inputs(torch, dev, B, L, di, N, dtype, seed):
+    """The reference sweep's distributions: dt softplus'ed, A negative;
+    x, B, C in ``dtype``, the rest fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(randn(B, L, di))
+    A = -torch.exp(randn(di, N) * 0.5)
+    return (dt, randn(B, L, di).to(dtype), randn(B, L, N).to(dtype),
+            randn(B, L, N).to(dtype), A, randn(B, di, N))
+
+
+def check_ssm_kernel(torch, ops, ref, dev) -> float:
+    """The scan kernel against its plain version → max |kernel - plain|."""
+    bf, f32 = torch.bfloat16, torch.float32
+    err = 0.0
+
+    def hold(what, got, exp):
+        nonlocal err
+        for a, b in zip(got, exp):
+            d = float((a - b).abs().max())
+            if (a.shape != b.shape or a.dtype != torch.float32
+                    or not torch.allclose(a, b, rtol=SCAN_TOL,
+                                          atol=SCAN_TOL)):
+                raise AssertionError(f"ssm_scan_chunk {what}: kernel and "
+                                     f"plain version differ (max {d})")
+            err = max(err, d)
+
+    di, N, L2 = SSM_DI, SSM_N, 2 * SSM_L
+    for B, L, dd, n, dtype in ((SSM_B, SSM_L, di, N, bf),
+                               (SSM_B, 1, di, N, bf), (2, 64, 128, 16, f32),
+                               (1, 32, 256, 8, f32), (2, 16, 64, 16, f32),
+                               (3, 40, 200, 8, f32), (2, 33, 200, 16, bf)):
+        args = scan_inputs(torch, dev, B, L, dd, n, dtype, L + dd)
+        hold(f"({B},{L},{dd},{n}) {dtype}", ops.ssm_scan_chunk(*args),
+             ref.ssm_scan_chunk_ref(*args))
+    # two chunks as views of one (B, 2L, .) input, B/C column slices of
+    # one projection (dt_rank columns first), y into one buffer, the state
+    # in place
+    dt, x, _, _, A, h0 = scan_inputs(torch, dev, SSM_B, L2, di, N, bf, 5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    proj = torch.randn(SSM_B, L2, SSM_R + 2 * N, generator=g,
+                       device=dev).to(bf)
+    Bc, Cc = proj[..., SSM_R:SSM_R + N], proj[..., SSM_R + N:]
+    y = torch.empty(SSM_B, L2, di, device=dev)
+    h = h0.clone()
+    for c in (slice(0, SSM_L), slice(SSM_L, L2)):
+        _, h_new = ops.ssm_scan_chunk(dt[:, c], x[:, c], Bc[:, c], Cc[:, c],
+                                      A, h, y=y[:, c], h_out=h)
+        if h_new is not h:
+            raise AssertionError("ssm_scan_chunk: h_out was not used")
+    hold("two chained chunks, state in place",
+         (y, h), ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0))
+    torch.cuda.synchronize()
+    log(f"ssm kernel: within rtol = atol = {SCAN_TOL} of the plain version "
+        f"at the prefill chunk, the decode step, the sweep, ragged di = 200 "
+        f"and two chained chunks in place; max |diff| {err:.3g}")
+    return err
+
+
+def time_ssm_kernel(torch, ops, ref, dev) -> dict[str, dict]:
+    """The scan at the slice's prefill chunk and decode step (bf16 x/B/C):
+    ms, bound and plain ms.  Decode rotates over 24 states (100 MB, twice
+    the L2), as its 64 layers' slots do on the path."""
+    rows = {}
+    for what, L, n_sets, iters in (("prefill", SSM_L, 1, 20),
+                                   ("decode", 1, 24, 96)):
+        sets = [scan_inputs(torch, dev, SSM_B, L, SSM_DI, SSM_N,
+                            torch.bfloat16, 7 + i) for i in range(n_sets)]
+        cyc, pcyc = itertools.cycle(sets), itertools.cycle(sets)
+        B, L, di = sets[0][0].shape
+        N = sets[0][2].shape[-1]
+        item = sets[0][1].element_size()
+        nbytes = (4 * B * L * di + item * B * L * di + 4 * B * L * di
+                  + 2 * 4 * B * di * N + 4 * di * N + 2 * item * B * L * N)
+        flops = B * L * di * (6 * N + 1)
+        exps = B * L * di * N
+        by = {"bytes": nbytes / HBM_BYTES_PER_S,
+              "operations": max(flops / FP32_FLOP_PER_S,
+                                exps / SFU_OPS_PER_S)}
+        bound_by = max(by, key=by.get)
+        rows[what] = dict(
+            shape=f"({B},{L},{di},{N}) bf16 x/B/C",
+            ms=device_ms(torch, f"ssm_scan_chunk {what}",
+                         lambda: ops.ssm_scan_chunk(*next(cyc)), iters),
+            plain_ms=device_ms(torch, f"ssm_scan_chunk {what} plain",
+                               lambda: ref.ssm_scan_chunk_ref(*next(pcyc)),
+                               3 if L > 1 else iters),
+            library_ms=None, bound_ms=by[bound_by] * 1e3, bound_by=bound_by,
+            bytes=nbytes, exps=exps, flops=flops)
+        t = rows[what]
+        log(f"  ssm_scan_chunk {what} {t['shape']}: kernel {t['ms']:.4f} ms  "
+            f"bound {t['bound_ms']:.4f} ms ({bound_by}; {nbytes} B, {exps} "
+            f"exp, {flops} flop)  plain {t['plain_ms']:.4f} ms  library "
+            f"none")
+        del sets
+    return rows
+
+
+def ssm_truth(torch, lm, inputs, feed, gates):
+    """Both bf16 routes against an fp32 run of the same weights on the
+    plain route: the kernel route's mean error must be at most 1.1x the
+    plain route's.  Then faults planted in the scan on the kernel route,
+    each read against every gate of both runs (a control of the gates'
+    power, printed and not asserted)."""
+    bf = gates[0]
+    cfg_f32 = bf["cfg"].replace(dtype="float32", attn_impl="xla")
+    model_f32 = copy.deepcopy(bf["model"]).float()
+    truth, _ = route_logits(lm, cfg_f32, model_f32, inputs, None, feed)
+    del model_f32
+    torch.cuda.empty_cache()
+
+    def mean_err(out):
+        return float(torch.stack([(a - b).abs()
+                                  for a, b in zip(out, truth)]).mean())
+
+    err = {n: mean_err(bf[n]) for n in ("kern", "plain")}
+    worst = {n: float(max((a - b).abs().max() for a, b in zip(bf[n], truth)))
+             for n in err}
+    log(f"ssm parity ({bf['label']}) against fp32 from the same weights: "
+        + "; ".join(f"{r} route max {worst[n]:.4g} mean {err[n]:.4g}"
+                    for r, n in (("kernel", "kern"), ("plain", "plain"))))
+    if err["kern"] > 1.1 * err["plain"]:
+        raise AssertionError("ssm parity: the kernel route is less "
+                             "accurate than the plain route")
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    scan = ops.ssm_scan_chunk
+    faults = {
+        "A off by 2^-8 of itself": lambda dt, x, B, C, A, h0, **kw: scan(
+            dt, x, B, C, A * (1 + 2 ** -8), h0, **kw),
+        "dt rounded to bf16": lambda dt, x, B, C, A, h0, **kw: scan(
+            dt.to(torch.bfloat16).float(), x, B, C, A, h0, **kw),
+        "B and C swapped": lambda dt, x, B, C, A, h0, **kw: scan(
+            dt, x, C, B, A, h0, **kw),
+        "state not carried in": lambda dt, x, B, C, A, h0, **kw: scan(
+            dt, x, B, C, A, torch.zeros_like(h0), **kw),
+    }
+    # planted where the model looks the wrapper up, so that the wrapper
+    # itself (and its launch count) stays as it is
+    for what, faulty in faults.items():
+        for gate in gates:
+            ssm.ops = types.SimpleNamespace(ssm_scan_chunk=faulty)
+            try:
+                out, cache = route_logits(lm, gate["cfg"], gate["model"],
+                                          inputs, None, feed)
+            finally:
+                ssm.ops = ops
+            res = held_to(torch, gate, out, cache)
+            if gate is bf:
+                e = mean_err(out)
+                res["mean error"] = (e / err["plain"],
+                                     e > 1.1 * err["plain"])
+            log(f"ssm parity control ({what}; {gate['label']}): "
+                + ", ".join(f"{k} {v:.4g}{' FAILS' if bad else ''}"
+                            for k, (v, bad) in res.items()))
 
 
 def main() -> int:
@@ -622,10 +895,35 @@ def main() -> int:
     log(f"lm kernels (check-phase launches): {json.dumps(ops.launch_counts())}")
 
     # ------------------------------------------------------------ lm slice
-    lm_launches = lm_slice(torch, ops, serve)
+    lm_launches = serve_slice(torch, ops, serve, "lm", LM_ARGS, lm_expect)
 
     # ----------------------------------------------------- lm parity, profile
-    lm_profile(torch, *lm_parity(torch, serve, lm, dev))
+    lm_profile(torch, *parity(torch, serve, lm, dev, "lm", LM_ARGS, 5e-2,
+                              True)[:4])
+
+    # ---------------------------------------------------------- ssm kernel
+    gc.collect()                       # the qwen3 model is unreferenced now
+    torch.cuda.empty_cache()
+    ssm_err = check_ssm_kernel(torch, ops, ref, dev)
+    ssm_timing = time_ssm_kernel(torch, ops, ref, dev)
+    log(f"ssm kernel (check-phase launches): "
+        f"{json.dumps(ops.launch_counts())}")
+
+    # ----------------------------------------------------------- ssm slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launches = serve_slice(torch, ops, serve, "ssm", SSM_ARGS,
+                               ssm_expect)
+
+    # ---------------------------------------------------- ssm parity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, inputs, cache_len, feed, gates = parity(
+        torch, serve, lm, dev, "ssm", SSM_ARGS, SSM_BF16_TOL, False,
+        {"h": SSM_STATE_TOL})
+    ssm_truth(torch, lm, inputs, feed, gates)
+    del gates
+    lm_profile(torch, cfg, model, inputs, cache_len, label="ssm")
 
     # --------------------------------------------------------------- report
     rows = []
@@ -644,6 +942,13 @@ def main() -> int:
             "max_abs_err": lm_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = ssm_timing["prefill"]
+    rows.append({
+        "name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
+        "replaces": SSM_REPLACES, "launches": ssm_launches["ssm_scan_chunk"],
+        "max_abs_err": ssm_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -126,7 +126,7 @@ CODEC_PACK = KernelLibrary("codec_pack", {
     "codec_topk_keys": [P, I64, P],
 }, error_fn="codec_error_string")
 
-# dtype codes of lm_kernels.cu's entry points
+# dtype codes of lm_kernels.cu's and ssm_scan.cu's entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LM_KERNELS = KernelLibrary("lm_kernels", {
@@ -140,4 +140,12 @@ LM_KERNELS = KernelLibrary("lm_kernels", {
     "lm_rmsnorm": [P, P, P, I64, I32, F32, I32, I32],
 }, error_fn="lm_error_string")
 
-LIBRARIES = (CODEC_PACK, LM_KERNELS)
+SSM_SCAN = KernelLibrary("ssm_scan", {
+    # dt, x, Bc, Cc, A, h0, y, h_out, B, L, di, N, the (batch, time)
+    # strides of dt, x, Bc, Cc and y, x/B/C dtype
+    "ssm_scan_chunk": [P, P, P, P, P, P, P, P, I32, I32, I32, I32,
+                       I64, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                       I32],
+}, error_fn="ssm_error_string")
+
+LIBRARIES = (CODEC_PACK, LM_KERNELS, SSM_SCAN)

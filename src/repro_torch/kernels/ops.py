@@ -1,13 +1,14 @@
-"""Public wrappers for the port's kernels: the wire codecs and the LM
-serving path's attention and RMSNorm.
+"""Public wrappers for the port's kernels: the wire codecs, the LM
+serving path's attention and RMSNorm, and the Mamba-1 selective scan.
 
 A tensor on the CPU goes to its plain version in ``ref`` (the CPU tests
 run that path, as the reference's tests run Pallas in interpret mode).
 Any other tensor goes to the CUDA kernel in ``codec_pack``,
-``flash_attention``, ``decode_attention`` or ``fused_rmsnorm``, which
-launches or raises: there is no fallback.  Each wrapper counts its
-kernel launches in a plain integer attribute, ``<wrapper>.launches``,
-so a run can show that its main path went through the kernels.
+``flash_attention``, ``decode_attention``, ``fused_rmsnorm`` or
+``ssm_scan``, which launches or raises: there is no fallback.  Each
+wrapper counts its kernel launches in a plain integer attribute,
+``<wrapper>.launches``, so a run can show that its main path went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from . import codec_pack, ref
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_rmsnorm as _rms
+from . import ssm_scan as _ssm
 
 _count_lock = threading.Lock()
 
@@ -118,8 +120,27 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return out
 
 
+@_counted
+def ssm_scan_chunk(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A: torch.Tensor, h0: torch.Tensor, *,
+                   y: torch.Tensor | None = None,
+                   h_out: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the Mamba-1 recurrence: dt, x (B,L,di); Bc, Cc
+    (B,L,N); A (di,N); h0 (B,di,N) → (y (B,L,di) fp32, h (B,di,N) fp32).
+    ``y``/``h_out``, when given, receive the results (``h_out`` may be
+    ``h0``)."""
+    if dt.device.type == "cpu":
+        out = ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)
+        return tuple(res if dst is None else dst.copy_(res)
+                     for res, dst in zip(out, (y, h_out)))
+    out = _ssm.ssm_scan_chunk(dt, x, Bc, Cc, A, h0, y=y, h_out=h_out)
+    _launched(ssm_scan_chunk)
+    return out
+
+
 WRAPPERS = (int8_pack, int8_unpack, fp8_pack, fp8_unpack, topk_select,
-            flash_attention, decode_attention, fused_rmsnorm)
+            flash_attention, decode_attention, fused_rmsnorm, ssm_scan_chunk)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,13 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the ground truth).
 
 ``ops`` takes these for tensors on the CPU; ``chip_smoke.py`` and the
-``cuda``-marked tests hold each CUDA kernel in ``csrc/codec_pack.cu``
-and ``csrc/lm_kernels.cu`` to them on the card.
+``cuda``-marked tests hold each CUDA kernel in ``csrc/codec_pack.cu``,
+``csrc/lm_kernels.cu`` and ``csrc/ssm_scan.cu`` to them on the card.
 
 The LM kernels' versions (attention and RMSNorm) follow the reference's
 ``kernels/ref.py``: dense score matrices in fp32, cast back to the
 input's dtype.  Unlike the reference's Pallas kernels they take any
-``S``, ``T`` and ``Smax``.
+``S``, ``T`` and ``Smax``.  The selective scan's is the reference's
+sequential recurrence in fp32, one time step at a time.
 
 The codec versions repeat their kernel's arithmetic step for step,
 because the wire carries the kernel's bytes:
@@ -120,6 +121,28 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~mask, float("-inf"))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", w, vv).to(q.dtype)
+
+
+def ssm_scan_chunk_ref(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
+                       Cc: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the Mamba-1 recurrence, step by step in fp32.
+
+    dt, x: (B, L, di) (dt already softplus'ed); Bc, Cc: (B, L, N);
+    A: (di, N) (negative); h0: (B, di, N) →
+    (y (B, L, di) fp32, h (B, di, N) fp32), with
+    ``h = exp(dt·A)·h + (dt·x)⊗B`` and ``y = h·C`` at every step."""
+    f32 = torch.float32
+    dt, x = dt.to(f32), x.to(f32)
+    Bc, Cc, A = Bc.to(f32), Cc.to(f32), A.to(f32)
+    h = h0.to(f32)
+    ys = []
+    for t in range(dt.shape[1]):
+        dA = torch.exp(dt[:, t, :, None] * A)                  # (B, di, N)
+        h = dA * h + (dt[:, t] * x[:, t])[:, :, None] * Bc[:, t, None, :]
+        ys.append((h * Cc[:, t, None, :]).sum(dim=-1))         # (B, di)
+    y = torch.stack(ys, dim=1) if ys else dt.new_zeros(dt.shape)
+    return y, h
 
 
 def fused_rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,

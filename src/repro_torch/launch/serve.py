@@ -1,16 +1,22 @@
-"""Serving launcher: batched prefill + greedy decode with KV caches
-(counterpart of ``src/repro/launch/serve.py``).
+"""Serving launcher: batched prefill + greedy decode with KV caches, or
+with the conv window and state of an SSM (counterpart of
+``src/repro/launch/serve.py``).
 
 Builds a registered arch with random weights from ``--seed``, prefills
 a batch of synthetic prompts, decodes ``--new-tokens`` tokens, and
 reports prefill latency and decode throughput — the paper's two
 metrics, on the LM serving path.  It serves with
-``attn_impl="pallas"``: on the card attention and every RMSNorm run the
-port's CUDA kernels, on the CPU (``--device cpu``) their plain versions.
+``attn_impl="pallas"``: on the card attention, the selective scan and
+every RMSNorm run the port's CUDA kernels, on the CPU (``--device
+cpu``) their plain versions.  ``cache_len`` is unused by the ssm family.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
   python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced \\
+      --device cpu
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
 
 ``main`` prints the reference's lines and returns the numbers.

@@ -14,11 +14,13 @@ keys and leaf shapes (``Leaves``).
 Numerics mirror the reference: norms and RoPE compute in fp32 and cast
 back; SiLU rounds the fp32 sigmoid to the working dtype before the
 product; GELU is the tanh approximation (``jax.nn.gelu``'s default);
-logits are fp32 from working-dtype operands.
+softplus is ``jax.nn.softplus``'s formula; logits are fp32 from
+working-dtype operands.
 """
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
@@ -37,19 +39,26 @@ class Init:
     """Draws leaves as the reference's ``InitBuilder.leaf`` shapes and
     scales them: ``"normal"`` is N(0, 1) in fp32 times ``scale``
     (default 1/sqrt(fan_in), fan_in = shape[0] for a matrix, the length
-    of a vector), cast to ``dtype``; ``"ones"``/``"zeros"`` are
-    constant.  Draws come from ``generator`` in call order."""
+    of a vector), cast to the leaf's dtype; ``"ones"``/``"zeros"`` are
+    constant; a callable ``init(shape, dtype, device)`` makes the leaf
+    itself.  A leaf's ``dtype`` defaults to the model's.  Draws come
+    from ``generator`` in call order."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device):
         self.generator, self.dtype, self.device = generator, dtype, device
 
-    def __call__(self, shape: tuple[int, ...], init: str = "normal",
-                 scale: float | None = None) -> torch.Tensor:
+    def __call__(self, shape: tuple[int, ...],
+                 init: str | Callable = "normal",
+                 scale: float | None = None,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+        dtype = dtype or self.dtype
+        if callable(init):
+            return init(shape, dtype, self.device)
         if init == "ones":
-            return torch.ones(shape, dtype=self.dtype, device=self.device)
+            return torch.ones(shape, dtype=dtype, device=self.device)
         if init == "zeros":
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
         if init != "normal":
             raise ValueError(init)
         if scale is None:
@@ -57,7 +66,7 @@ class Init:
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return (w * scale).to(self.dtype)
+        return (w * scale).to(dtype)
 
 
 class Leaves(nn.Module):
@@ -110,6 +119,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s formula, ``log1p(exp(-|x|)) + max(x, 0)``
+    (``F.softplus`` switches to ``x`` above a threshold instead)."""
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,5 @@
-"""Decoder LM for serving: the dense and vlm families (counterpart of
-``src/repro/models/lm.py``).
+"""Decoder LM for serving: the dense, vlm and ssm (Mamba-1) families
+(counterpart of ``src/repro/models/lm.py``).
 
 The reference stacks per-layer params on a leading ``layers`` axis and
 scans over it; here the layers are an ``nn.ModuleList`` walked by a
@@ -7,16 +7,19 @@ Python loop, each block a ``Leaves`` node with the reference's keys and
 leaf shapes, so ``from_reference`` only unstacks that axis.
 
 Cache (serving): ``{"k", "v": (L, B, cache_len, KV, hd), "pos": int}``,
-zero past the prompt.  ``pos`` stays a Python int on the host, so no
-decode step waits on the device to read it.  Decode writes the new k/v
-rows into the cache tensors in place (the reference returns updated
-copies): the cache passed to ``forward_decode`` is the one it returns,
-with ``pos`` advanced.
+zero past the prompt, for attention; ``{"conv": (L, B, K-1, di) in the
+working dtype, "h": (L, B, di, N) fp32, "pos": int}`` for ssm, which
+ignores ``cache_len`` as the reference does.  ``pos`` stays a Python
+int on the host, so no decode step waits on the device to read it.
+Decode writes the new k/v rows, or the new conv window and state, into
+the cache tensors in place (the reference returns updated copies): the
+cache passed to ``forward_decode`` is the one it returns, with ``pos``
+advanced.
 
-``cfg.attn_impl`` picks the kernels: ``"pallas"`` runs attention and
-every RMSNorm through ``kernels.ops``, ``"xla"`` through the plain
-copies of the reference's routes.  The moe, ssm, hybrid and encdec
-families are not ported yet (ROADMAP queue 1, item 10).
+``cfg.attn_impl`` picks the kernels: ``"pallas"`` runs attention, the
+selective scan and every RMSNorm through ``kernels.ops``, ``"xla"``
+through the plain copies of the reference's routes.  The moe, hybrid
+and encdec families are not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -29,15 +32,17 @@ from .attention import (attend_decode, attend_prefill, attn_params,
 from .cnn.zoo import resolve_device
 from .common import DTYPES, Init, Leaves, embed_lookup, lm_logits, norm
 from .mlp import mlp, mlp_params
+from .ssm import mamba1_block, mamba1_params
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm")
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1, item 10; the port serves {FAMILIES})")
+            f"(ROADMAP queue 1, item 10; the port serves the "
+            f"{', '.join(FAMILIES)} families)")
 
 
 # --------------------------------------------------------------------------- #
@@ -48,7 +53,11 @@ def _norm_params(leaf, d: int) -> dict:
 
 
 def layer_params(cfg, leaf) -> dict:
-    """One dense/vlm block: the reference's ``_attn_block_params``."""
+    """One block: the reference's ``_attn_block_params`` (dense/vlm) or
+    its ssm layer (a norm and a Mamba-1 mixer)."""
+    if cfg.family == "ssm":
+        return {"ln": _norm_params(leaf, cfg.d_model),
+                "mamba": mamba1_params(cfg, leaf)}
     return {"ln1": _norm_params(leaf, cfg.d_model),
             "attn": attn_params(cfg, leaf),
             "ln2": _norm_params(leaf, cfg.d_model),
@@ -154,9 +163,28 @@ def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
     return x + mlp(cfg, p.mlp, h2), new_kv
 
 
+def ssm_block(cfg, p, x, cache=None, h_out=None):
+    """Pre-norm Mamba-1 block (the reference's ``_ssm_block``).  Returns
+    (x, {"conv", "h"}); the state goes into ``h_out`` when given."""
+    h = norm(cfg, x, p.ln.scale)
+    y, new_cache = mamba1_block(cfg, p.mamba, h, cache, h_out)
+    return x + y, new_cache
+
+
 def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
-    """x: (B, S, D) → (hidden, cache); ``cache_len >= S``."""
+    """x: (B, S, D) → (hidden, cache); ``cache_len >= S`` (unused by
+    ssm)."""
     B, S, _ = x.shape
+    if cfg.family == "ssm":
+        L, K, di = cfg.n_layers, cfg.ssm_conv, cfg.d_inner
+        convs = torch.empty((L, B, K - 1, di), dtype=x.dtype,
+                            device=x.device)
+        hs = torch.empty((L, B, di, cfg.ssm_state), dtype=torch.float32,
+                         device=x.device)
+        for i, p in enumerate(model.layers):
+            x, new = ssm_block(cfg, p, x, h_out=hs[i])
+            convs[i] = new["conv"]
+        return x, {"conv": convs, "h": hs, "pos": S}
     shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -169,8 +197,16 @@ def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
 
 def trunk_decode(cfg, model: LM, x, cache: dict):
     """x: (B, 1, D) → (hidden, cache) with the new row written at
-    ``cache["pos"]`` of every layer."""
+    ``cache["pos"]`` of every layer (ssm: each layer's conv window and
+    state updated in place)."""
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        for i, p in enumerate(model.layers):
+            x, new = ssm_block(cfg, p, x, {"conv": cache["conv"][i],
+                                           "h": cache["h"][i]},
+                               h_out=cache["h"][i])
+            cache["conv"][i] = new["conv"]
+        return x, {"conv": cache["conv"], "h": cache["h"], "pos": pos + 1}
     positions = torch.arange(pos, pos + 1, device=x.device)
     for i, p in enumerate(model.layers):
         x, _ = attn_mlp_block(cfg, p, x, positions,

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (codec_pack, decode_attention,
-                                 flash_attention, fused_rmsnorm, ops)
+                                 flash_attention, fused_rmsnorm, ops,
+                                 ssm_scan)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "psutil", "repro"}
@@ -64,10 +65,16 @@ WRAPPERS = {
         t[:4].reshape(1, 2, 2), t.reshape(1, 4, 2, 2), t.reshape(1, 4, 2, 2),
         1),
     "fused_rmsnorm": lambda t: ops.fused_rmsnorm(t.reshape(4, 4), t[:4]),
+    # dt/x (1,2,8), B/C (1,2,8), A (8,8), h0 (1,8,8): N = 8
+    "ssm_scan_chunk": lambda t: ops.ssm_scan_chunk(
+        t.reshape(1, 2, 8), t.reshape(1, 2, 8), t.reshape(1, 2, 8),
+        t.reshape(1, 2, 8), t.repeat(4).reshape(8, 8),
+        t.repeat(4).reshape(1, 8, 8)),
 }
 KERNEL_MODULES = {"flash_attention": flash_attention,
                   "decode_attention": decode_attention,
-                  "fused_rmsnorm": fused_rmsnorm}
+                  "fused_rmsnorm": fused_rmsnorm,
+                  "ssm_scan_chunk": ssm_scan}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain versions: the
 codec kernels bit for bit, the LM kernels (attention, RMSNorm) within
-``tests/test_kernels.py``'s tolerances (2e-5 in fp32, 2e-2 in bf16).
+``tests/test_kernels.py``'s tolerances (2e-5 in fp32, 2e-2 in bf16), the
+selective scan within its 1e-4.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports no jax, so it runs on the GPU machine without the repository's
@@ -155,3 +156,79 @@ def test_lm_kernel_launches_are_counted(cuda):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["decode_attention"] == 1
     assert counts["fused_rmsnorm"] == 1 and counts["int8_pack"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# selective scan (csrc/ssm_scan.cu)
+# --------------------------------------------------------------------------- #
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py's
+
+
+def _scan_inputs(B, L, di, N, dtype, cuda, seed):
+    """dt softplus'ed, A negative (the reference sweep's distributions);
+    x, B, C in ``dtype``, the rest fp32."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(randn(B, L, di))
+    A = -torch.exp(randn(di, N) * 0.5)
+    return (dt, randn(B, L, di).to(dtype), randn(B, L, N).to(dtype),
+            randn(B, L, N).to(dtype), A, randn(B, di, N))
+
+
+@pytest.mark.parametrize("B,L,di,N,dtype", [
+    (8, 256, 8192, 16, torch.bfloat16),     # the serving path's prefill chunk
+    (8, 1, 8192, 16, torch.bfloat16),       # its decode step
+    (2, 64, 128, 16, torch.float32),        # the reference sweep
+    (1, 32, 256, 8, torch.float32),
+    (2, 16, 64, 16, torch.float32),
+    (3, 40, 200, 8, torch.float32),         # ragged di, ragged time tile
+    (2, 33, 200, 16, torch.bfloat16),
+])
+def test_ssm_scan_kernel_matches_plain(B, L, di, N, dtype, cuda):
+    args = _scan_inputs(B, L, di, N, dtype, cuda, L + di)
+    y, h = ops.ssm_scan_chunk(*args)
+    ye, he = ref.ssm_scan_chunk_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, ye, **SCAN_TOL)
+    torch.testing.assert_close(h, he, **SCAN_TOL)
+
+
+def test_ssm_scan_kernel_chains_in_place_over_views(cuda):
+    """Two chunks read as views of one (B, 2L, .) input, B/C as column
+    slices of one projection, y written into one buffer and the state
+    updated in place (``h_out`` is ``h0``), equal one long plain scan."""
+    Bn, L, di, N, R = 2, 128, 300, 16, 8
+    dt, x, _, _, A, h0 = _scan_inputs(Bn, 2 * L, di, N, torch.bfloat16,
+                                      cuda, 11)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    proj = torch.randn(Bn, 2 * L, R + 2 * N, generator=g,
+                       device=cuda).to(torch.bfloat16)
+    Bc, Cc = proj[..., R:R + N], proj[..., R + N:]
+    ye, he = ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)
+    y = torch.empty(Bn, 2 * L, di, device=cuda)
+    h = h0.clone()
+    for c in (slice(0, L), slice(L, 2 * L)):
+        _, h_new = ops.ssm_scan_chunk(dt[:, c], x[:, c], Bc[:, c], Cc[:, c],
+                                      A, h, y=y[:, c], h_out=h)
+        assert h_new is h
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ye, **SCAN_TOL)
+    torch.testing.assert_close(h, he, **SCAN_TOL)
+
+
+def test_ssm_scan_kernel_refuses_an_uncompiled_state_size(cuda):
+    args = _scan_inputs(1, 4, 32, 4, torch.float32, cuda, 13)
+    with pytest.raises(ValueError, match="no compiled instance"):
+        ops.ssm_scan_chunk(*args)
+
+
+def test_ssm_scan_launches_are_counted(cuda):
+    ops.reset_launch_counts()
+    args = _scan_inputs(1, 4, 32, 8, torch.float32, cuda, 14)
+    ops.ssm_scan_chunk(*args)
+    ops.ssm_scan_chunk(*args, h_out=args[-1])
+    counts = ops.launch_counts()
+    assert counts["ssm_scan_chunk"] == 2 and counts["fused_rmsnorm"] == 0

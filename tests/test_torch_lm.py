@@ -144,8 +144,9 @@ def test_init_draws_the_reference_scales(name):
     assert torch.equal(again.layers[1].mlp.w_up, model.layers[1].mlp.w_up)
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
-                                  "zamba2-7b", "whisper-small"])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b",
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-7b",
+                                  "whisper-small"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         lm.init(configs.reduced(name), torch.Generator().manual_seed(0),
