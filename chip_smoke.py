@@ -24,15 +24,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 5. profile — one lone batch under ``torch.profiler``: device busy time
              by kernel against the batch's wall time (full table in
              ``chiprun_out/smoke_profile.txt``).
-6. lm kernels — flash attention, decode attention and RMSNorm against
-             their plain versions on the card, fp32 and bf16, at the LM
-             slice's shapes and ragged ones (S = T = 1000, non-causal
-             S = 64 / T = 1500, Smax = 1056 at pos 0/1/511/1055, RMSNorm
-             rows of d = 128, 2048 and 3, and of the SSM slice's d = 4096
-             at prefill and decode), within rtol = atol = 2e-5 (fp32) /
-             2e-2 (bf16);
-             then timed at the slice's shapes beside their bound, their
-             plain version and one PyTorch call;
+6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
+             the FMA kernel), decode attention (split and combine kernels)
+             and RMSNorm against their plain versions on the card, fp32 and
+             bf16, at the LM slice's shapes and ragged ones (S = T = 1000,
+             non-causal S = 64 / T = 1500, every registry head dim: 64, 96,
+             112, 128, the reduced configs' 16, granite-20b's MQA group G =
+             48, causal S < T; Smax = 1056 at pos 0/1/511/1055 and forced
+             split counts 1, 2, 7 and more than positions at pos 0 and
+             1055, held also to the plain split-and-combine; RMSNorm rows
+             of d = 128, 2048 and 3, and of the SSM slice's d = 4096 at
+             prefill and decode), within rtol = atol = 2e-5 (fp32) / 2e-2
+             (bf16); then timed at the slice's shapes beside their bound,
+             their plain version and one PyTorch call;
 7. lm slice — ``repro_torch.launch.serve.main`` on qwen3-1.7b at full
              width and depth, bf16, batch 8, prompt 1024, 32 new tokens
              (cache 1056), with the launch counters reset just before; each
@@ -45,7 +49,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              the same argmax and final cache;
 9. lm profile — one prefill and one decode step under ``torch.profiler``:
              device busy time and the largest kernels against each
-             step's wall time;
+             step's wall time; the bf16 prefill must run
+             ``flash_attention_tc_kernel`` and not the FMA
+             ``flash_attention_kernel``, the decode step
+             ``decode_split_kernel`` and ``decode_combine_kernel``;
 10. ssm kernel — the selective scan against its plain version on the card
              within rtol = atol = 1e-4: at the SSM slice's prefill chunk
              (8, 256, 8192, 16) and decode step (8, 1, 8192, 16) with bf16
@@ -129,6 +136,12 @@ LM_REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:26",
     "fused_rmsnorm": "src/repro/kernels/fused_rmsnorm.py:16",
 }
+# the kernels each LM step must run on the card, by the profiler's names,
+# and those it must not
+LM_STEP_KERNELS = {
+    "prefill": (("flash_attention_tc_kernel",), ("flash_attention_kernel",)),
+    "decode step": (("decode_split_kernel", "decode_combine_kernel"), ()),
+}
 # the __global__ functions of codec_pack.cu, as the profiler names them
 CUDA_KERNELS = ("absmax_kernel", "int8_pack_kernel", "fp8_pack_kernel",
                 "int8_unpack_kernel", "fp8_unpack_kernel", "topk_keys_kernel")
@@ -209,16 +222,27 @@ def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
         key = (name, str(exp.dtype).split(".")[-1])
         by_dtype[key] = max(by_dtype.get(key, 0.0), worst)
 
+    from repro_torch.kernels import decode_attention as dk
     H, KV, hd = 16, 8, 128
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, T, causal in ((LM_B, LM_S, LM_S, True),
-                                (2, 1000, 1000, True),
-                                (2, 64, 1500, False)):
-            q = randn((B, S, H, hd), dtype)
-            k, v = randn((B, T, KV, hd), dtype), randn((B, T, KV, hd), dtype)
+        # the slice's heads, ragged S and T, every registry head dim (64
+        # whisper, 96 phi-3-vision, 112 zamba2, 128 the rest; 16 the
+        # reduced configs), granite-20b's MQA group, causal S < T
+        for B, S, T, h, kv, d, causal in (
+                (LM_B, LM_S, LM_S, H, KV, hd, True),
+                (2, 1000, 1000, H, KV, hd, True),
+                (2, 64, 1500, H, KV, hd, False),
+                (1, 300, 300, 4, 2, 64, True),
+                (1, 300, 300, 4, 4, 96, True),
+                (1, 300, 300, 4, 4, 112, False),
+                (2, 200, 200, 4, 2, 16, True),
+                (1, 256, 256, 48, 1, hd, True),
+                (1, 77, 300, 4, 2, hd, True)):
+            q = randn((B, S, h, d), dtype)
+            k, v = randn((B, T, kv, d), dtype), randn((B, T, kv, d), dtype)
             hold("flash_attention", ops.flash_attention(q, k, v, causal=causal),
                  ref.flash_attention_ref(q, k, v, causal=causal),
-                 f"B={B} S={S} T={T} causal={causal}")
+                 f"B={B} S={S} T={T} H={h} KV={kv} hd={d} causal={causal}")
         smax = LM_S + LM_NEW
         q = randn((LM_B, H, hd), dtype)
         kc = randn((LM_B, smax, KV, hd), dtype)
@@ -227,6 +251,16 @@ def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
             hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
                  ref.decode_attention_ref(q, kc, vc, pos),
                  f"Smax={smax} pos={pos}")
+        # forced split counts, empty splits included, against the plain
+        # version and the plain split-and-combine
+        for pos in (0, smax - 1):
+            for splits in (1, 2, 7, pos + 3):
+                out = dk.decode_attention(q, kc, vc, pos, splits=splits)
+                for exp in (ref.decode_attention_ref(q, kc, vc, pos),
+                            ref.decode_attention_split_ref(q, kc, vc, pos,
+                                                           splits)):
+                    hold("decode_attention", out, exp,
+                         f"Smax={smax} pos={pos} splits={splits}")
         # the LM slice's rows (d_model, q/k heads) at prefill and decode,
         # the SSM slice's (d_model) and a ragged width
         for shape in ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
@@ -454,9 +488,11 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
     return cfg, model, inputs, cache_len, feed, gates
 
 
-def lm_profile(torch, cfg, model, inputs, cache_len, label="lm") -> None:
+def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
+               expect=None) -> None:
     """One prefill and one decode step under torch.profiler: device busy
-    time by kernel against the step's wall time."""
+    time by kernel against the step's wall time.  ``expect`` maps each
+    step to the kernel names it must run and those it must not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -479,6 +515,9 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm") -> None:
         if not rows:
             log(f"{label} profile ({what}): wall {wall_ms:.2f} ms; the "
                 f"profiler saw no device time (busy share not measured)")
+            if expect:
+                raise AssertionError(f"{label} {what}: no kernel names to "
+                                     f"check")
             continue
         busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
         log(f"{label} profile ({what}): wall {wall_ms:.2f} ms under the "
@@ -487,6 +526,18 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm") -> None:
         for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:12]:
             log(f"  {r.self_device_time_total / 1e3:8.3f} ms  x{r.count:<5d} "
                 f"{r.key[:90]}")
+        if expect:
+            need, forbid = expect[what]
+            for name in need:
+                ran = [r for r in rows if name in r.key]
+                if not ran:
+                    raise AssertionError(f"{label} {what}: {name} did not run")
+                for r in ran:
+                    log(f"  ran {r.self_device_time_total / 1e3:8.3f} ms  "
+                        f"x{r.count:<5d} {r.key[:90]}")
+            wrong = [r.key for r in rows if any(n in r.key for n in forbid)]
+            if wrong:
+                raise AssertionError(f"{label} {what}: ran {wrong}")
 
 
 def scan_inputs(torch, dev, B, L, di, N, dtype, seed):
@@ -899,7 +950,7 @@ def main() -> int:
 
     # ----------------------------------------------------- lm parity, profile
     lm_profile(torch, *parity(torch, serve, lm, dev, "lm", LM_ARGS, 5e-2,
-                              True)[:4])
+                              True)[:4], expect=LM_STEP_KERNELS)
 
     # ---------------------------------------------------------- ssm kernel
     gc.collect()                       # the qwen3 model is unreferenced now

@@ -118,6 +118,13 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
                              f"got one on {t.device}")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data 16-byte aligned, as the kernels'
+    16-byte loads need (a view that starts mid-allocation is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 CODEC_PACK = KernelLibrary("codec_pack", {
     "codec_int8_pack": [P, I64, P, P],
     "codec_fp8_pack": [P, I64, P, P],
@@ -130,12 +137,16 @@ CODEC_PACK = KernelLibrary("codec_pack", {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LM_KERNELS = KernelLibrary("lm_kernels", {
-    # q, k, v, out, B, S, T, H, KV, hd, causal, scale, dtype
-    "lm_flash_attention": [P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
-                           F32, I32],
-    # q, k_cache, v_cache, out, B, H, KV, Smax, hd, pos, scale, dtype
-    "lm_decode_attention": [P, P, P, P, I32, I32, I32, I32, I32, I32, F32,
-                            I32],
+    # q, k, v, out, B, S, T, H, KV, hd, causal, scale: bf16 on the tensor
+    # cores, fp32 on the FMA kernel
+    "lm_flash_attention_bf16": [P, P, P, P, I32, I32, I32, I32, I32, I32,
+                                I32, F32],
+    "lm_flash_attention_f32": [P, P, P, P, I32, I32, I32, I32, I32, I32,
+                               I32, F32],
+    # q, k_cache, v_cache, out, part_o, part_ml, B, H, KV, Smax, hd, pos,
+    # splits, scale, dtype
+    "lm_decode_attention": [P, P, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                            I32, F32, I32],
     # x, scale, out, rows, d, eps, x dtype, scale dtype
     "lm_rmsnorm": [P, P, P, I64, I32, F32, I32, I32],
 }, error_fn="lm_error_string")

@@ -123,6 +123,47 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhs,bshd->bhd", w, vv).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, pos: int,
+                               splits: int) -> torch.Tensor:
+    """``decode_attention_ref`` computed as the split kernel does: the
+    positions ``0..pos`` cut into ``splits`` ranges of
+    ``ceil((pos + 1) / splits)`` (the last ones empty when there are
+    more ranges than that needs), a softmax state (m, l, unnormalised o)
+    per range, then merged: ``m = max m_i``, ``l = sum l_i e^(m_i - m)``,
+    ``o = sum o_i e^(m_i - m) / l``; an empty range adds nothing.  For
+    tests and the card's checks only."""
+    H, hd = q.shape[1], q.shape[2]
+    KV = k_cache.shape[2]
+    G = H // KV
+    n = pos + 1
+    kk = k_cache[:, :n].repeat_interleave(G, dim=2).to(torch.float32)
+    vv = v_cache[:, :n].repeat_interleave(G, dim=2).to(torch.float32)
+    s = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kk) \
+        / math.sqrt(hd)
+    chunk = -(-n // splits)
+    ms, ls, os_ = [], [], []
+    for i in range(splits):
+        a, e = min(i * chunk, n), min((i + 1) * chunk, n)
+        if a == e:
+            ms.append(torch.full(s.shape[:2], float("-inf"),
+                                 device=q.device))
+            ls.append(torch.zeros(s.shape[:2], device=q.device))
+            os_.append(torch.zeros(q.shape, device=q.device))
+            continue
+        m = s[..., a:e].amax(dim=-1)
+        p = torch.exp(s[..., a:e] - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bhs,bshd->bhd", p, vv[:, a:e]))
+    m = torch.stack(ms).amax(dim=0)
+    w = [torch.where(mi == float("-inf"), torch.zeros_like(mi),
+                     torch.exp(mi - m)) for mi in ms]
+    l_tot = sum(li * wi for li, wi in zip(ls, w))
+    o = sum(oi * wi[..., None] for oi, wi in zip(os_, w))
+    return (o / l_tot[..., None]).to(q.dtype)
+
+
 def ssm_scan_chunk_ref(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
                        Cc: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:

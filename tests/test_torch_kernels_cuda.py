@@ -96,6 +96,11 @@ def _randn(shape, dtype, cuda, seed):
     (1, 1000, 1000, 16, 8, 128, True),   # ragged, the slice's heads
     (2, 64, 1500, 4, 2, 96, False),      # ragged kv, phi3-vision head_dim
     (1, 24, 75, 8, 1, 128, True),        # S < T causal, MQA
+    (2, 200, 200, 4, 2, 16, True),       # the reduced configs' head_dim
+    (1, 300, 300, 4, 4, 112, True),      # zamba2's head_dim
+    (1, 256, 256, 48, 1, 128, True),     # granite-20b's MQA group, G = 48
+    (2, 333, 333, 4, 2, 64, False),      # S not a multiple of 128
+    (1, 77, 300, 4, 2, 128, True),       # causal, S < T, ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, S, T, H, KV, hd, causal,
@@ -130,6 +135,36 @@ def test_decode_attention_kernel_matches_plain(B, H, KV, hd, Smax, pos,
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
                                atol=_lm_tol(dtype))
+
+
+@pytest.mark.parametrize("Smax,pos", [(77, 0), (77, 76), (1056, 0),
+                                      (1056, 1055)])
+@pytest.mark.parametrize("splits", [1, 2, "more than positions"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_forced_splits(Smax, pos, splits, dtype,
+                                               cuda):
+    """The split kernel at forced split counts, empty ranges included,
+    against the plain version and the plain split-and-combine."""
+    from repro_torch.kernels import decode_attention as dk
+    n = pos + 3 if splits == "more than positions" else splits
+    q = _randn((2, 8, 128), dtype, cuda, 10)
+    kc = _randn((2, Smax, 4, 128), dtype, cuda, 11)
+    vc = _randn((2, Smax, 4, 128), dtype, cuda, 12)
+    out = dk.decode_attention(q, kc, vc, pos, splits=n)
+    torch.cuda.synchronize()
+    for exp in (ref.decode_attention_ref(q, kc, vc, pos),
+                ref.decode_attention_split_ref(q, kc, vc, pos, n)):
+        torch.testing.assert_close(out.float(), exp.float(),
+                                   rtol=_lm_tol(dtype), atol=_lm_tol(dtype))
+
+
+def test_bf16_flash_refuses_head_dim_off_16_bytes(cuda):
+    """hd % 8 != 0 in bf16 is refused before anything is launched."""
+    x = _randn((1, 8, 2, 12), torch.bfloat16, cuda, 13)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim % 8"):
+        ops.flash_attention(x, x, x)
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("shape", [(8192, 2048), (8, 16, 128), (5, 3),
