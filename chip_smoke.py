@@ -15,7 +15,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              topk); the port's own ``solve`` picks the cuts;
 3. kernels — every kernel against its plain PyTorch version on the card
              (bit-exact) at n in {1, 7, 127, 129, 1_000_003} and at the
-             slice's cut sizes, then timed at its hop's activation;
+             slice's cut sizes, on normal, tie-heavy and special inputs
+             (NaNs of several payloads, +-inf and -0.0, all equal, all
+             zeros), the packs also on a view off 16-byte alignment,
+             top-k at k = 1, ceil(n/8) and n; once more at n =
+             40_000_003, past what the cooperative grids keep on chip;
+             then timed at its hop's activation;
 4. slice   — ``EdgePipeline(..., device="cuda")``: ``run_one`` and
              ``measure`` with the launch counters reset just before; the
              output must equal a stage-by-stage replay that uses the
@@ -24,6 +29,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 5. profile — one lone batch under ``torch.profiler``: device busy time
              by kernel against the batch's wall time (full table in
              ``chiprun_out/smoke_profile.txt``).
+             Each hop must have run its codec's kernels once
+             (``HOP_KERNELS``), and no library sort or top-k.
 6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
              the FMA kernel), decode attention (split and combine kernels)
              and RMSNorm against their plain versions on the card, fp32 and
@@ -102,6 +109,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 BATCH, HW, CLASSES = 8, 224, 10
 CODECS = ("int8", "fp8", "topk")
 CHECK_SIZES = (1, 7, 127, 129, 1_000_003)
+# past what fp8_pack's and topk_select's resident grids keep on chip
+BIG_CHECK = 40_000_003
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -143,8 +152,14 @@ LM_STEP_KERNELS = {
     "decode step": (("decode_split_kernel", "decode_combine_kernel"), ()),
 }
 # the __global__ functions of codec_pack.cu, as the profiler names them
-CUDA_KERNELS = ("absmax_kernel", "int8_pack_kernel", "fp8_pack_kernel",
-                "int8_unpack_kernel", "fp8_unpack_kernel", "topk_keys_kernel")
+CUDA_KERNELS = ("absmax_kernel", "int8_pack_kernel", "pack_fused_kernel",
+                "int8_unpack_kernel", "fp8_unpack_kernel", "topk_select_kernel")
+# the kernels a lone batch of the CNN slice runs for each codec's hop
+# (one cooperative launch each for fp8 and topk; int8 two launches)
+HOP_KERNELS = {"int8": ("absmax_kernel", "int8_pack_kernel",
+                        "int8_unpack_kernel"),
+               "fp8": ("pack_fused_kernel", "fp8_unpack_kernel"),
+               "topk": ("topk_select_kernel",)}
 # file:line of the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "int8_pack": "src/repro/kernels/codec_pack.py:51",
@@ -165,6 +180,31 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def special_inputs(torch, n: int, gen, dev) -> dict:
+    """Inputs of ``n`` fp32 elements that the codec kernels must treat as
+    their plain versions do: NaNs of different payloads and signs, and
+    +-inf and -0.0, among normal values; all values equal; all zeros
+    (+0 and -0)."""
+    base = torch.randn(n, generator=gen, device=dev) * 3.0
+    m = max(1, n // 997)
+    pos = torch.randperm(n, generator=gen, device=dev)
+    nan = base.clone()
+    # quiet NaNs with varied payloads, the sign bit set on two in three
+    payload = [(0x7FC00000 | (j * 7919) % 0x400000) - (2 ** 31 if j % 3
+               else 0) for j in range(m)]
+    nan.view(torch.int32)[pos[:m]] = torch.tensor(payload, dtype=torch.int32,
+                                                  device=dev)
+    inf = base.clone()
+    inf[pos[:m]] = float("inf")
+    inf[pos[m:2 * m]] = float("-inf")
+    inf[pos[2 * m:3 * m]] = -0.0
+    zeros = torch.zeros(n, device=dev)
+    zeros[::2] = -0.0
+    return {"NaN payloads": nan, "inf and -0.0": inf,
+            "all equal": torch.full((n,), -1.5, device=dev),
+            "all zeros": zeros}
 
 
 def device_ms(torch, what: str, fn, iters: int) -> float:
@@ -770,32 +810,58 @@ def main() -> int:
         if not torch.equal(bits(a), bits(b)):
             raise AssertionError(f"{name}: kernel and plain version differ")
 
-    for n in sizes:
-        inputs = [torch.randn(n, generator=gen, device=dev) * 3.0,
-                  # tie-heavy: few distinct magnitudes
-                  torch.randint(-4, 5, (n,), generator=gen,
-                                device=dev).float()]
-        for x in inputs:
+    def nan_diff(a, b):
+        # after same(): the NaNs sit at the same places in both
+        a, b = a.float(), b.float()
+        keep = ~torch.isnan(a)
+        return diff(a[keep], b[keep])
+
+    def check(x):
+        # the pack kernels also on a view 4 bytes past a 16-byte boundary
+        for view in (x, x[1:]) if x.numel() > 1 else (x,):
             for pack, unpack in (("int8_pack", "int8_unpack"),
                                  ("fp8_pack", "fp8_unpack")):
-                q, sc = getattr(ops, pack)(x)
-                qr, scr = getattr(ref, pack + "_ref")(x)
+                q, sc = getattr(ops, pack)(view)
+                qr, scr = getattr(ref, pack + "_ref")(view)
                 same(pack, q, qr)
                 same(pack + " scale", sc, scr)
-                err[pack] = max(err[pack], diff(q, qr))
+                err[pack] = max(err[pack], nan_diff(q, qr))
                 y = getattr(ops, unpack)(q, float(sc))
                 yr = getattr(ref, unpack + "_ref")(q, sc)
                 same(unpack, y, yr)
-                err[unpack] = max(err[unpack], diff(y, yr))
-            k = max(1, math.ceil(n / 8))
+                err[unpack] = max(err[unpack], nan_diff(y, yr))
+        n = x.numel()
+        for k in sorted({1, max(1, math.ceil(n / 8)), n}):
             idx, vals = ops.topk_select(x, k=k)
             idr, valr = ref.topk_select_ref(x, k=k)
-            same("topk_select indices", idx, idr)
-            same("topk_select values", vals, valr)
-            err["topk_select"] = max(err["topk_select"], diff(vals, valr))
+            same(f"topk_select indices (k={k})", idx, idr)
+            same(f"topk_select values (k={k})", vals, valr)
+            err["topk_select"] = max(err["topk_select"], nan_diff(vals, valr))
+
+    for n in sizes:
+        check(torch.randn(n, generator=gen, device=dev) * 3.0)
+        # tie-heavy: few distinct magnitudes
+        check(torch.randint(-4, 5, (n,), generator=gen, device=dev).float())
+        for x in special_inputs(torch, n, gen, dev).values():
+            check(x)
+    # past what the resident grid keeps on chip: the kernels read again
+    big = torch.randn(BIG_CHECK, generator=gen, device=dev)
+    for pack in ("int8_pack", "fp8_pack"):
+        q, sc = getattr(ops, pack)(big)
+        qr, scr = getattr(ref, pack + "_ref")(big)
+        same(f"{pack} (n={BIG_CHECK})", q, qr)
+        same(f"{pack} scale (n={BIG_CHECK})", sc, scr)
+    k = math.ceil(BIG_CHECK / 8)
+    idx, vals = ops.topk_select(big, k=k)
+    idr, valr = ref.topk_select_ref(big, k=k)
+    same(f"topk_select indices (n={BIG_CHECK})", idx, idr)
+    same(f"topk_select values (n={BIG_CHECK})", vals, valr)
+    del big, q, qr, idx, vals, idr, valr
     torch.cuda.synchronize()
     log(f"kernels: bit-exact against the plain versions at n={sizes} "
-        f"(normal and tie-heavy inputs)")
+        f"(normal, tie-heavy, NaN payloads, +-inf and -0.0, all equal, all "
+        f"zeros; packs also at a view off 16-byte alignment; top-k at k = 1, "
+        f"ceil(n/8), n) and at n={BIG_CHECK} (normal)")
 
     # timing at each kernel's own hop activation (the main path's shapes)
     timings = {}
@@ -929,6 +995,21 @@ def main() -> int:
         for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:8]:
             log(f"  {r.self_device_time_total / 1e3:8.3f} ms  x{r.count:<4d} "
                 f"{r.key[:90]}")
+        # each hop ran its codec's kernels once, and no library sort or
+        # top-k ran beside them
+        seen = {name: sum(r.count for r in rows if name in r.key)
+                for name in CUDA_KERNELS}
+        want = dict.fromkeys(CUDA_KERNELS, 0)
+        for codec in pipe.codecs:
+            for name in HOP_KERNELS[codec]:
+                want[name] += 1
+        library = [r.key[:90] for r in rows
+                   if ("sort" in r.key.lower() or "topk" in r.key.lower())
+                   and "topk_select_kernel" not in r.key]
+        log(f"profile: codec kernel launches {json.dumps(seen)}")
+        if seen != want or library:
+            raise AssertionError(f"profile: codec kernels {seen}, expected "
+                                 f"{want}; library sort/top-k {library}")
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "smoke_profile.txt"), "w") as f:

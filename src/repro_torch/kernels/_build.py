@@ -127,10 +127,12 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 CODEC_PACK = KernelLibrary("codec_pack", {
     "codec_int8_pack": [P, I64, P, P],
-    "codec_fp8_pack": [P, I64, P, P],
+    # x, n, q, aux, aux words, forced grid (0: the kernel picks)
+    "codec_fp8_pack": [P, I64, P, P, I64, I32],
     "codec_int8_unpack": [P, F32, P, I64],
     "codec_fp8_unpack": [P, F32, P, I64],
-    "codec_topk_keys": [P, I64, P],
+    # x, n, k, indices, values, scratch, scratch words, forced grid
+    "codec_topk_select": [P, I64, I64, P, P, P, I64, I32],
 }, error_fn="codec_error_string")
 
 # dtype codes of lm_kernels.cu's and ssm_scan.cu's entry points

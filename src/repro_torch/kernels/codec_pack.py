@@ -1,15 +1,18 @@
 """Python side of the CUDA wire-codec kernels (``csrc/codec_pack.cu``).
 
-The five kernels replace the reference's Pallas pack/unpack kernels
-(``src/repro/kernels/codec_pack.py``).  ``_build.CODEC_PACK`` compiles
-them with ``nvcc`` for ``sm_90a`` at the first call that hands them a
-CUDA tensor and binds them through ``ctypes``.  Importing this module
-needs neither ``nvcc`` nor a card.
+The kernels replace the reference's Pallas pack/unpack kernels and its
+top-k selection (``src/repro/kernels/codec_pack.py``).
+``_build.CODEC_PACK`` compiles them with ``nvcc`` for ``sm_90a`` at the
+first call that hands them a CUDA tensor and binds them through
+``ctypes``.  Importing this module needs neither ``nvcc`` nor a card.
 
 Each wrapper takes CUDA tensors only, checks device, dtype and
-contiguity, allocates its outputs with ``torch.empty``, launches on
-``torch.cuda.current_stream()`` without synchronising, and raises if the
-launch was refused.  ``ops`` routes CPU tensors to ``ref`` instead.
+contiguity, allocates its outputs and scratch with ``torch.empty``,
+launches on ``torch.cuda.current_stream()`` without synchronising, and
+raises if the launch was refused.  ``fp8_pack`` and ``topk_select`` are
+one cooperative launch each, whose grid the card must keep resident: a
+refusal raises, there is no other route.  ``ops`` routes CPU tensors to
+``ref`` instead.
 """
 from __future__ import annotations
 
@@ -20,6 +23,10 @@ import torch
 from ._build import CODEC_PACK, require_cuda
 
 _P = ctypes.c_void_p
+# csrc/codec_pack.cu: the largest cooperative grid the kernels pick
+# themselves (kMaxCoopBlocks), and topk's global histograms (kHistWords)
+COOP_MAX_BLOCKS = 1024
+TOPK_HIST_WORDS = 2048 + 2048 + 512
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -41,24 +48,31 @@ def _flat32(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.reshape(-1).to(torch.float32).contiguous()
 
 
-def _pack(fn: str, x: torch.Tensor, qdtype: torch.dtype
-          ) -> tuple[torch.Tensor, torch.Tensor]:
-    flat = _flat32(x, fn)
-    q = torch.empty(flat.numel(), dtype=qdtype, device=flat.device)
+def int8_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA float tensor → (int8 flat[n], fp32 scale): an
+    abs-max launch (after a memset of its word), then the quantize."""
+    flat = _flat32(x, "codec_int8_pack")
+    q = torch.empty(flat.numel(), dtype=torch.int8, device=flat.device)
     aux = torch.empty(2, dtype=torch.float32, device=flat.device)
-    _launch(fn, flat, _P(flat.data_ptr()), flat.numel(), _P(q.data_ptr()),
-            _P(aux.data_ptr()))
+    _launch("codec_int8_pack", flat, _P(flat.data_ptr()), flat.numel(),
+            _P(q.data_ptr()), _P(aux.data_ptr()))
     return q, aux[1]
 
 
-def int8_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA float tensor (n >= 1) → (int8 flat[n], fp32 scale)."""
-    return _pack("codec_int8_pack", x, torch.int8)
-
-
-def fp8_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA float tensor (n >= 1) → (float8_e4m3fn flat[n], fp32 scale)."""
-    return _pack("codec_fp8_pack", x, torch.float8_e4m3fn)
+def fp8_pack(x: torch.Tensor, *, blocks: int | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA float tensor → (float8_e4m3fn flat[n], fp32
+    scale), in one cooperative launch.  ``blocks`` forces the grid
+    (tests only: a grid of a few CTAs reads its input a second time)."""
+    flat = _flat32(x, "codec_fp8_pack")
+    q = torch.empty(flat.numel(), dtype=torch.float8_e4m3fn,
+                    device=flat.device)
+    # [max|x|, scale, one partial abs-max a CTA]
+    aux = torch.empty(2 + max(blocks or 0, COOP_MAX_BLOCKS),
+                      dtype=torch.float32, device=flat.device)
+    _launch("codec_fp8_pack", flat, _P(flat.data_ptr()), flat.numel(),
+            _P(q.data_ptr()), _P(aux.data_ptr()), aux.numel(), blocks or 0)
+    return q, aux[1]
 
 
 def _unpack(fn: str, q: torch.Tensor, qdtype: torch.dtype,
@@ -80,26 +94,35 @@ def fp8_unpack(q: torch.Tensor, scale: float) -> torch.Tensor:
     return _unpack("codec_fp8_unpack", q, torch.float8_e4m3fn, scale)
 
 
-def topk_keys(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel half of ``topk_select``: → (fp32 flat[n], int64
-    keys[n]), key = bits(|x|) << 32 | (0xFFFFFFFF - i)."""
-    flat = _flat32(x, "codec_topk_keys")
-    if flat.numel() >= 2 ** 31:
+def topk_scratch_words(blocks: int | None = None) -> int:
+    """32-bit words of scratch ``topk_select`` needs for a grid of at
+    most ``max(blocks, COOP_MAX_BLOCKS)`` CTAs."""
+    return TOPK_HIST_WORDS + 2 * max(blocks or 0, COOP_MAX_BLOCKS)
+
+
+def topk_select(x: torch.Tensor, *, k: int, blocks: int | None = None,
+                scratch: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """k largest keys ``bits(x) & 0x7FFFFFFF`` (``|x|``, NaNs above inf),
+    ties to the lower index → (int32 indices ascending — the wire's
+    uint32 bits, fp32 values), in one cooperative launch: a radix select
+    of the threshold and an ordered compaction, no sort.  ``blocks``
+    forces the grid and ``scratch`` (int32, ``topk_scratch_words``
+    long) replaces the one allocated here; both for tests."""
+    flat = _flat32(x, "codec_topk_select")
+    n = flat.numel()
+    if n >= 2 ** 31:
         raise ValueError("topk_select: the wire's uint32 indices need "
                          "fewer than 2**31 elements")
-    keys = torch.empty(flat.numel(), dtype=torch.int64, device=flat.device)
-    _launch("codec_topk_keys", flat, _P(flat.data_ptr()), flat.numel(),
-            _P(keys.data_ptr()))
-    return flat, keys
-
-
-def topk_select(x: torch.Tensor, *, k: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """k largest-|x| entries, ties to the lower index → (int32 indices
-    ascending — the wire's uint32 bits, fp32 values).  The key pass is
-    the kernel; the selection is ``torch.topk`` over the unique keys and
-    an index sort, where the reference ran ``lax.top_k`` outside Pallas."""
-    flat, keys = topk_keys(x)
-    top = torch.topk(keys, k, sorted=False).values
-    idx = torch.sort(0xFFFFFFFF - (top & 0xFFFFFFFF)).values
-    return idx.to(torch.int32), flat[idx]
+    if not 1 <= k <= n:
+        raise ValueError(f"topk_select: k={k} outside 1..{n}")
+    if scratch is None:
+        scratch = torch.empty(topk_scratch_words(blocks), dtype=torch.int32,
+                              device=flat.device)
+    _check(scratch, torch.int32, "codec_topk_select scratch")
+    idx = torch.empty(k, dtype=torch.int32, device=flat.device)
+    vals = torch.empty(k, dtype=torch.float32, device=flat.device)
+    _launch("codec_topk_select", flat, _P(flat.data_ptr()), n, k,
+            _P(idx.data_ptr()), _P(vals.data_ptr()), _P(scratch.data_ptr()),
+            scratch.numel(), blocks or 0)
+    return idx, vals

@@ -20,8 +20,12 @@ because the wire carries the kernel's bytes:
   * the quantizer multiplies by ``inv = 1 / scale`` (IEEE division), as
     the Pallas kernel does — the reference's own ``kernels/ref.py``
     divides by the scale instead, which differs in the last bit;
-  * top-k keeps the lower index among equal magnitudes, as
-    ``lax.top_k`` does (a stable descending sort).
+  * a NaN anywhere makes the scale NaN (``max`` propagates it), and a
+    NaN product quantizes to int8 0, as XLA converts it;
+  * top-k orders magnitudes by their bits, ``bits(x) & 0x7FFFFFFF``,
+    and keeps the lower index among equal keys, as ``lax.top_k`` does (a
+    stable descending sort).  For finite values and inf that is the
+    order of ``|x|``; NaNs rank above inf, by payload.
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ def int8_pack_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                              device=flat.device))
     scale = _scale(flat, 127.0)
     q = torch.round(flat * (1.0 / scale)).clamp(-127.0, 127.0)
-    return q.to(torch.int8), scale
+    # float -> int8 of NaN is undefined in C; the wire says 0
+    return q.nan_to_num(0.0).to(torch.int8), scale
 
 
 def int8_unpack_ref(q: torch.Tensor, scale) -> torch.Tensor:
@@ -81,7 +86,8 @@ def topk_select_ref(x: torch.Tensor, *, k: int
     """k largest-|x| entries of the flat tensor, ties to the lower index
     → (int32 indices ascending — the wire's uint32 bits, fp32 values)."""
     flat = _flat32(x)
-    order = torch.sort(flat.abs(), descending=True, stable=True).indices
+    key = flat.view(torch.int32) & 0x7FFFFFFF
+    order = torch.sort(key, descending=True, stable=True).indices
     idx = torch.sort(order[:k]).values
     return idx.to(torch.int32), flat[idx]
 

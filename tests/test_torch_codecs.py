@@ -44,6 +44,20 @@ def _ties(n=4000, seed=5):
     return rng.integers(-3, 4, size=n).astype(np.float32)
 
 
+def _nan(payload: int) -> np.float32:
+    return np.array([payload], np.uint32).view(np.float32)[0]
+
+
+# NaNs of rising payload at rising indices: top-k orders them by their
+# bits, so k = 1 must pick the last, not the first
+NAN_PAYLOADS = np.array([0.5, _nan(0x7FC00000), 1.0, _nan(0x7FC00001), -2.0,
+                         _nan(0x7FC00002), 0.0, 3.0], np.float32)
+# a NaN makes the scale NaN; an inf makes it inf and its own product NaN
+PACK_SPECIALS = {"nan": np.array([1.0, np.nan, -2.0, 0.5], np.float32),
+                 "inf": np.array([1.0, np.inf, -2.0, 0.5, -np.inf, -0.0],
+                                 np.float32)}
+
+
 def _bits(t: torch.Tensor) -> bytes:
     return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
 
@@ -52,27 +66,38 @@ def _bits(t: torch.Tensor) -> bytes:
 # plain ops vs the reference's Pallas kernels (interpret mode)
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES)
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + sorted(PACK_SPECIALS))
 @pytest.mark.parametrize("pack", ["int8_pack", "fp8_pack"])
 def test_plain_pack_is_bit_exact_with_reference(pack, shape, dtype):
-    x = _sample(shape, dtype, seed=1)
+    """``shape`` names a shape of seeded normal values, or one of
+    ``PACK_SPECIALS`` (cast to ``dtype``)."""
+    if isinstance(shape, str):
+        x = PACK_SPECIALS[shape].astype(dtype)
+    else:
+        x = _sample(shape, dtype, seed=1)
     q_ref, s_ref = getattr(rops, pack)(jnp.asarray(x), interpret=True)
     q, s = getattr(ops, pack)(torch.from_numpy(x))
     assert np.asarray(q_ref).view(np.uint8).tobytes() == _bits(q)
     assert np.float32(s_ref).tobytes() == _bits(s)
     unpack = pack.replace("pack", "unpack")
-    y_ref = getattr(rops, unpack)(q_ref, s_ref, interpret=True)
-    y = getattr(ops, unpack)(q, s)
-    assert np.asarray(y_ref).tobytes() == _bits(y)
+    y_ref = np.asarray(getattr(rops, unpack)(q_ref, s_ref, interpret=True))
+    y = getattr(ops, unpack)(q, s).numpy()
+    # a NaN decodes to NaN in both, but its payload is the platform's
+    # (numpy and torch widen the e4m3 NaN byte to different fp32 NaNs)
+    nan = np.isnan(y_ref)
+    assert np.array_equal(nan, np.isnan(y))
+    assert y_ref[~nan].tobytes() == y[~nan].tobytes()
 
 
-@pytest.mark.parametrize("case", ["normal", "ties", "fp16", "fp64"])
+@pytest.mark.parametrize("case", ["normal", "ties", "fp16", "fp64",
+                                  "nan_payload"])
 def test_plain_topk_is_bit_exact_with_reference(case):
     x = {"normal": _sample((2, 1000), np.float32, seed=3),
          "ties": _ties(),
          "fp16": _sample((3, 5, 7), np.float16, seed=4),
-         "fp64": _sample((129,), np.float64, seed=6)}[case]
-    k = math.ceil(x.size / 8)
+         "fp64": _sample((129,), np.float64, seed=6),
+         "nan_payload": NAN_PAYLOADS}[case]
+    k = 1 if case == "nan_payload" else math.ceil(x.size / 8)
     i_ref, v_ref = rops.topk_select(jnp.asarray(x), k=k, interpret=True)
     i, v = ops.topk_select(torch.from_numpy(x), k=k)
     assert np.array_equal(np.asarray(i_ref), i.numpy().astype(np.uint32))

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import codecs as C
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import codec_pack, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +28,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# 40_000_003: past what fp8_pack's and topk_select's resident grids keep
+# on chip, so their kernels read x again
+SIZES = [1, 7, 127, 129, 1_000_003, 40_000_003]
+KINDS = ["normal", "ties", "nan_payloads", "inf_and_neg_zero", "all_equal",
+         "all_zeros"]
+
+
 def _inputs(n, cuda):
     g = torch.Generator(device=cuda).manual_seed(n)
     return (torch.randn(n, generator=g, device=cuda) * 3.0,
@@ -35,26 +42,110 @@ def _inputs(n, cuda):
             torch.randint(-4, 5, (n,), generator=g, device=cuda).float())
 
 
-@pytest.mark.parametrize("n", [1, 7, 127, 129, 1_000_003])
-def test_pack_unpack_kernels_are_bit_exact(n, cuda):
-    for x in _inputs(n, cuda):
+def _input(kind, n, cuda):
+    """One flat fp32 input of ``n`` elements: normal or tie-heavy values,
+    NaNs of several payloads and signs among them, +-inf and -0.0 among
+    them, all equal, or all zeros (+0 and -0)."""
+    normal, ties = _inputs(n, cuda)
+    if kind in ("normal", "ties"):
+        return normal if kind == "normal" else ties
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    m = max(1, n // 997)
+    pos = torch.randperm(n, generator=g, device=cuda)
+    if kind == "nan_payloads":
+        payload = torch.arange(m, device=cuda, dtype=torch.int64) * 7919
+        # quiet NaNs, the sign bit set on two in three
+        bits = (0x7FC00000 | payload % 0x400000) - 2 ** 31 * (payload % 3 > 0)
+        normal.view(torch.int32)[pos[:m]] = bits.to(torch.int32)
+        return normal
+    if kind == "inf_and_neg_zero":
+        normal[pos[:m]] = float("inf")
+        normal[pos[m:2 * m]] = float("-inf")
+        normal[pos[2 * m:3 * m]] = -0.0
+        return normal
+    if kind == "all_equal":
+        return torch.full((n,), -1.5, device=cuda)
+    zeros = torch.zeros(n, device=cuda)
+    zeros[::2] = -0.0
+    return zeros
+
+
+def _same_bits(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", SIZES)
+def test_pack_unpack_kernels_are_bit_exact(n, kind, cuda):
+    x = _input(kind, n, cuda)
+    # also a view 4 bytes past a 16-byte boundary
+    for view in (x, x[1:]) if n > 1 else (x,):
         for pack in ("int8_pack", "fp8_pack"):
-            q, s = getattr(ops, pack)(x)
-            q_ref, s_ref = getattr(ref, pack + "_ref")(x)
-            assert torch.equal(q.view(torch.uint8), q_ref.view(torch.uint8))
-            assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+            q, s = getattr(ops, pack)(view)
+            q_ref, s_ref = getattr(ref, pack + "_ref")(view)
+            assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
             unpack = pack.replace("pack", "unpack")
-            assert torch.equal(getattr(ops, unpack)(q, float(s)),
-                               getattr(ref, unpack + "_ref")(q, s))
+            assert _same_bits(getattr(ops, unpack)(q, float(s)),
+                              getattr(ref, unpack + "_ref")(q, s))
 
 
-@pytest.mark.parametrize("n", [1, 7, 127, 129, 1_000_003])
-def test_topk_kernel_is_bit_exact(n, cuda):
-    for x in _inputs(n, cuda):
-        k = math.ceil(n / 8)
+def test_packs_of_an_empty_tensor(cuda):
+    x = torch.empty(0, device=cuda)
+    for pack in ("int8_pack", "fp8_pack"):
+        q, s = getattr(ops, pack)(x)
+        q_ref, s_ref = getattr(ref, pack + "_ref")(x)
+        assert q.numel() == 0 and q.dtype == q_ref.dtype
+        assert _same_bits(s, s_ref)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", SIZES)
+def test_topk_kernel_is_bit_exact(n, kind, cuda):
+    x = _input(kind, n, cuda)
+    for k in sorted({1, math.ceil(n / 8), n}):
         i, v = ops.topk_select(x, k=k)
         i_ref, v_ref = ref.topk_select_ref(x, k=k)
-        assert torch.equal(i, i_ref) and torch.equal(v, v_ref)
+        assert torch.equal(i, i_ref) and _same_bits(v, v_ref)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 100])
+@pytest.mark.parametrize("kind", ["normal", "ties", "nan_payloads"])
+def test_cooperative_kernels_at_forced_grids(blocks, kind, cuda):
+    """A grid of 1 or 3 CTAs keeps 8192 (top-k) or 16384 (fp8) elements
+    each on chip and reads the rest of its range again; 100 CTAs leave
+    some empty at small n."""
+    for n in (5, 100_003):
+        x = _input(kind, n, cuda)
+        q, s = codec_pack.fp8_pack(x, blocks=blocks)
+        q_ref, s_ref = ref.fp8_pack_ref(x)
+        assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
+        for k in sorted({1, math.ceil(n / 8), n}):
+            i, v = codec_pack.topk_select(x, k=k, blocks=blocks)
+            i_ref, v_ref = ref.topk_select_ref(x, k=k)
+            assert torch.equal(i, i_ref) and _same_bits(v, v_ref)
+
+
+def test_cooperative_kernels_raise_and_do_not_fall_back(cuda):
+    x = _inputs(10_000, cuda)[0]
+    ops.reset_launch_counts()
+    # scratch too small for the grid's per-CTA counts
+    small = torch.empty(codec_pack.TOPK_HIST_WORDS + 1, dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(RuntimeError, match="codec_topk_select"):
+        codec_pack.topk_select(x, k=10, scratch=small)
+    # more CTAs than the card keeps resident: the runtime refuses the launch
+    with pytest.raises(RuntimeError, match="codec_topk_select"):
+        codec_pack.topk_select(x, k=10, blocks=1_000_000)
+    with pytest.raises(RuntimeError, match="codec_fp8_pack"):
+        codec_pack.fp8_pack(x, blocks=1_000_000)
+    with pytest.raises(ValueError, match="k=0"):
+        ops.topk_select(x, k=0)
+    assert ops.launch_counts()["topk_select"] == 0
+    # a refused launch leaves no error behind for the next one
+    i, v = ops.topk_select(x, k=10)
+    i_ref, v_ref = ref.topk_select_ref(x, k=10)
+    assert torch.equal(i, i_ref) and _same_bits(v, v_ref)
 
 
 @pytest.mark.parametrize("codec", ["int8", "fp8", "topk"])
