@@ -19,8 +19,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              (NaNs of several payloads, +-inf and -0.0, all equal, all
              zeros), the packs also on a view off 16-byte alignment,
              top-k at k = 1, ceil(n/8) and n; once more at n =
-             40_000_003, past what the cooperative grids keep on chip;
-             then timed at its hop's activation;
+             40_000_003, past what the cooperative grids keep on chip,
+             and the packs at n = 0; fp8 of [1, inf, -2, 0.5, -inf, -0.0]
+             on the card against the CPU (every byte off the NaN bytes
+             equal; both byte strings printed); then each kernel timed at
+             its hop's activation;
 4. slice   — ``EdgePipeline(..., device="cuda")``: ``run_one`` and
              ``measure`` with the launch counters reset just before; the
              output must equal a stage-by-stage replay that uses the
@@ -30,7 +33,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              by kernel against the batch's wall time (full table in
              ``chiprun_out/smoke_profile.txt``).
              Each hop must have run its codec's kernels once
-             (``HOP_KERNELS``), and no library sort or top-k.
+             (``HOP_KERNELS``: the two ``pack_fused_kernel`` instances told
+             apart by name), and no library sort or top-k;
+5b. streams — a heavy and a light stage at once on two threads: the
+             light one's ``exe_s`` must stay under a quarter of the heavy
+             one's; then the slice streamed (20 batches, every stage on its
+             own CUDA stream, the three codec hops concurrent) under the
+             profiler and a watchdog: the stages' summed ``exe_s`` beside
+             the device's busy time;
 6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
              the FMA kernel), decode attention (split and combine kernels)
              and RMSNorm against their plain versions on the card, fp32 and
@@ -43,7 +53,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              of d = 128, 2048 and 3, and of the SSM slice's d = 4096 at
              prefill and decode), within rtol = atol = 2e-5 (fp32) / 2e-2
              (bf16); then timed at the slice's shapes beside their bound,
-             their plain version and one PyTorch call;
+             their plain version and one PyTorch call; RMSNorm also at
+             every row shape of both serving paths beside the scalar
+             kernel it replaced and ``F.rms_norm``, with each path's
+             launch-weighted totals;
 7. lm slice — ``repro_torch.launch.serve.main`` on qwen3-1.7b at full
              width and depth, bf16, batch 8, prompt 1024, 32 new tokens
              (cache 1056), with the launch counters reset just before; each
@@ -151,15 +164,23 @@ LM_STEP_KERNELS = {
     "prefill": (("flash_attention_tc_kernel",), ("flash_attention_kernel",)),
     "decode step": (("decode_split_kernel", "decode_combine_kernel"), ()),
 }
-# the __global__ functions of codec_pack.cu, as the profiler names them
-CUDA_KERNELS = ("absmax_kernel", "int8_pack_kernel", "pack_fused_kernel",
-                "int8_unpack_kernel", "fp8_unpack_kernel", "topk_select_kernel")
+# the __global__ functions of codec_pack.cu (each template instance on
+# its own), by the parts of the profiler's name that tell them apart
+CUDA_KERNELS = {
+    "pack_fused_kernel<Int8Sym>": ("pack_fused_kernel", "Int8Sym"),
+    "pack_fused_kernel<Fp8E4M3>": ("pack_fused_kernel", "Fp8E4M3"),
+    "int8_unpack_kernel": ("int8_unpack_kernel",),
+    "fp8_unpack_kernel": ("fp8_unpack_kernel",),
+    "topk_select_kernel": ("topk_select_kernel",),
+}
 # the kernels a lone batch of the CNN slice runs for each codec's hop
-# (one cooperative launch each for fp8 and topk; int8 two launches)
-HOP_KERNELS = {"int8": ("absmax_kernel", "int8_pack_kernel",
-                        "int8_unpack_kernel"),
-               "fp8": ("pack_fused_kernel", "fp8_unpack_kernel"),
+# (one cooperative launch each pack and top-k)
+HOP_KERNELS = {"int8": ("pack_fused_kernel<Int8Sym>", "int8_unpack_kernel"),
+               "fp8": ("pack_fused_kernel<Fp8E4M3>", "fp8_unpack_kernel"),
                "topk": ("topk_select_kernel",)}
+# the streamed-stage phase: batches, the session's wait for a result, and
+# a watchdog that ends the process if the phase hangs past its limit
+STREAM_BATCHES, STREAM_TIMEOUT_S, STREAM_WATCHDOG_S = 20, 60.0, 180.0
 # file:line of the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "int8_pack": "src/repro/kernels/codec_pack.py:51",
@@ -180,6 +201,12 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def is_kernel(key: str, name: str) -> bool:
+    """Whether the profiler's kernel name ``key`` is ``CUDA_KERNELS``'
+    ``name``."""
+    return all(part in key for part in CUDA_KERNELS[name])
 
 
 def special_inputs(torch, n: int, gen, dev) -> dict:
@@ -231,6 +258,120 @@ def device_ms(torch, what: str, fn, iters: int) -> float:
         log(f"  (note: {what}: the enqueue ({enqueue_ms:.1f} ms) outlasted "
             f"the sleep; this time includes host gaps)")
     return start.elapsed_time(end) / iters
+
+
+def fp8_inf_bytes(torch, ops, ref, dev) -> None:
+    """fp8 of ``[1, inf, -2, 0.5, -inf, -0.0]`` on the card and with the
+    plain version on the CPU: the scale is inf, so +-inf times its
+    reciprocal 0 is NaN, and that NaN's byte (0x7F or 0xFF) is the
+    platform's; every other byte, and the scale, must agree."""
+    vals = [1.0, math.inf, -2.0, 0.5, -math.inf, -0.0]
+    x = torch.tensor(vals, dtype=torch.float32)
+    q, s = ops.fp8_pack(x.to(dev))
+    q_cpu, s_cpu = ref.fp8_pack_ref(x)
+    card = bytes(q.view(torch.uint8).cpu().tolist())
+    cpu = bytes(q_cpu.view(torch.uint8).tolist())
+    log(f"fp8 of {vals}: card {card.hex(' ')} (scale {float(s)}), cpu "
+        f"{cpu.hex(' ')} (scale {float(s_cpu)})")
+
+    def nan(b):
+        return b & 0x7F == 0x7F
+    if ([nan(b) for b in card] != [nan(b) for b in cpu]
+            or any(a != b for a, b in zip(card, cpu) if not nan(b))
+            or s.cpu().view(torch.int32) != s_cpu.view(torch.int32)):
+        raise AssertionError("fp8 of +-inf: the card and the CPU differ "
+                             "off the NaN bytes")
+    same = "equal too" if card == cpu else "different (each platform's NaN)"
+    log(f"fp8 of +-inf: card and CPU agree off the NaN bytes; the NaN bytes "
+        f"are {same}")
+
+
+def concurrent_stages(torch, Worker, dev) -> tuple:
+    """Two ``Worker``s driven at once from two threads: a heavy one (20
+    fp32 products of 4096 x 4096 a batch, 5 batches) and a light one (an
+    elementwise op on 64 floats, 50 batches) → (heavy, light) with their
+    stats of those batches alone.  On their own streams the light one's
+    ``exe_s`` ends with its own kernels, not the heavy one's."""
+    import threading
+    a = torch.randn(4096, 4096, device=dev)
+
+    def heavy(x):
+        for _ in range(20):
+            x = (a @ x).clamp_(-1.0, 1.0)
+        return x
+
+    workers = [Worker(name, types.SimpleNamespace(layers=[fn]), 0, 1,
+                      "lightweight", dev)
+               for name, fn in (("heavy", heavy), ("light", lambda x: x * 2))]
+    inputs = [torch.randn(4096, 4096, device=dev), torch.randn(64, device=dev)]
+    for w, x in zip(workers, inputs):            # warm up, then count anew
+        w.warmup(x)
+        w.stats.exe_s = w.stats.calls = 0
+    torch.cuda.synchronize()
+    go = threading.Event()
+
+    def drive(w, x, n):
+        go.wait()
+        for _ in range(n):
+            w.run(x)
+    threads = [threading.Thread(target=drive, args=(w, x, n), daemon=True)
+               for w, x, n in zip(workers, inputs, (5, 50))]
+    for t in threads:
+        t.start()
+    go.set()
+    for t in threads:
+        t.join(STREAM_WATCHDOG_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent stages still ran after "
+                             f"{STREAM_WATCHDOG_S} s")
+    return tuple(workers)
+
+
+def streamed_stages(torch, pipe, x) -> dict:
+    """``pipe`` (the CNN slice, every hop with its codec) streamed under
+    torch.profiler → the wall time, each stage's ``exe_s`` and their
+    sum, the device's busy time (the union of the kernels' spans) and
+    the kernels' summed time, in ms.  A watchdog ends the process if the
+    run hangs (the cooperative codec kernels share the card with other
+    streams' kernels)."""
+    import threading
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def hung():
+        print(f"chip_smoke: the streamed run still ran after "
+              f"{STREAM_WATCHDOG_S} s", file=sys.stderr, flush=True)
+        os._exit(3)
+    dog = threading.Timer(STREAM_WATCHDOG_S, hung)
+    dog.daemon = True
+    dog.start()
+    try:
+        pipe.warmup(x)
+        pipe.run_one(x)
+        pipe._reset_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.stream(x, STREAM_BATCHES)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = pipe.stage_stats()
+    finally:
+        dog.cancel()
+    if [s.calls for s in stats] != [STREAM_BATCHES] * len(stats):
+        raise AssertionError(f"streamed stages ran {[s.calls for s in stats]}"
+                             f" batches, expected {STREAM_BATCHES} each")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    exe = [s.exe_s * 1e3 for s in stats]
+    return dict(wall_ms=wall_ms, stage_exe_ms=exe, sum_exe_ms=sum(exe),
+                busy_ms=busy_us / 1e3, spans=len(spans),
+                kernel_sum_ms=sum(b - a for a, b in spans) / 1e3)
 
 
 def lm_tol(torch, dtype) -> float:
@@ -390,6 +531,81 @@ def time_lm_kernels(torch, ops, ref, dev) -> dict[str, dict]:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})  plain "
             f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
     return rows
+
+
+def rms_shapes(cfg, B: int, S: int, new: int) -> dict[tuple, int]:
+    """Each row shape the serving path hands RMSNorm → its launches over
+    the slice: two prefills (d_model rows of every token, the q and k
+    heads' rows with qk-norm; the final norm of the last token) and
+    ``new`` decode steps (the same for one token)."""
+    D, L = cfg.d_model, cfg.n_layers
+    per_layer = 1 if cfg.family == "ssm" else 2
+    out: dict[tuple, int] = {}
+
+    def add(shape, n):
+        out[shape] = out.get(shape, 0) + n
+    for tokens, times in ((B * S, 2), (B, new)):
+        add((tokens, D), per_layer * L * times)
+        if cfg.qk_norm:
+            add((tokens * cfg.n_heads, cfg.hd), L * times)
+            add((tokens * cfg.n_kv_heads, cfg.hd), L * times)
+    add((B, D), 2 + new)                      # the final norms
+    return out
+
+
+def time_rmsnorm_shapes(torch, ops, dev, paths) -> dict[str, dict]:
+    """RMSNorm (bf16 rows and scale) at every row shape of each serving
+    path in ``paths`` ({name: {shape: launches}}): the kernel, the scalar
+    kernel it replaced (still the path for rows it cannot take, here
+    reached through a view of x one element into its storage, off 16
+    bytes) and ``F.rms_norm``, each ms beside the shape's byte bound;
+    then each path's launch-weighted totals."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    times = {}
+    for shape in sorted({sh for p in paths.values() for sh in p},
+                        key=lambda sh: -sh[0] * sh[1]):
+        rows, d = shape
+        x_off = torch.randn(rows * d + 1, generator=gen, device=dev).to(bf)
+        x = x_off[:-1].view(rows, d)
+        x_off = x_off[1:].view(rows, d)
+        sc = torch.randn(d, generator=gen, device=dev).to(bf)
+        iters = 50 if rows * d > 1 << 20 else 200
+        t = times[shape] = dict(
+            ms=device_ms(torch, f"fused_rmsnorm {shape}",
+                         lambda: ops.fused_rmsnorm(x, sc), iters),
+            scalar_ms=device_ms(torch, f"fused_rmsnorm scalar {shape}",
+                                lambda: ops.fused_rmsnorm(x_off, sc),
+                                iters),
+            library_ms=device_ms(torch, f"F.rms_norm {shape}",
+                                 lambda: F.rms_norm(x, (d,), sc, eps=1e-6),
+                                 iters),
+            bound_ms=2 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3)
+        log(f"  fused_rmsnorm ({rows},{d}) bf16: kernel {t['ms']:.5f} ms  "
+            f"scalar kernel {t['scalar_ms']:.5f} ms  F.rms_norm "
+            f"{t['library_ms']:.5f} ms  bound {t['bound_ms']:.5f} ms (bytes)")
+        del x, x_off, sc
+    out = {}
+    for name, shapes in paths.items():
+        tot = {k: sum(n * times[sh][k] for sh, n in shapes.items())
+               for k in ("ms", "scalar_ms", "library_ms", "bound_ms")}
+        out[name] = dict(launches=sum(shapes.values()), **tot)
+        log(f"  fused_rmsnorm over the {name} slice ({out[name]['launches']} "
+            f"launches): kernel {tot['ms']:.4f} ms  scalar kernel "
+            f"{tot['scalar_ms']:.4f} ms  F.rms_norm {tot['library_ms']:.4f} "
+            f"ms  bound {tot['bound_ms']:.4f} ms")
+    return out
+
+
+def rms_counted(launches: dict[str, int], shapes: dict[tuple, int],
+                name: str) -> None:
+    """The RMSNorm launches a serve counted must be those its row shapes
+    were weighted with."""
+    if launches["fused_rmsnorm"] != sum(shapes.values()):
+        raise AssertionError(f"{name}: {launches['fused_rmsnorm']} RMSNorm "
+                             f"launches, the row shapes count "
+                             f"{sum(shapes.values())}")
 
 
 def lm_expect(cfg, args) -> dict[str, int]:
@@ -857,11 +1073,19 @@ def main() -> int:
     same(f"topk_select indices (n={BIG_CHECK})", idx, idr)
     same(f"topk_select values (n={BIG_CHECK})", vals, valr)
     del big, q, qr, idx, vals, idr, valr
+    for pack in ("int8_pack", "fp8_pack"):
+        empty = torch.empty(0, device=dev)
+        q, sc = getattr(ops, pack)(empty)
+        qr, scr = getattr(ref, pack + "_ref")(empty)
+        if q.numel() or q.dtype != qr.dtype:
+            raise AssertionError(f"{pack} of an empty tensor: {q}")
+        same(f"{pack} scale (n=0)", sc, scr)
     torch.cuda.synchronize()
     log(f"kernels: bit-exact against the plain versions at n={sizes} "
         f"(normal, tie-heavy, NaN payloads, +-inf and -0.0, all equal, all "
         f"zeros; packs also at a view off 16-byte alignment; top-k at k = 1, "
-        f"ceil(n/8), n) and at n={BIG_CHECK} (normal)")
+        f"ceil(n/8), n), at n={BIG_CHECK} (normal) and, the packs, at n=0")
+    fp8_inf_bytes(torch, ops, ref, dev)
 
     # timing at each kernel's own hop activation (the main path's shapes)
     timings = {}
@@ -988,7 +1212,7 @@ def main() -> int:
     busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
     if rows:
         codec_ms = sum(r.self_device_time_total for r in rows
-                       if any(k in r.key for k in CUDA_KERNELS)) / 1e3
+                       if any(is_kernel(r.key, k) for k in CUDA_KERNELS)) / 1e3
         log(f"profile: lone batch wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.4f}), "
             f"codec kernels {codec_ms:.3f} ms")
@@ -997,7 +1221,7 @@ def main() -> int:
                 f"{r.key[:90]}")
         # each hop ran its codec's kernels once, and no library sort or
         # top-k ran beside them
-        seen = {name: sum(r.count for r in rows if name in r.key)
+        seen = {name: sum(r.count for r in rows if is_kernel(r.key, name))
                 for name in CUDA_KERNELS}
         want = dict.fromkeys(CUDA_KERNELS, 0)
         for codec in pipe.codecs:
@@ -1019,15 +1243,46 @@ def main() -> int:
         log(f"profile: lone batch wall {wall_ms:.2f} ms; the profiler saw "
             f"no device time (device busy share not measured)")
 
+    # ------------------------------------------------------ streamed stages
+    from repro_torch.runtime.edge import Worker
+    heavy, light = concurrent_stages(torch, Worker, dev)
+    heavy_ms, light_ms = (w.stats.exe_s / w.stats.calls * 1e3
+                          for w in (heavy, light))
+    log(f"concurrent stages: light exe_s {light_ms:.3f} ms a batch beside a "
+        f"heavy stage's {heavy_ms:.3f} ms, each on its own stream")
+    if heavy.stream == light.stream or not light_ms < heavy_ms / 4:
+        raise AssertionError("concurrent stages: the light stage was charged "
+                             "with the heavy stage's kernels")
+    pipe = EdgePipeline(model, cuts, scen, device="cuda",
+                        timeout_s=STREAM_TIMEOUT_S)
+    if len({w.stream.cuda_stream for w in pipe.workers}) != len(pipe.workers):
+        raise AssertionError("streamed stages: stages share a stream")
+    st = streamed_stages(torch, pipe, x)
+    pipe.close()
+    log(f"streamed stages: {STREAM_BATCHES} batches in {st['wall_ms']:.2f} ms "
+        f"under the profiler; sum of stage exe_s {st['sum_exe_ms']:.3f} ms "
+        f"(per stage {[round(e, 3) for e in st['stage_exe_ms']]}); device "
+        f"busy {st['busy_ms']:.3f} ms (the union of {st['spans']} kernel "
+        f"spans; their sum {st['kernel_sum_ms']:.3f} ms, so "
+        f"{st['kernel_sum_ms'] - st['busy_ms']:.3f} ms ran beside each other "
+        f"on different streams)")
+
     # ---------------------------------------------------------- lm kernels
     from repro_torch.launch import serve
     from repro_torch.models import lm
     lm_err = check_lm_kernels(torch, ops, ref, dev)
     lm_timings = time_lm_kernels(torch, ops, ref, dev)
+    from repro_torch import configs
+    rms_paths = {
+        "lm": rms_shapes(configs.get("qwen3-1.7b"), LM_B, LM_S, LM_NEW),
+        "ssm": rms_shapes(configs.get("falcon-mamba-7b"), SSM_B, SSM_S,
+                          SSM_NEW)}
+    time_rmsnorm_shapes(torch, ops, dev, rms_paths)
     log(f"lm kernels (check-phase launches): {json.dumps(ops.launch_counts())}")
 
     # ------------------------------------------------------------ lm slice
     lm_launches = serve_slice(torch, ops, serve, "lm", LM_ARGS, lm_expect)
+    rms_counted(lm_launches, rms_paths["lm"], "lm")
 
     # ----------------------------------------------------- lm parity, profile
     lm_profile(torch, *parity(torch, serve, lm, dev, "lm", LM_ARGS, 5e-2,
@@ -1046,6 +1301,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_launches = serve_slice(torch, ops, serve, "ssm", SSM_ARGS,
                                ssm_expect)
+    rms_counted(ssm_launches, rms_paths["ssm"], "ssm")
 
     # ---------------------------------------------------- ssm parity, profile
     gc.collect()

@@ -126,8 +126,8 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 CODEC_PACK = KernelLibrary("codec_pack", {
-    "codec_int8_pack": [P, I64, P, P],
     # x, n, q, aux, aux words, forced grid (0: the kernel picks)
+    "codec_int8_pack": [P, I64, P, P, I64, I32],
     "codec_fp8_pack": [P, I64, P, P, I64, I32],
     "codec_int8_unpack": [P, F32, P, I64],
     "codec_fp8_unpack": [P, F32, P, I64],

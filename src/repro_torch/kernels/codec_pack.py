@@ -9,9 +9,9 @@ first call that hands them a CUDA tensor and binds them through
 Each wrapper takes CUDA tensors only, checks device, dtype and
 contiguity, allocates its outputs and scratch with ``torch.empty``,
 launches on ``torch.cuda.current_stream()`` without synchronising, and
-raises if the launch was refused.  ``fp8_pack`` and ``topk_select`` are
-one cooperative launch each, whose grid the card must keep resident: a
-refusal raises, there is no other route.  ``ops`` routes CPU tensors to
+raises if the launch was refused.  ``int8_pack``, ``fp8_pack`` and
+``topk_select`` are one cooperative launch each, whose grid the card
+must keep resident: a refusal raises, there is no other route.  ``ops`` routes CPU tensors to
 ``ref`` instead.
 """
 from __future__ import annotations
@@ -48,31 +48,31 @@ def _flat32(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.reshape(-1).to(torch.float32).contiguous()
 
 
-def int8_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA float tensor → (int8 flat[n], fp32 scale): an
-    abs-max launch (after a memset of its word), then the quantize."""
-    flat = _flat32(x, "codec_int8_pack")
-    q = torch.empty(flat.numel(), dtype=torch.int8, device=flat.device)
-    aux = torch.empty(2, dtype=torch.float32, device=flat.device)
-    _launch("codec_int8_pack", flat, _P(flat.data_ptr()), flat.numel(),
-            _P(q.data_ptr()), _P(aux.data_ptr()))
+def _pack(fn: str, x: torch.Tensor, qdtype: torch.dtype,
+          blocks: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    flat = _flat32(x, fn)
+    q = torch.empty(flat.numel(), dtype=qdtype, device=flat.device)
+    # [max|x|, scale, one partial abs-max a CTA]
+    aux = torch.empty(2 + max(blocks or 0, COOP_MAX_BLOCKS),
+                      dtype=torch.float32, device=flat.device)
+    _launch(fn, flat, _P(flat.data_ptr()), flat.numel(), _P(q.data_ptr()),
+            _P(aux.data_ptr()), aux.numel(), blocks or 0)
     return q, aux[1]
+
+
+def int8_pack(x: torch.Tensor, *, blocks: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA float tensor → (int8 flat[n], fp32 scale), in one
+    cooperative launch.  ``blocks`` forces the grid (tests only: a grid
+    of a few CTAs keeps its share in shared memory or reads it again)."""
+    return _pack("codec_int8_pack", x, torch.int8, blocks)
 
 
 def fp8_pack(x: torch.Tensor, *, blocks: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA float tensor → (float8_e4m3fn flat[n], fp32
-    scale), in one cooperative launch.  ``blocks`` forces the grid
-    (tests only: a grid of a few CTAs reads its input a second time)."""
-    flat = _flat32(x, "codec_fp8_pack")
-    q = torch.empty(flat.numel(), dtype=torch.float8_e4m3fn,
-                    device=flat.device)
-    # [max|x|, scale, one partial abs-max a CTA]
-    aux = torch.empty(2 + max(blocks or 0, COOP_MAX_BLOCKS),
-                      dtype=torch.float32, device=flat.device)
-    _launch("codec_fp8_pack", flat, _P(flat.data_ptr()), flat.numel(),
-            _P(q.data_ptr()), _P(aux.data_ptr()), aux.numel(), blocks or 0)
-    return q, aux[1]
+    """CUDA float tensor → (float8_e4m3fn flat[n], fp32 scale), in one
+    cooperative launch.  ``blocks`` forces the grid, as for int8."""
+    return _pack("codec_fp8_pack", x, torch.float8_e4m3fn, blocks)
 
 
 def _unpack(fn: str, q: torch.Tensor, qdtype: torch.dtype,

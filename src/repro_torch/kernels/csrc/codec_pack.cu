@@ -10,24 +10,26 @@
 // What bounds them: all are elementwise passes, one reduction or one
 // selection, a few operations per element against 5 to 12 bytes moved,
 // so device memory (3.35 TB/s on an H100 SXM) bounds them; at the wire's
-// sizes (0.6 to 1.6 M elements) those bytes take a few microseconds, and
+// sizes (0.6 to 3.2 M elements) those bytes take a few microseconds, and
 // fixed costs set the pace: the launch, each grid-wide sync, and the
 // chains of dependent loads between syncs (tools/codec_phases.py times
-// each).  Two of them are one cooperative launch each
+// each).  Three of them are one cooperative launch each
 // (cudaLaunchCooperativeKernel, a grid no larger than the card keeps
 // resident, cooperative_groups grid syncs), one CTA an SM:
 //
-//   fp8_pack    pack_fused_kernel<Fp8E4M3>: every CTA (1024 threads) loads
-//               its contiguous share of x once into registers (16-byte
-//               loads, scalar head and tail for a view that is not 16-byte
-//               aligned), reduces the abs-max, publishes it, waits at one
-//               grid sync, folds every CTA's partial, and quantizes from
-//               its registers with the hardware's pair convert.  x is
-//               read once; no memset, one launch.  Past what the resident
-//               grid holds in registers (16 floats a thread), the rest is
-//               read again after the sync (correct, slower).  int8_pack
-//               keeps its two launches (absmax_kernel + int8_pack_kernel);
-//               the fused kernel takes it by swapping the Quant type.
+//   int8_pack,  pack_fused_kernel<Int8Sym>, pack_fused_kernel<Fp8E4M3>:
+//   fp8_pack    every CTA (1024 threads) loads its contiguous share of x
+//               once (16-byte loads, scalar head and tail for a view that
+//               is not 16-byte aligned): 16 floats a thread into
+//               registers, the rest of the share into dynamic shared
+//               memory (up to 200 KB a CTA); it reduces the abs-max,
+//               publishes it, waits at one grid sync, folds every CTA's
+//               partial, and quantizes from registers and shared memory
+//               (int8: cvt.rni and an integer clamp; fp8: the hardware's
+//               pair convert).  x is read from HBM once up to about 8.9 M
+//               elements (132 CTAs x 67,584); past that the rest is read
+//               again after the sync (correct, slower).  No memset, one
+//               launch.
 //   topk_select topk_select_kernel: a radix select of the k-th largest
 //               key over the 31 bits of bits(x) & 0x7FFFFFFF (11 + 11 + 9
 //               bits, a shared-memory histogram per CTA merged into a
@@ -102,9 +104,8 @@ __device__ __forceinline__ float scale_from(unsigned amax_bits, float q_max) {
   return (isnan(a) ? a : fmaxf(a, 1e-12f)) * (1.0f / q_max);
 }
 
-// One quantize step each: the fused pack kernel is written against this
-// interface (quantize, and quantize4 below), so the int8 codec can move
-// onto it by its type alone.
+// One quantize step each (quantize; quantize4 below packs four): the
+// fused pack kernel takes either type.
 struct Fp8E4M3 {
   static constexpr float kMax = 448.0f;
   __device__ static __forceinline__ uint8_t quantize(float v) {
@@ -136,43 +137,13 @@ __device__ __forceinline__ unsigned block_max(unsigned v, unsigned* red) {
   return v;
 }
 
-// ---------------------------------------------------------------- int8 pack
-// max|x| over the whole tensor, as bits (see abs_bits).  Each block reduces
-// its grid-stride share, then one atomicMax per block folds it into *amax.
-// *amax must be 0 before the launch (the caller memsets it).
-__global__ void absmax_kernel(const float* __restrict__ x, int64_t n,
-                              unsigned int* __restrict__ amax) {
-  __shared__ unsigned red[kThreads / 32];
-  unsigned m = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    m = max(m, abs_bits(x[i]));
-  }
-  m = block_max<kThreads>(m, red);
-  if (threadIdx.x == 0) atomicMax(amax, m);
-}
-
-// int8 quantize: every thread derives scale and inv from the reduced
-// abs-max (identical in every thread); thread 0 also stores the scale the
-// wire carries.
-__global__ void int8_pack_kernel(const float* __restrict__ x, int64_t n,
-                                 const unsigned* __restrict__ amax,
-                                 int8_t* __restrict__ q,
-                                 float* __restrict__ scale_out) {
-  const float scale = scale_from(*amax, Int8Sym::kMax);
-  const float inv = 1.0f / scale;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    q[i] = static_cast<int8_t>(Int8Sym::quantize(x[i] * inv));
-  }
-}
-
-// --------------------------------------------------------- fused fp8 pack
+// ------------------------------------------------------------ fused pack
 constexpr int kPackThreads = 1024;
 constexpr int kPackVecs = 4;   // float4s a thread keeps in registers
+// A CTA's share past its registers is kept in dynamic shared memory, up
+// to this much of the SM's 227 KB; past that it is read again from x.
+constexpr int kSpillBytesMax = 200 * 1024;
+constexpr int kSpillVecsMax = kSpillBytesMax / 16;
 
 // Four quantized bytes, v.x's lowest (little-endian memory order).
 template <class Quant>
@@ -184,9 +155,7 @@ __device__ __forceinline__ uint32_t quantize_each(float4 v) {
 }
 
 template <class Quant>
-__device__ __forceinline__ uint32_t quantize4(float4 v) {
-  return quantize_each<Quant>(v);
-}
+__device__ __forceinline__ uint32_t quantize4(float4 v);
 
 // e4m3 with __NV_NOSAT has no instruction: the header emulates it in
 // integer code, tens of operations an element.  Where |v| <= 448 nothing
@@ -207,6 +176,21 @@ __device__ __forceinline__ uint32_t quantize4<Fp8E4M3>(float4 v) {
   return quantize_each<Fp8E4M3>(v);
 }
 
+// cvt.rni.s32.f32 (round to nearest even, as rintf; it saturates past
+// the int range), an integer clamp to +-127, and 0 for a NaN product:
+// Int8Sym::quantize's bytes, without its float min/max.
+template <>
+__device__ __forceinline__ uint32_t quantize4<Int8Sym>(float4 v) {
+  const float f[4] = {v.x, v.y, v.z, v.w};
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = min(max(__float2int_rn(f[e]), -127), 127);
+    w |= (isnan(f[e]) ? 0u : static_cast<uint32_t>(r) & 0xffu) << (8 * e);
+  }
+  return w;
+}
+
 template <class Quant>
 __device__ __forceinline__ void store4(uint8_t* q, int64_t at, float4 v,
                                        float inv, bool aligned) {
@@ -224,21 +208,28 @@ __device__ __forceinline__ void store4(uint8_t* q, int64_t at, float4 v,
 
 // x = ``head`` scalars, then ``nvec`` 16-byte-aligned float4s, then a
 // tail of at most 3 scalars.  CTA b owns one contiguous run of the
-// float4s; block 0 also owns the head and tail.  partials[b] receives
-// the CTA's abs-max bits; aux[0] the tensor's, aux[1] the scale.
+// float4s: the first kPackVecs x kPackThreads in registers, the next
+// ``spill`` in dynamic shared memory (each thread reads back only what
+// it wrote, so no barrier), the rest (if any) read again after the sync.
+// Block 0 also owns the head and tail.  partials[b] receives the CTA's
+// abs-max bits; aux[0] the tensor's, aux[1] the scale.
 template <class Quant>
 __global__ void __launch_bounds__(kPackThreads)
 pack_fused_kernel(const float* __restrict__ x, int64_t n, int head,
-                  int64_t nvec, int q_aligned,
+                  int64_t nvec, int q_aligned, int spill,
                   unsigned* __restrict__ partials, float* __restrict__ aux,
                   uint8_t* __restrict__ q) {
   cg::grid_group grid = cg::this_grid();
   __shared__ unsigned red[kPackThreads / 32];
+  extern __shared__ float4 spilled[];
   const int64_t G = gridDim.x, b = blockIdx.x;
   const int t = threadIdx.x;
   const float4* xv = reinterpret_cast<const float4*>(x + head);
   const int64_t per = (nvec + G - 1) / G;
   const int64_t vb = min(b * per, nvec), ve = min(vb + per, nvec);
+  const int64_t re = min(vb + static_cast<int64_t>(kPackVecs) * kPackThreads,
+                         ve);
+  const int64_t se = min(re + spill, ve);
 
   float4 v[kPackVecs];
   unsigned m = 0;
@@ -250,9 +241,10 @@ pack_fused_kernel(const float* __restrict__ x, int64_t n, int head,
       m = max(m, abs_bits4(v[j]));
     }
   }
-  for (int64_t i = vb + t + static_cast<int64_t>(kPackVecs) * kPackThreads;
-       i < ve; i += kPackThreads) {
-    m = max(m, abs_bits4(__ldg(xv + i)));
+  for (int64_t i = re + t; i < ve; i += kPackThreads) {
+    const float4 a = __ldg(xv + i);
+    if (i < se) spilled[i - re] = a;
+    m = max(m, abs_bits4(a));
   }
   // head: threads 0..head-1; tail: threads 4..4+tail-1 (block 0)
   const int64_t tail0 = head + 4 * nvec;
@@ -284,10 +276,9 @@ pack_fused_kernel(const float* __restrict__ x, int64_t n, int head,
     const int64_t i = vb + t + static_cast<int64_t>(j) * kPackThreads;
     if (i < ve) store4<Quant>(q, head + 4 * i, v[j], inv, q_aligned);
   }
-  for (int64_t i = vb + t + static_cast<int64_t>(kPackVecs) * kPackThreads;
-       i < ve; i += kPackThreads) {
-    store4<Quant>(q, head + 4 * i, __ldg(xv + i), inv, q_aligned);
-  }
+  for (int64_t i = re + t; i < ve; i += kPackThreads)
+    store4<Quant>(q, head + 4 * i, i < se ? spilled[i - re] : __ldg(xv + i),
+                  inv, q_aligned);
   if (si >= 0) q[si] = Quant::quantize(s * inv);
 }
 
@@ -592,14 +583,19 @@ __global__ void fp8_unpack_kernel(const __nv_fp8_storage_t* __restrict__ q,
 }
 
 // ------------------------------------------------------------ launching
-enum CoopKernel { kCoopPack = 0, kCoopTopk = 1 };
+enum CoopKernel {
+  kCoopPackInt8, kCoopPackFp8, kCoopTopk,
+  // the pack kernels at kSpillBytesMax of dynamic shared memory
+  kCoopPackInt8Spill, kCoopPackFp8Spill, kCoopKernels
+};
 
 // The most CTAs of a cooperative kernel the current device keeps
-// resident at once (occupancy x SMs, capped at kMaxCoopBlocks), cached
-// per device.
+// resident at once with ``smem`` bytes of dynamic shared memory each
+// (occupancy x SMs, capped at kMaxCoopBlocks), cached per device.  The
+// first call on a device also lets the kernel take that much.
 int coop_max_blocks(CoopKernel which, const void* kernel, int threads,
-                    int* out) {
-  static int cache[2][kMaxDevices];
+                    int smem, int* out) {
+  static int cache[kCoopKernels][kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -607,9 +603,14 @@ int coop_max_blocks(CoopKernel which, const void* kernel, int threads,
     *out = cache[which][dev];
     return 0;
   }
+  if (smem > 0)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -631,7 +632,7 @@ int coop_grid(CoopKernel which, const void* kernel, int threads,
     return 0;
   }
   int most = 0;
-  const int err = coop_max_blocks(which, kernel, threads, &most);
+  const int err = coop_max_blocks(which, kernel, threads, 0, &most);
   if (err) return err;
   int64_t want = (work + per_block - 1) / per_block;
   if (want < 1) want = 1;
@@ -640,59 +641,77 @@ int coop_grid(CoopKernel which, const void* kernel, int threads,
 }
 
 int launch_coop(const void* kernel, int grid, int threads, void** args,
-                cudaStream_t s) {
+                size_t smem, cudaStream_t s) {
   const cudaError_t err = cudaLaunchCooperativeKernel(kernel, grid, threads,
-                                                      args, 0, s);
+                                                      args, smem, s);
   const cudaError_t last = cudaGetLastError();   // clears a refusal
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// One cooperative launch of pack_fused_kernel<Quant>.  Where a CTA's
+// share outgrows its registers, the grid is the one the card keeps
+// resident at kSpillBytesMax a CTA (a forced grid is taken as it is) and
+// the overflow goes to shared memory, up to kSpillBytesMax.
+template <class Quant>
+int launch_pack(const void* x, int64_t n, void* q, void* aux,
+                int64_t aux_words, int blocks, void* stream,
+                CoopKernel which, CoopKernel which_spill) {
+  const float* xf = static_cast<const float*>(x);
+  uint8_t* q8 = static_cast<uint8_t*>(q);
+  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(xf) & 15)) & 15) / 4;
+  if (head > n) head = n;
+  int64_t nvec = (n - head) / 4;
+  const void* kernel = reinterpret_cast<const void*>(&pack_fused_kernel<Quant>);
+  int grid = 0;
+  int err = coop_grid(which, kernel, kPackThreads, nvec, kPackThreads,
+                      blocks, &grid);
+  if (err) return err;
+  constexpr int64_t kRegVecs = static_cast<int64_t>(kPackVecs) * kPackThreads;
+  int64_t over = (nvec + grid - 1) / grid - kRegVecs;
+  if (over > 0) {
+    int most = 0;
+    err = coop_max_blocks(which_spill, kernel, kPackThreads, kSpillBytesMax,
+                          &most);
+    if (err) return err;
+    if (blocks <= 0 && grid > most) {
+      grid = most;
+      over = (nvec + grid - 1) / grid - kRegVecs;
+    }
+  }
+  if (aux_words < 2 + static_cast<int64_t>(grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int spill = static_cast<int>(over < 0 ? 0 : over < kSpillVecsMax
+                                                  ? over : kSpillVecsMax);
+  int h = static_cast<int>(head);
+  int q_aligned = (reinterpret_cast<uintptr_t>(q8 + head) & 3) == 0;
+  float* auxf = static_cast<float*>(aux);
+  unsigned* partials = static_cast<unsigned*>(aux) + 2;
+  void* args[] = {&xf, &n, &h, &nvec, &q_aligned, &spill, &partials, &auxf,
+                  &q8};
+  return launch_coop(kernel, grid, kPackThreads, args,
+                     static_cast<size_t>(spill) * sizeof(float4),
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-// aux: 2 fp32 words of device scratch; aux[0] receives max|x| (its
-// bits, see abs_bits), aux[1] the scale.  n >= 0 (n = 0 gives the
-// reference's scale of an empty tensor, 1e-12 / 127).
-int codec_int8_pack(const void* x, int64_t n, void* q, void* aux, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* a = static_cast<unsigned*>(aux);
-  cudaError_t err = cudaMemsetAsync(a, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  absmax_kernel<<<grid_for(n), kThreads, 0, s>>>(static_cast<const float*>(x),
-                                                 n, a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int8_pack_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const float*>(x), n, a, static_cast<int8_t*>(q),
-      static_cast<float*>(aux) + 1);
-  return static_cast<int>(cudaGetLastError());
+// aux: aux_words fp32 words of device scratch, at least 2 + the grid's
+// CTAs; aux[0] receives max|x| (its bits, see abs_bits), aux[1] the
+// scale, the rest each CTA's partial abs-max.  n >= 0 (n = 0 gives the
+// reference's scale of an empty tensor, 1e-12 / 127 or / 448).
+// ``blocks`` > 0 forces the grid.
+int codec_int8_pack(const void* x, int64_t n, void* q, void* aux,
+                    int64_t aux_words, int blocks, void* stream) {
+  return launch_pack<Int8Sym>(x, n, q, aux, aux_words, blocks, stream,
+                              kCoopPackInt8, kCoopPackInt8Spill);
 }
 
-// aux: aux_words fp32 words of device scratch, at least 2 + the grid's
-// CTAs; aux[0] receives max|x| (its bits), aux[1] the scale, the rest
-// each CTA's partial abs-max.  n >= 0, as for int8.
 int codec_fp8_pack(const void* x, int64_t n, void* q, void* aux,
                    int64_t aux_words, int blocks, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  uint8_t* q8 = static_cast<uint8_t*>(q);
-  int64_t head = ((16 - (reinterpret_cast<uintptr_t>(xf) & 15)) & 15) / 4;
-  if (head > n) head = n;
-  int64_t nvec = (n - head) / 4;
-  const void* kernel = reinterpret_cast<const void*>(&pack_fused_kernel<Fp8E4M3>);
-  int grid = 0;
-  int err = coop_grid(kCoopPack, kernel, kPackThreads, nvec, kPackThreads,
-                      blocks, &grid);
-  if (err) return err;
-  if (aux_words < 2 + static_cast<int64_t>(grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int h = static_cast<int>(head);
-  int q_aligned = (reinterpret_cast<uintptr_t>(q8 + head) & 3) == 0;
-  float* auxf = static_cast<float*>(aux);
-  unsigned* partials = static_cast<unsigned*>(aux) + 2;
-  void* args[] = {&xf, &n, &h, &nvec, &q_aligned, &partials, &auxf, &q8};
-  return launch_coop(kernel, grid, kPackThreads, args,
-                     static_cast<cudaStream_t>(stream));
+  return launch_pack<Fp8E4M3>(x, n, q, aux, aux_words, blocks, stream,
+                              kCoopPackFp8, kCoopPackFp8Spill);
 }
 
 int codec_int8_unpack(const void* q, float scale, void* out, int64_t n,
@@ -730,7 +749,7 @@ int codec_topk_select(const void* x, int64_t n, int64_t k, void* idx,
   float* vp = static_cast<float*>(val);
   unsigned* sp = static_cast<unsigned*>(scratch);
   void* args[] = {&xb, &n, &kk, &ip, &vp, &sp};
-  return launch_coop(kernel, grid, topk::kThreads, args,
+  return launch_coop(kernel, grid, topk::kThreads, args, 0,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -6,7 +6,8 @@
 //                           <- src/repro/kernels/flash_attention.py _flash_kernel
 //   decode_split_kernel + decode_combine_kernel
 //                           <- src/repro/kernels/decode_attention.py _decode_kernel
-//   rmsnorm_kernel          <- src/repro/kernels/fused_rmsnorm.py _rms_kernel
+//   rmsnorm_vec_kernel (rmsnorm_kernel for rows it cannot take)
+//                           <- src/repro/kernels/fused_rmsnorm.py _rms_kernel
 //
 // Every kernel computes in fp32: loads convert to float, sums and the
 // online-softmax state are fp32, and the result is rounded once, to nearest
@@ -24,8 +25,8 @@
 // a four-stage K/V ring behind mbarriers, and two consumer warpgroups run
 // both products on the tensor cores (wgmma) with Q and P in registers.
 // Decode splits the cache across CTAs and reads it with 16-byte loads
-// straight into registers.  The fp32 prefill kernel and RMSNorm are FMA
-// loops.
+// straight into registers, as RMSNorm reads its rows.  The fp32 prefill
+// kernel is an FMA loop.
 #include <cuda.h>              // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -989,15 +990,29 @@ decode_combine_kernel(const float* __restrict__ part_o,
 // ---------------------------------------------------------------------------
 // RMSNorm.  Replaces _rms_kernel (fused_rmsnorm.py:16).
 //
-// One warp per row, 8 rows per CTA: the lanes read the row once for a
-// fp32 sum of squares (shuffle-reduced), take rsqrtf(mean + eps), and
-// write x * r * scale; the second read of the row hits L1.  Any d works:
-// lanes stride the row by 32, so neighbouring lanes touch neighbouring
-// elements.
-//
 // What bounds it on an H100: bytes, 2 * rows * d * itemsize (one read, one
 // write) at 3.35 TB/s; a few flops per element.
+//
+// rmsnorm_vec_kernel<T, S, LANES, NV>: LANES threads a row, each holding
+// NV 16-byte vectors of it (8 bf16 or 4 fp32) in registers from the sum
+// of squares to the write, so x leaves device memory once.  LANES is 16
+// (a half warp a row: d = 128, the qk-norm), 32 (a warp: d = 2048 bf16)
+// or 64-256 (several warps, their partial sums met in shared memory: d =
+// 4096, and fp32 rows that would need more than 32 registers of x a
+// lane).  A thread's columns are the same in every row, so it loads its
+// share of ``scale`` once, raw, and reuses it over the rows its CTA walks:
+// the grid is the CTAs the card keeps resident, striding over the rows.
+// Needs d % 8 (bf16) or d % 4 (fp32) == 0 and x, scale and out 16-byte
+// aligned.
+//
+// rmsnorm_kernel, the scalar path for any other d or pointer: one warp a
+// row, 8 rows a CTA; the lanes stride the row by 32 for a fp32 sum of
+// squares, then read it again (from L1) for the write.
+//
+// Both sum in fp32 and take rsqrtf(mean + eps); the result is
+// (x * r) * scale, rounded once on the store.
 constexpr int kNormThreads = 256;
+constexpr int kMaxDevices = 64;
 
 template <typename T, typename S>
 __global__ void __launch_bounds__(kNormThreads)
@@ -1018,6 +1033,136 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
   for (int i = lane; i < d; i += 32)
     yr[i] = from_f32<T>(to_f32(xr[i]) * inv * to_f32(scale[i]));
+}
+
+// Elements of type E packed in 32-bit words, the first in the low bits.
+template <typename E>
+struct Packed;
+template <>
+struct Packed<float> {
+  static constexpr int kPerWord = 1;
+  __device__ static float get(const uint32_t* w, int e) {
+    return __uint_as_float(w[e]);
+  }
+  __device__ static uint32_t put(float lo, float) { return __float_as_uint(lo); }
+};
+template <>
+struct Packed<bf16> {
+  static constexpr int kPerWord = 2;
+  // a bf16 is the top half of an fp32
+  __device__ static float get(const uint32_t* w, int e) {
+    const uint32_t u = w[e >> 1];
+    return __uint_as_float((e & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+  __device__ static uint32_t put(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+};
+
+// W words from 16-byte (W % 4 == 0) or 8-byte (W == 2) aligned p.
+template <int W>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < W / 4; ++k) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[k];
+      w[4 * k] = u.x;
+      w[4 * k + 1] = u.y;
+      w[4 * k + 2] = u.z;
+      w[4 * k + 3] = u.w;
+    }
+  } else {
+    static_assert(W == 2, "scale vectors are 8 bytes or multiples of 16");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  }
+}
+
+template <typename T, typename S, int LANES, int NV>
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_vec_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   T* __restrict__ out, int64_t rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);             // elements a vector
+  constexpr int SW = VEC * sizeof(S) / 4;         // scale words a vector
+  constexpr int RPC = kNormThreads / LANES;       // rows a CTA step
+  __shared__ float red[kNormThreads / 32];
+  const int g = threadIdx.x / LANES, l = threadIdx.x % LANES;
+  const int nvec = d / VEC;
+
+  uint32_t sw[NV][SW];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = j * LANES + l;
+    if (c < nvec) {
+      load_words<SW>(scale + static_cast<int64_t>(c) * VEC, sw[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < SW; ++k) sw[j][k] = 0;
+    }
+  }
+  // every thread of the CTA takes the same trips (the barriers below)
+  const int64_t step = static_cast<int64_t>(gridDim.x) * RPC;
+  for (int64_t r0 = static_cast<int64_t>(blockIdx.x) * RPC; r0 < rows;
+       r0 += step) {
+    const int64_t r = r0 + g;
+    const bool row_ok = r < rows;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + r * d);
+    uint32_t xw[NV][4];
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = j * LANES + l;
+      if (row_ok && c < nvec) {
+        const uint4 u = xr[c];
+        xw[j][0] = u.x;
+        xw[j][1] = u.y;
+        xw[j][2] = u.z;
+        xw[j][3] = u.w;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float v = Packed<T>::get(xw[j], e);
+          ss = fmaf(v, v, ss);
+        }
+      }
+    }
+    if constexpr (LANES <= 32) {
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1)
+        ss += __shfl_xor_sync(kFull, ss, off);
+    } else {
+      constexpr int WPR = LANES / 32;             // warps a row
+      ss = warp_sum(ss);
+      if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+      __syncthreads();
+      ss = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WPR; ++w) ss += red[g * WPR + w];
+      __syncthreads();
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+    uint4* yr = reinterpret_cast<uint4*>(out + r * d);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = j * LANES + l;
+      if (row_ok && c < nvec) {
+        uint32_t o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          constexpr int P = Packed<T>::kPerWord;
+          float f[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int h = 0; h < P; ++h) {
+            const int e = k * P + h;
+            f[h] = Packed<T>::get(xw[j], e) * inv * Packed<S>::get(sw[j], e);
+          }
+          o[k] = Packed<T>::put(f[0], f[1]);
+        }
+        yr[c] = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
 }
 
 using EncodeTiledFn = CUresult (*)(
@@ -1120,10 +1265,63 @@ cudaError_t launch_decode_rows(const void* q, const void* kc, const void* vc,
                              hd, pos, splits, scale, stream);
 }
 
+template <typename T, typename S, int LANES, int NV>
+cudaError_t launch_rmsnorm_vec(const void* x, const void* scale, void* out,
+                               int64_t rows, int d, float eps,
+                               cudaStream_t stream) {
+  const auto kernel = rmsnorm_vec_kernel<T, S, LANES, NV>;
+  static int resident[kMaxDevices];      // CTAs the card keeps resident
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int most = dev < kMaxDevices ? resident[dev] : 0;
+  if (most == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kNormThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    most = per_sm * sms > 0 ? per_sm * sms : 1;
+    if (dev < kMaxDevices) resident[dev] = most;
+  }
+  constexpr int kRows = kNormThreads / LANES;
+  const int64_t groups = (rows + kRows - 1) / kRows;
+  const unsigned grid = static_cast<unsigned>(groups < most ? groups : most);
+  kernel<<<grid, kNormThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
+      static_cast<T*>(out), rows, d, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, typename S>
 cudaError_t launch_rmsnorm(const void* x, const void* scale, void* out,
                            int64_t rows, int d, float eps,
                            cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x)
+                         | reinterpret_cast<uintptr_t>(scale)
+                         | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int nv = d / VEC;
+  if (aligned && d % VEC == 0 && nv <= 2048) {
+    if (nv <= 16)
+      return launch_rmsnorm_vec<T, S, 16, 1>(x, scale, out, rows, d, eps,
+                                             stream);
+    if (nv <= 32)
+      return launch_rmsnorm_vec<T, S, 16, 2>(x, scale, out, rows, d, eps,
+                                             stream);
+    if (nv <= 256)
+      return launch_rmsnorm_vec<T, S, 32, 8>(x, scale, out, rows, d, eps,
+                                             stream);
+    if (nv <= 512)
+      return launch_rmsnorm_vec<T, S, 64, 8>(x, scale, out, rows, d, eps,
+                                             stream);
+    if (nv <= 1024)
+      return launch_rmsnorm_vec<T, S, 128, 8>(x, scale, out, rows, d, eps,
+                                              stream);
+    return launch_rmsnorm_vec<T, S, 256, 8>(x, scale, out, rows, d, eps,
+                                            stream);
+  }
   constexpr int kRowsPerBlock = kNormThreads / 32;
   const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   rmsnorm_kernel<T, S><<<static_cast<unsigned>(blocks), kNormThreads, 0,

@@ -1,13 +1,14 @@
-"""Python side of the CUDA RMSNorm kernel (``csrc/lm_kernels.cu``,
-``rmsnorm_kernel``).
+"""Python side of the CUDA RMSNorm kernels (``csrc/lm_kernels.cu``,
+``rmsnorm_vec_kernel`` and the scalar ``rmsnorm_kernel``).
 
-It replaces the reference's Pallas ``fused_rmsnorm``
+They replace the reference's Pallas ``fused_rmsnorm``
 (``src/repro/kernels/fused_rmsnorm.py``).  The wrapper takes CUDA
 tensors only (it raises for any other device before anything is built),
 checks shapes and dtypes, allocates the output with ``torch.empty`` and
-launches on the current stream without synchronising.  Any last
-dimension works; ``ops`` routes CPU tensors to ``ref.fused_rmsnorm_ref``
-instead.
+launches on the current stream without synchronising.  Rows of whole
+16-byte vectors on 16-byte aligned pointers take the vector kernel, any
+other last dimension the scalar one; ``ops`` routes CPU tensors to
+``ref.fused_rmsnorm_ref`` instead.
 """
 from __future__ import annotations
 

@@ -29,9 +29,12 @@ Execution is always pipelined: the streaming ``Session`` API
 concurrent stage chain and hands results back in order.  ``run_one``
 (the paper's lone-batch latency metric) and ``stream`` (steady-state
 throughput) are thin shims over one-deep / full-window sessions, and
-``measure`` reports both.  A stage's wall time is read after
-``torch.cuda.synchronize``, so it covers the device work, not only its
-enqueue.
+``measure`` reports both.  On the card each stage runs on a CUDA stream
+of its own, with the hop round trip on its output, and its wall time is
+read after that stream is synchronised, so it covers the stage's own
+device work, not only its enqueue, and not the other stages' kernels.
+Tensors cross hops with a CUDA event the consumer's stream waits on
+(``transport.ready_event``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import queue
 import resource
 import threading
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Literal, Sequence
 
@@ -72,15 +76,40 @@ class StageStats:
     mem_pct: float = 0.0
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+_STREAM_POOL = 32   # torch's streams a device and priority, handed out in turn
+
+
+def _own_stream(device: torch.device, taken: Sequence[int]):
+    """A stream of torch's pool whose handle is none of ``taken``.  The
+    pool hands its streams out in turn, so after enough pipelines or
+    RECONFIGs the next one is a live stage's; two stages on one stream
+    would be charged with each other's kernels again.  With every
+    stream of the pool taken, the stage shares one and a warning says
+    so."""
+    for _ in range(_STREAM_POOL):
+        stream = torch.cuda.Stream(device)
+        if stream.cuda_stream not in taken:
+            return stream
+    warnings.warn(f"more than {_STREAM_POOL} pipeline stages on {device}: "
+                  f"stages share CUDA streams, and each one's exe_s "
+                  f"includes the other's kernels", RuntimeWarning,
+                  stacklevel=3)
+    return stream
 
 
 class Worker:
     """One pipeline stage: executes blocks[lo:hi] of a CNNModel on
     ``device``.  Inputs arriving elsewhere (an rpc round trip, a caller's
     host tensor) are moved to the stage's device first.
+
+    On a CUDA device the worker owns a stream: its blocks run there, and
+    ``exe_s`` ends when that stream's work is done (the counterpart of
+    the reference's ``block_until_ready`` of the stage's own output), so
+    stages sharing the card are not charged with each other's kernels.
+    ``run``/``warmup`` take an input that is ready on the caller's current
+    stream, and return one that is ready.  On the CPU there is no stream.
+    ``taken`` holds the ``cuda_stream`` handles of the stages beside it,
+    which its own stream must not be (see ``_own_stream``).
 
     ``cpu_clock`` attributes host CPU time to this worker (default
     ``process_time``); under threads the attribution is exact whenever
@@ -90,9 +119,11 @@ class Worker:
     def __init__(self, name: str, model, lo: int, hi: int, backend: Backend,
                  device: torch.device,
                  cpu_clock: Callable[[], float] | None = None,
-                 pace_s: float = 0.0):
+                 pace_s: float = 0.0, taken: Sequence[int] = ()):
         self.name, self.lo, self.hi, self.backend = name, lo, hi, backend
         self.device = device
+        self.stream = (_own_stream(device, taken) if device.type == "cuda"
+                       else None)
         self.stats = StageStats()
         self._cpu_clock = cpu_clock or time.process_time
         # per-batch floor on this stage's wall time — device-speed
@@ -115,16 +146,24 @@ class Worker:
             x = layer(x)
         return x
 
-    def warmup(self, x):
-        x = self._forward(x)
-        _synchronize(self.device)
+    def _compute(self, x):
+        if self.stream is None:
+            return self._forward(x)
+        caller = torch.cuda.current_stream(self.device)
+        if caller != self.stream:             # x is ready on the caller's
+            self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            x = self._forward(x)
+        self.stream.synchronize()
         return x
+
+    def warmup(self, x):
+        return self._compute(x)
 
     def run(self, x):
         t0 = time.perf_counter()
         c0 = self._cpu_clock()
-        x = self._forward(x)
-        _synchronize(self.device)
+        x = self._compute(x)
         if self.pace_s > 0.0:
             rem = self.pace_s - (time.perf_counter() - t0)
             if rem > 0:
@@ -170,13 +209,14 @@ class _QueueChan:
         self.epoch = 0.0
 
     def send(self, payload=None, kind: int = BATCH):
-        self._q.put((kind, payload))
+        self._q.put((kind, payload, T.ready_event(payload)))
 
     def recv(self, timeout: float | None = None):
         try:
-            return self._q.get(timeout=timeout)
+            kind, payload, ready = self._q.get(timeout=timeout)
         except queue.Empty:
             raise TransportTimeout("session: no result arrived") from None
+        return kind, T.await_ready(payload, ready)
 
     def set_codec(self, name: str) -> None:
         pass
@@ -275,10 +315,15 @@ class _ThreadEngine:
         historical one-worker-per-stage shape)."""
         return [w for ws in self.stage_workers for w in ws]
 
-    def _new_worker(self, i: int, lo: int, hi: int) -> Worker:
+    def _new_worker(self, i: int, lo: int, hi: int,
+                    beside: Sequence[Worker] = ()) -> Worker:
+        """Stage ``i``'s worker on blocks ``[lo, hi)``, on a CUDA stream
+        none of ``beside`` (and none of the live stages) runs on."""
         pipe = self.pipe
+        taken = {w.stream.cuda_stream
+                 for w in [*beside, *self.workers] if w.stream is not None}
         return Worker(f"worker{i + 1}", pipe.model, lo, hi, pipe.backends[i],
-                      pipe.device, pace_s=pipe.stage_pace_s[i])
+                      pipe.device, pace_s=pipe.stage_pace_s[i], taken=taken)
 
     def _build_workers(self, reuse: Sequence[Worker] = ()) -> None:
         """Instantiate stage workers, reusing any existing worker whose
@@ -288,14 +333,17 @@ class _ThreadEngine:
         for w in reuse:
             pool.setdefault((w.lo, w.hi, w.backend), []).append(w)
         bounds = pipe.bounds()
-        self.stage_workers = []
+        self.stage_workers, built = [], list(reuse)
         for i in range(pipe.n_stages):
             key = (bounds[i], bounds[i + 1], pipe.backends[i])
             ws = []
             for m in range(pipe.replicas[i]):
                 cached = pool[key].pop() if pool.get(key) else None
-                ws.append(cached or self._new_worker(i, bounds[i],
-                                                     bounds[i + 1]))
+                if cached is None:
+                    cached = self._new_worker(i, bounds[i], bounds[i + 1],
+                                              beside=built)
+                    built.append(cached)
+                ws.append(cached)
             self.stage_workers.append(ws)
 
     def warmup(self, x):
@@ -385,63 +433,72 @@ class _ThreadEngine:
         # payload) closes the window.
         fence_seen = 0
         while True:
-            try:
-                # bounded wait (pipecheck R6): a wedged upstream must not
-                # park this thread beyond the doorbell cadence
-                kind, obj = ingress.recv(timeout=1.0)
-            except TransportTimeout:
-                continue
-            if kind == STOP:
-                egress.send(None, kind=STOP)
-                return
-            if failed:                        # drain so upstream never
-                continue                      # blocks on a full queue
-            try:
-                if kind == BATCH:
-                    if obj is None or fence_seen < self._cancel_epoch:
-                        egress.send(None, kind=BATCH)  # canceled: marker
-                    else:
-                        egress.send(self.stage_workers[i][m].run(obj),
-                                    kind=BATCH)
-                elif kind == CANCEL:
-                    if obj:
-                        fence_seen += 1
-                    egress.send(obj, kind=CANCEL)
-                elif kind == WARMUP:
-                    egress.send(self.stage_workers[i][m].warmup(obj),
-                                kind=WARMUP)
-                elif kind == RECONFIG:
-                    if isinstance(obj, dict):   # {"bounds":…, "codecs":…}
-                        bounds = tuple(obj["bounds"])
-                        codecs = obj.get("codecs")
-                    else:                       # legacy bare bounds tuple
-                        bounds, codecs = tuple(obj), None
-                    w = self.stage_workers[i][m]
-                    if (bounds[i], bounds[i + 1]) != (w.lo, w.hi):
-                        self.stage_workers[i][m] = self._new_worker(
-                            i, bounds[i], bounds[i + 1])
-                    if codecs is not None and not last:
-                        egress.set_codec(codecs[i])
-                    egress.send(obj, kind=RECONFIG)
-                elif kind == PROBE:
-                    egress.send(None, kind=PROBE)  # emulates 0 bytes per hop
-                elif kind in (STATS, CLOCK):  # pass-through tokens
-                    egress.send(obj, kind=kind)
-                else:
-                    # ERROR never originates upstream of a thread stage
-                    # (errors ride self._err), so any other kind is a
-                    # protocol break — fail loudly instead of silently
-                    # forwarding (pipecheck R1)
-                    raise TransportError(
-                        f"stage {i}.{m}: unexpected "
-                        f"{T._KIND_NAMES[kind] if 0 <= kind < len(T._KIND_NAMES) else kind} "
-                        f"token in session stream")
-            except BaseException as e:        # noqa: BLE001 — reported
-                failed = True
-                # ship the exception object itself, so the session
-                # re-raises the caller's own type with its traceback; a
-                # dedicated error queue keeps lane ordering intact
-                self._err.put((ERROR, e))
+            # the message and the hop round trip on this replica's output
+            # run on its worker's stream (none on the CPU; a RECONFIG may
+            # replace the worker, so it is read again for every message)
+            w = self.stage_workers[i][m]
+            with torch.cuda.stream(w.stream):
+                try:
+                    # bounded wait (pipecheck R6): a wedged upstream must
+                    # not park this thread beyond the doorbell cadence
+                    kind, obj = ingress.recv(timeout=1.0)
+                except TransportTimeout:
+                    continue
+                if kind == STOP:
+                    egress.send(None, kind=STOP)
+                    return
+                if failed:                    # drain so upstream never
+                    continue                  # blocks on a full queue
+                try:
+                    fence_seen = self._handle(i, m, w, kind, obj, egress,
+                                              last, fence_seen)
+                except BaseException as e:    # noqa: BLE001 — reported
+                    failed = True
+                    # ship the exception object itself, so the session
+                    # re-raises the caller's own type with its traceback;
+                    # a dedicated error queue keeps lane ordering intact
+                    self._err.put((ERROR, e))
+
+    def _handle(self, i: int, m: int, w: Worker, kind: int, obj, egress,
+                last: bool, fence_seen: int) -> int:
+        """One message at stage ``i`` replica ``m`` (worker ``w``) →
+        the flush fences seen so far."""
+        if kind == BATCH:
+            if obj is None or fence_seen < self._cancel_epoch:
+                egress.send(None, kind=BATCH)  # canceled: marker
+            else:
+                egress.send(w.run(obj), kind=BATCH)
+        elif kind == CANCEL:
+            if obj:
+                fence_seen += 1
+            egress.send(obj, kind=CANCEL)
+        elif kind == WARMUP:
+            egress.send(w.warmup(obj), kind=WARMUP)
+        elif kind == RECONFIG:
+            if isinstance(obj, dict):         # {"bounds":…, "codecs":…}
+                bounds = tuple(obj["bounds"])
+                codecs = obj.get("codecs")
+            else:                             # legacy bare bounds tuple
+                bounds, codecs = tuple(obj), None
+            if (bounds[i], bounds[i + 1]) != (w.lo, w.hi):
+                self.stage_workers[i][m] = self._new_worker(
+                    i, bounds[i], bounds[i + 1])
+            if codecs is not None and not last:
+                egress.set_codec(codecs[i])
+            egress.send(obj, kind=RECONFIG)
+        elif kind == PROBE:
+            egress.send(None, kind=PROBE)     # emulates 0 bytes per hop
+        elif kind in (STATS, CLOCK):          # pass-through tokens
+            egress.send(obj, kind=kind)
+        else:
+            # ERROR never originates upstream of a thread stage (errors
+            # ride self._err), so any other kind is a protocol break —
+            # fail loudly instead of silently forwarding (pipecheck R1)
+            raise TransportError(
+                f"stage {i}.{m}: unexpected "
+                f"{T._KIND_NAMES[kind] if 0 <= kind < len(T._KIND_NAMES) else kind} "
+                f"token in session stream")
+        return fence_seen
 
     def submit(self, x) -> None:
         self._feed.send(x, kind=BATCH)

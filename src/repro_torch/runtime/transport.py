@@ -220,6 +220,27 @@ def _unframe(ftype: int, code: int, shape: tuple, buf, meta_buf,
     return _decode(pickle.loads(meta_buf), bytes(buf), device)
 
 
+def ready_event(payload):
+    """For a CUDA tensor: an event recorded on the current stream, after
+    the work that produced ``payload`` (the sender's stage and hop round
+    trip); else None."""
+    if isinstance(payload, torch.Tensor) and payload.is_cuda:
+        return torch.cuda.current_stream(payload.device).record_event()
+    return None
+
+
+def await_ready(payload, ready):
+    """The receiving side of ``ready_event``: the current stream waits
+    for the event, and the caching allocator learns that ``payload`` is
+    in use there, so its memory is not handed to the sender's stream
+    while this one may still read it."""
+    if ready is not None:
+        stream = torch.cuda.current_stream(payload.device)
+        stream.wait_event(ready)
+        payload.record_stream(stream)
+    return payload
+
+
 # --------------------------------------------------------------------------- #
 # Observation bookkeeping (shared by live channels and orchestrator meters)
 # --------------------------------------------------------------------------- #
@@ -362,7 +383,13 @@ class EmulatedChannel(Channel):
         return len(buf), raw, codec.decode(buf, tuple(payload.shape),
                                            payload.dtype, payload.device)
 
+    def _put(self, kind: int, payload) -> None:
+        self._q.put((kind, payload, ready_event(payload)))
+
     def send(self, payload=None, kind: int = BATCH):
+        """The round trip runs on the sender's current stream; a CUDA
+        payload travels with an event recorded after it (``recv`` makes
+        the receiver's stream wait for it)."""
         if kind == BATCH:
             if self.hop.framing == "pickle":
                 buf = _Serializer.dumps(payload)
@@ -371,31 +398,32 @@ class EmulatedChannel(Channel):
             else:
                 nbytes, raw, out = self._roundtrip(payload)
             dt = self.emulate(nbytes, raw_bytes=raw)
-            self._q.put((kind, out))
+            self._put(kind, out)
             return TransferRecord(nbytes, dt, self._clock(), raw)
         if (kind == WARMUP and self.hop.framing != "pickle"
                 and isinstance(payload, torch.Tensor)):
             # round-trip (no delay): warms the codec's kernels and hands
             # downstream a representative degraded exemplar
             _, _, payload = self._roundtrip(payload)
-            self._q.put((kind, payload))
+            self._put(kind, payload)
             return None
         if kind == PROBE:
             # header-only message: charges RTT/2 (+ per-message overhead),
             # recorded as an nbytes=0 observation; the token traverses
             # in-band so a streaming session can forward it hop by hop
             dt = self.emulate(0)
-            self._q.put((PROBE, None))
+            self._put(PROBE, None)
             return TransferRecord(0, dt, self._clock())
-        self._q.put((kind, payload))
+        self._put(kind, payload)
         return None
 
     def recv(self, timeout: float | None = None):
         try:
-            return self._q.get(timeout=timeout)
+            kind, payload, ready = self._q.get(timeout=timeout)
         except queue.Empty:
             raise TransportTimeout(f"hop {self.hop.index}: recv timed out") \
                 from None
+        return kind, await_ready(payload, ready)
 
 
 # --------------------------------------------------------------------------- #

@@ -89,6 +89,42 @@ def test_plain_pack_is_bit_exact_with_reference(pack, shape, dtype):
     assert y_ref[~nan].tobytes() == y[~nan].tobytes()
 
 
+# inputs whose NaN payloads or signs the platforms treat differently: the
+# reference's scale keeps the last NaN's payload (XLA's reduction order
+# on this host), the port's is torch's NaN; a negative NaN's own product
+# keeps its sign in one and not the other
+NAN_WIRE = {
+    "one payload": np.array([1.0, _nan(0x7FC00001), -2.0, 0.5], np.float32),
+    "rising payloads": NAN_PAYLOADS,
+    "falling payloads": np.array([_nan(0x7FC00003), 1.0, _nan(0x7FC00001),
+                                  2.0], np.float32),
+    "negative NaN": np.array([1.0, _nan(0xFFC00000), -2.0, 0.5,
+                              _nan(0xFFC00005)], np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NAN_WIRE))
+@pytest.mark.parametrize("pack", ["int8_pack", "fp8_pack"])
+def test_nan_payloads_on_the_wire_are_the_platforms(pack, case):
+    """A NaN input's wire: the scale is NaN in both packages, every byte
+    of a non-NaN input equals the reference's, and a NaN input's byte is
+    an e4m3 NaN (0x7F or 0xFF, sign the platform's) in fp8 and 0 in int8.
+    The payload and sign bits themselves are the platform's."""
+    x = NAN_WIRE[case]
+    q_ref, s_ref = getattr(rops, pack)(jnp.asarray(x), interpret=True)
+    q, s = getattr(ops, pack)(torch.from_numpy(x))
+    assert np.isnan(np.float32(s_ref)) and bool(torch.isnan(s))
+    got = q.view(torch.uint8).numpy()
+    want = np.asarray(q_ref).view(np.uint8)
+    nan = np.isnan(x)
+    assert nan.any() and np.array_equal(got[~nan], want[~nan])
+    if pack == "int8_pack":
+        assert not got[nan].any() and not want[nan].any()
+    else:
+        assert set(got[nan]) <= {0x7F, 0xFF} and set(want[nan]) <= {0x7F,
+                                                                    0xFF}
+
+
 @pytest.mark.parametrize("case", ["normal", "ties", "fp16", "fp64",
                                   "nan_payload"])
 def test_plain_topk_is_bit_exact_with_reference(case):

@@ -11,6 +11,8 @@ imports no jax, so it runs on the GPU machine without the repository's
         tests/test_torch_kernels_cuda.py
 """
 import math
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -28,9 +30,10 @@ def cuda():
     return torch.device("cuda")
 
 
-# 40_000_003: past what fp8_pack's and topk_select's resident grids keep
-# on chip, so their kernels read x again
-SIZES = [1, 7, 127, 129, 1_000_003, 40_000_003]
+# 3_211_264: the CNN slice's int8 hop, past what the pack kernels' grid
+# keeps in registers (the rest goes to shared memory); 40_000_003: past
+# what the cooperative grids keep on chip, so their kernels read x again
+SIZES = [1, 7, 127, 129, 1_000_003, 3_211_264, 40_000_003]
 KINDS = ["normal", "ties", "nan_payloads", "inf_and_neg_zero", "all_equal",
          "all_zeros"]
 
@@ -112,14 +115,16 @@ def test_topk_kernel_is_bit_exact(n, kind, cuda):
 @pytest.mark.parametrize("blocks", [1, 3, 100])
 @pytest.mark.parametrize("kind", ["normal", "ties", "nan_payloads"])
 def test_cooperative_kernels_at_forced_grids(blocks, kind, cuda):
-    """A grid of 1 or 3 CTAs keeps 8192 (top-k) or 16384 (fp8) elements
-    each on chip and reads the rest of its range again; 100 CTAs leave
-    some empty at small n."""
+    """A grid of 1 CTA keeps 8192 (top-k) or 16384 + 51200 (the packs:
+    registers, then shared memory) elements on chip and reads the rest
+    of its range again; 3 CTAs keep theirs (the packs partly in shared
+    memory); 100 CTAs leave some empty at small n."""
     for n in (5, 100_003):
         x = _input(kind, n, cuda)
-        q, s = codec_pack.fp8_pack(x, blocks=blocks)
-        q_ref, s_ref = ref.fp8_pack_ref(x)
-        assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
+        for pack in ("int8_pack", "fp8_pack"):
+            q, s = getattr(codec_pack, pack)(x, blocks=blocks)
+            q_ref, s_ref = getattr(ref, pack + "_ref")(x)
+            assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
         for k in sorted({1, math.ceil(n / 8), n}):
             i, v = codec_pack.topk_select(x, k=k, blocks=blocks)
             i_ref, v_ref = ref.topk_select_ref(x, k=k)
@@ -139,6 +144,8 @@ def test_cooperative_kernels_raise_and_do_not_fall_back(cuda):
         codec_pack.topk_select(x, k=10, blocks=1_000_000)
     with pytest.raises(RuntimeError, match="codec_fp8_pack"):
         codec_pack.fp8_pack(x, blocks=1_000_000)
+    with pytest.raises(RuntimeError, match="codec_int8_pack"):
+        codec_pack.int8_pack(x, blocks=1_000_000)
     with pytest.raises(ValueError, match="k=0"):
         ops.topk_select(x, k=0)
     assert ops.launch_counts()["topk_select"] == 0
@@ -146,6 +153,9 @@ def test_cooperative_kernels_raise_and_do_not_fall_back(cuda):
     i, v = ops.topk_select(x, k=10)
     i_ref, v_ref = ref.topk_select_ref(x, k=10)
     assert torch.equal(i, i_ref) and _same_bits(v, v_ref)
+    q, s = ops.int8_pack(x)
+    q_ref, s_ref = ref.int8_pack_ref(x)
+    assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
 
 
 @pytest.mark.parametrize("codec", ["int8", "fp8", "topk"])
@@ -258,8 +268,15 @@ def test_bf16_flash_refuses_head_dim_off_16_bytes(cuda):
     assert ops.launch_counts()["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("shape", [(8192, 2048), (8, 16, 128), (5, 3),
-                                   (2, 33, 128)])
+# every row the serving paths normalise (qwen3-1.7b prefill and decode:
+# d_model rows, then q and k heads; falcon-mamba-7b: d_model 4096), and
+# ragged ones
+RMS_SHAPES = [(8192, 2048), (131072, 128), (65536, 128), (8, 2048),
+              (128, 128), (64, 128), (8192, 4096), (8, 4096), (8, 16, 128),
+              (5, 3), (2, 33, 128)]
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
 def test_fused_rmsnorm_kernel_matches_plain(shape, dtype, scale_dtype, cuda):
@@ -269,6 +286,25 @@ def test_fused_rmsnorm_kernel_matches_plain(shape, dtype, scale_dtype, cuda):
     exp = ref.fused_rmsnorm_ref(x, sc)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
+                               atol=_lm_tol(dtype))
+
+
+@pytest.mark.parametrize("route", ["x off 16 bytes", "scale off 16 bytes"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rmsnorm_scalar_path_matches_plain(route, dtype, cuda):
+    """The scalar kernel, which takes a pointer that is not 16-byte
+    aligned (a contiguous view one element into its storage)."""
+    from repro_torch.kernels import fused_rmsnorm as rk
+    rows, d = 300, 2048
+    x = _randn((rows * d + 1,), dtype, cuda, 14)
+    sc = _randn((d + 1,), dtype, cuda, 15)
+    xs = x[1:] if route == "x off 16 bytes" else x[:-1]
+    scs = sc[1:] if route == "scale off 16 bytes" else sc[:-1]
+    xs = xs.view(rows, d)
+    out = rk.fused_rmsnorm(xs, scs)
+    exp = ref.fused_rmsnorm_ref(xs, scs)
+    torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
                                atol=_lm_tol(dtype))
 
@@ -358,3 +394,57 @@ def test_ssm_scan_launches_are_counted(cuda):
     ops.ssm_scan_chunk(*args, h_out=args[-1])
     counts = ops.launch_counts()
     assert counts["ssm_scan_chunk"] == 2 and counts["fused_rmsnorm"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# one CUDA stream a pipeline stage (runtime/edge.py Worker)
+# --------------------------------------------------------------------------- #
+def test_concurrent_stage_times_are_their_own(cuda):
+    """A heavy and a light stage run at once on two threads
+    (``chip_smoke.concurrent_stages``): each on its own stream, the light
+    stage's ``exe_s`` ends with its own kernels, not the heavy stage's
+    (as a wait on the whole card would make it)."""
+    from repro_torch.runtime.edge import Worker
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    hw, lw = chip_smoke.concurrent_stages(torch, Worker, cuda)
+    assert hw.stream is not None and hw.stream != lw.stream
+    assert hw.stats.calls == 5 and lw.stats.calls == 50
+    heavy_s = hw.stats.exe_s / hw.stats.calls
+    light_s = lw.stats.exe_s / lw.stats.calls
+    assert light_s < heavy_s / 4, (light_s, heavy_s)
+
+
+def test_stages_keep_streams_of_their_own(cuda):
+    """torch hands out its 32 streams a device in turn, so after enough
+    draws the next one is a live stage's.  A migration that re-cuts two
+    of four stages (one replicated) just then still gives every live
+    stage a stream of its own, and the pipeline still runs."""
+    from repro_torch.core.devices import Link
+    from repro_torch.models.cnn import zoo
+    from repro_torch.runtime import EdgePipeline
+
+    model = zoo.get("mobilenetv2", 10).init(
+        torch.Generator().manual_seed(0), "cuda")
+    links = [Link(name="fast", rtt_s=2e-5, bw_bytes_per_s=1e10)] * 3
+    pipe = EdgePipeline(model, (1, 2, 3), links, replicas=(1, 2, 2, 1),
+                        device="cuda")
+
+    def handles():
+        return [w.stream.cuda_stream for w in pipe.workers]
+    first = handles()
+    assert len(set(first)) == 6
+    for _ in range(64):                # until the pool's next is worker 1's
+        if torch.cuda.Stream(cuda).cuda_stream == first[0]:
+            break
+    else:
+        raise AssertionError("the stream pool never came round")
+    pipe.migrate((1, 2, 4))
+    assert set(handles()[:3]) == set(first[:3])   # stages 0, 1 kept theirs
+    assert len(set(handles())) == 6
+    x = torch.randn(2, 224, 224, 3, device=cuda)
+    out, _, _ = pipe.run_one(x)
+    assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
+    pipe.close()

@@ -27,6 +27,7 @@ from repro_torch.core.devices import Link
 from repro_torch.models.cnn import layers as L
 from repro_torch.models.cnn import zoo as Z
 from repro_torch.runtime import EdgePipeline
+from repro_torch.runtime import transport as T
 
 # one intra-op thread: the suite runs in parallel worker processes,
 # and torch's default of one thread per core oversubscribes the host
@@ -215,3 +216,18 @@ def test_unported_paths_raise(models):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             EdgePipeline(port, (2,), links)
+
+
+def test_cpu_worker_owns_no_stream_and_times_as_before(models):
+    """On the CPU a stage has no CUDA stream and no hop event: ``run``
+    computes its blocks, counts the call and charges its wall time (its
+    pace floor included), as before stages had streams."""
+    _, _, port = models
+    _, pipe = _pipes(models, (1, 3), "int8")
+    assert [w.stream for w in pipe.workers] == [None] * 3
+    w = pipe.workers[1]
+    w.pace_s = 0.02
+    x = port.apply_range(torch.from_numpy(_batches(1, seed=6)[0]), 0, 1)
+    assert torch.equal(w.run(x), port.apply_range(x, 1, 3))
+    assert w.stats.calls == 1 and w.stats.exe_s >= 0.02
+    assert T.ready_event(x) is None and T.await_ready(x, None) is x

@@ -14,8 +14,9 @@ back-to-back launches, the stream held while the host enqueues):
 2. ``topk_select_kernel`` whole and cut after each of its phases (a copy
    of the source that returns there; its output is not used) at the topk
    hop (n = 602,112, k = 75,264, random normal values) and at n = 4,096;
-3. ``pack_fused_kernel`` whole at the fp8 hop (n = 1,605,632) and at
-   n = 4,096.
+3. ``pack_fused_kernel`` whole at the fp8 hop (n = 1,605,632), at the
+   int8 hop (n = 3,211,264, past what the grid keeps in registers) and
+   at n = 4,096, for each of its two instances.
 
 It prints one JSON line a measurement, then the card's name and power
 limit.  The copies are built beside the shipped library in the
@@ -39,7 +40,8 @@ sys.path.insert(0, str(_REPO / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import _build, codec_pack  # noqa: E402
 
-TOPK_N, TOPK_K, FP8_N, SMALL_N = 602_112, 75_264, 1_605_632, 4_096
+TOPK_N, TOPK_K, FP8_N, INT8_N, SMALL_N = (602_112, 75_264, 1_605_632,
+                                          3_211_264, 4_096)
 ITERS = 200
 
 # (label, the line of topk_select_kernel after which the copy returns,
@@ -155,10 +157,12 @@ def main() -> int:
                 "codec_topk_select", dev, P(x.data_ptr()), n, k,
                 P(idx.data_ptr()), P(vals.data_ptr()),
                 P(scratch.data_ptr()), scratch.numel(), 0))
-    for n in (FP8_N, SMALL_N):
+    for n in (FP8_N, INT8_N, SMALL_N):
         x = torch.randn(n, generator=gen, device=dev)
-        report("pack_fused_kernel (fp8): whole", n,
-               lambda: codec_pack.fp8_pack(x))
+        for codec in ("fp8", "int8"):
+            pack = getattr(codec_pack, f"{codec}_pack")
+            report(f"pack_fused_kernel ({codec}): whole", n,
+                   lambda: pack(x))
     print(chip_smoke.nvidia_smi())
     return 0
 
