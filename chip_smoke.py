@@ -73,31 +73,42 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              ``flash_attention_tc_kernel`` and not the FMA
              ``flash_attention_kernel``, the decode step
              ``decode_split_kernel`` and ``decode_combine_kernel``;
-10. ssm kernel — the selective scan against its plain version on the card
-             within rtol = atol = 1e-4: at the SSM slice's prefill chunk
-             (8, 256, 8192, 16) and decode step (8, 1, 8192, 16) with bf16
-             x/B/C, at the reference sweep's fp32 shapes, at a ragged
-             di = 200, two chained chunks (views, state in place) against
-             one long plain scan; then timed at the prefill chunk and at
+10. ssm kernel — both entry points of the selective-scan kernel against
+             their plain versions on the card: ``ssm_scan_chunk`` (dt
+             softplus'ed, fp32 y) within rtol = atol = 1e-4 and
+             ``mamba1_scan_chunk`` (raw dt, D-skip and gate folded in, y in
+             the working dtype) within 1e-4 (fp32) and one bf16 ulp, rtol =
+             atol = 1e-2, on y with 1e-4 on the state (bf16): at the SSM
+             slice's prefill chunk (8, 256, 8192, 16) and decode step (8,
+             1, 8192, 16) in bf16, at the reference sweep's fp32 shapes, at
+             a ragged di = 200, N = 8 and 16, two chained chunks (views, z
+             a view of the in_proj output, the state in place) against one
+             long plain call; then each timed at the prefill chunk and at
              decode beside its bound and its plain version;
 11. ssm slice — ``serve.main`` on falcon-mamba-7b at full width and depth,
              bf16, batch 8, prompt 1024, 32 new tokens, with the launch
              counters reset just before; each kernel's count must be what
-             the path implies (2560 scans, 2210 RMSNorms, no attention);
+             the path implies (2560 gated scans and no ungated one, 2210
+             RMSNorms, no attention);
 12. ssm parity — the same weights and prompt through the plain ``"xla"``
              route, as in phase 8 but with bf16 logits within 2e-1 (64
              layers round to bf16 independently on each route), the
              argmax agreement printed and the final state within 1e-3;
              the kernel route's mean error
              against an fp32 run of the same weights at most 1.1x the
-             plain route's; then faults planted in the scan (A off by
-             2^-8 of itself, dt rounded to bf16, B and C swapped, the
+             plain route's; then faults planted in the gated scan (A off
+             by 2^-8 of itself, the D-skip dropped, B and C swapped, the
              state not carried in) read against every gate of both runs,
              as a control;
-13. ssm profile — one prefill and one decode step under ``torch.profiler``.
+13. ssm profile — one prefill and one decode step under ``torch.profiler``:
+             each must run the gated scan instance
+             (``ssm_scan_kernel<16, __nv_bfloat16, true>``) and not the
+             ungated one; the device time left in elementwise kernels is
+             printed beside the scan's.
 
-The kernel table's row for the scan carries its prefill-chunk time; the
-decode-step time is printed in phase 10.  The last three lines of
+The kernel table's rows for the two scan entries carry their
+prefill-chunk times; the decode-step times are printed in phase 10.  The
+last three lines of
 standard output are the kernel table (JSON), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -142,6 +153,8 @@ SSM_ARGS = ["--arch", "falcon-mamba-7b", "--batch", str(SSM_B),
             "--prompt-len", str(SSM_S), "--new-tokens", str(SSM_NEW),
             "--seed", "0"]
 SCAN_TOL = 1e-4                # tests/test_kernels.py's for the scan
+# the gated scan's y in bf16: one bf16 ulp (its state stays at SCAN_TOL)
+GATED_BF16_TOL = 1e-2
 # kernel route against plain route, bf16, 64 layers: each route's logits
 # lie up to 0.13 from an fp32 run of the same weights (one bf16 ulp of
 # difference a layer, accumulated), so the two routes differ by as much
@@ -158,6 +171,11 @@ LM_REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:26",
     "fused_rmsnorm": "src/repro/kernels/fused_rmsnorm.py:16",
 }
+# the SSM steps: the gated scan instance, never the ungated one (each
+# name a tuple of parts of the profiler's kernel name)
+SSM_STEP_KERNELS = {
+    step: ((("ssm_scan_kernel<", "true>"),), (("ssm_scan_kernel<", "false>"),))
+    for step in ("prefill", "decode step")}
 # the kernels each LM step must run on the card, by the profiler's names,
 # and those it must not
 LM_STEP_KERNELS = {
@@ -620,13 +638,15 @@ def lm_expect(cfg, args) -> dict[str, int]:
 
 
 def ssm_expect(cfg, args) -> dict[str, int]:
-    """The same for the SSM path: per prefill one scan a chunk a layer
-    (the model's chunking), per decode step one a layer; one norm a
-    layer and the final one per prefill or step."""
+    """The same for the SSM path: per prefill one gated scan a chunk a
+    layer (the model's chunking), per decode step one a layer, and no
+    ungated scan; one norm a layer and the final one per prefill or
+    step."""
     S = args.prompt_len
     L = min(cfg.ssm_chunk, S)
     n_chunks = S // L if S % L == 0 else 1
-    return {"ssm_scan_chunk": cfg.n_layers * (2 * n_chunks + args.new_tokens),
+    return {"mamba1_scan_chunk": cfg.n_layers * (2 * n_chunks
+                                                 + args.new_tokens),
             "fused_rmsnorm": (cfg.n_layers + 1) * (2 + args.new_tokens)}
 
 
@@ -744,11 +764,18 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
     return cfg, model, inputs, cache_len, feed, gates
 
 
+def named(key: str, name) -> bool:
+    """Whether the profiler's kernel name ``key`` holds ``name``, a string
+    or a tuple of its parts."""
+    return all(p in key for p in ((name,) if isinstance(name, str) else name))
+
+
 def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
                expect=None) -> None:
     """One prefill and one decode step under torch.profiler: device busy
-    time by kernel against the step's wall time.  ``expect`` maps each
-    step to the kernel names it must run and those it must not."""
+    time by kernel, and that of the elementwise kernels, against the
+    step's wall time.  ``expect`` maps each step to the kernel names
+    (see ``named``) it must run and those it must not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -782,16 +809,21 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
         for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:12]:
             log(f"  {r.self_device_time_total / 1e3:8.3f} ms  x{r.count:<5d} "
                 f"{r.key[:90]}")
+        elem = [r for r in rows if "elementwise" in r.key]
+        log(f"  elementwise kernels: {sum(r.count for r in elem)} launches, "
+            f"{sum(r.self_device_time_total for r in elem) / 1e3:.3f} ms "
+            f"of the device's busy time")
         if expect:
             need, forbid = expect[what]
             for name in need:
-                ran = [r for r in rows if name in r.key]
+                ran = [r for r in rows if named(r.key, name)]
                 if not ran:
                     raise AssertionError(f"{label} {what}: {name} did not run")
                 for r in ran:
                     log(f"  ran {r.self_device_time_total / 1e3:8.3f} ms  "
                         f"x{r.count:<5d} {r.key[:90]}")
-            wrong = [r.key for r in rows if any(n in r.key for n in forbid)]
+            wrong = [r.key for r in rows
+                     if any(named(r.key, n) for n in forbid)]
             if wrong:
                 raise AssertionError(f"{label} {what}: ran {wrong}")
 
@@ -809,90 +841,139 @@ def scan_inputs(torch, dev, B, L, di, N, dtype, seed):
             randn(B, L, N).to(dtype), A, randn(B, di, N))
 
 
-def check_ssm_kernel(torch, ops, ref, dev) -> float:
-    """The scan kernel against its plain version → max |kernel - plain|."""
-    bf, f32 = torch.bfloat16, torch.float32
-    err = 0.0
+def gated_inputs(torch, dev, B, L, di, N, dtype, seed):
+    """Raw dt, dt_bias, x, z, B, C in ``dtype``; A negative, D and h0
+    fp32 (``ops.mamba1_scan_chunk``'s order)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
 
-    def hold(what, got, exp):
-        nonlocal err
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    A = -torch.exp(randn(di, N, scale=0.5))
+    return (randn(B, L, di).to(dtype), randn(di, scale=0.5).to(dtype),
+            randn(B, L, di).to(dtype), randn(B, L, di).to(dtype),
+            randn(B, L, N).to(dtype), randn(B, L, N).to(dtype), A,
+            randn(di), randn(B, di, N))
+
+
+def check_ssm_kernel(torch, ops, ref, dev) -> dict[str, float]:
+    """Both scan entries against their plain versions → max |kernel -
+    plain| of each (bf16 outputs within GATED_BF16_TOL, the rest within
+    SCAN_TOL)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    err = {"ssm_scan_chunk": 0.0, "mamba1_scan_chunk": 0.0}
+
+    def hold(name, what, got, exp):
         for a, b in zip(got, exp):
-            d = float((a - b).abs().max())
-            if (a.shape != b.shape or a.dtype != torch.float32
-                    or not torch.allclose(a, b, rtol=SCAN_TOL,
-                                          atol=SCAN_TOL)):
-                raise AssertionError(f"ssm_scan_chunk {what}: kernel and "
-                                     f"plain version differ (max {d})")
-            err = max(err, d)
+            tol = GATED_BF16_TOL if a.dtype == bf else SCAN_TOL
+            d = float((a.float() - b.float()).abs().max())
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not torch.allclose(a.float(), b.float(), rtol=tol,
+                                          atol=tol)):
+                raise AssertionError(f"{name} {what}: kernel and plain "
+                                     f"version differ (max {d})")
+            err[name] = max(err[name], d)
 
     di, N, L2 = SSM_DI, SSM_N, 2 * SSM_L
     for B, L, dd, n, dtype in ((SSM_B, SSM_L, di, N, bf),
                                (SSM_B, 1, di, N, bf), (2, 64, 128, 16, f32),
                                (1, 32, 256, 8, f32), (2, 16, 64, 16, f32),
-                               (3, 40, 200, 8, f32), (2, 33, 200, 16, bf)):
+                               (3, 40, 200, 8, f32), (2, 33, 200, 16, bf),
+                               (2, 33, 200, 8, bf)):
+        what = f"({B},{L},{dd},{n}) {dtype}"
         args = scan_inputs(torch, dev, B, L, dd, n, dtype, L + dd)
-        hold(f"({B},{L},{dd},{n}) {dtype}", ops.ssm_scan_chunk(*args),
+        hold("ssm_scan_chunk", what, ops.ssm_scan_chunk(*args),
              ref.ssm_scan_chunk_ref(*args))
+        args = gated_inputs(torch, dev, B, L, dd, n, dtype, L + dd + 1)
+        hold("mamba1_scan_chunk", what, ops.mamba1_scan_chunk(*args),
+             ref.mamba1_scan_chunk_ref(*args))
     # two chunks as views of one (B, 2L, .) input, B/C column slices of
-    # one projection (dt_rank columns first), y into one buffer, the state
-    # in place
-    dt, x, _, _, A, h0 = scan_inputs(torch, dev, SSM_B, L2, di, N, bf, 5)
+    # one projection (dt_rank columns first), z the second half of one
+    # in_proj output, y into one buffer, the state in place
     g = torch.Generator(device=dev).manual_seed(6)
     proj = torch.randn(SSM_B, L2, SSM_R + 2 * N, generator=g,
                        device=dev).to(bf)
     Bc, Cc = proj[..., SSM_R:SSM_R + N], proj[..., SSM_R + N:]
-    y = torch.empty(SSM_B, L2, di, device=dev)
-    h = h0.clone()
-    for c in (slice(0, SSM_L), slice(SSM_L, L2)):
-        _, h_new = ops.ssm_scan_chunk(dt[:, c], x[:, c], Bc[:, c], Cc[:, c],
-                                      A, h, y=y[:, c], h_out=h)
-        if h_new is not h:
-            raise AssertionError("ssm_scan_chunk: h_out was not used")
-    hold("two chained chunks, state in place",
-         (y, h), ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0))
+    xz = torch.randn(SSM_B, L2, 2 * di, generator=g, device=dev).to(bf)
+    dt, x, _, _, A, h0 = scan_inputs(torch, dev, SSM_B, L2, di, N, bf, 5)
+    raw, bias, _, _, _, _, _, D, _ = gated_inputs(torch, dev, SSM_B, L2, di,
+                                                  N, bf, 8)
+    z = xz[..., di:]
+    cases = (
+        ("ssm_scan_chunk", torch.empty(x.shape, device=dev),
+         lambda c, h, y: ops.ssm_scan_chunk(dt[:, c], x[:, c], Bc[:, c],
+                                            Cc[:, c], A, h, y=y, h_out=h),
+         lambda: ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)),
+        ("mamba1_scan_chunk", torch.empty_like(x),
+         lambda c, h, y: ops.mamba1_scan_chunk(
+             raw[:, c], bias, x[:, c], z[:, c], Bc[:, c], Cc[:, c], A, D, h,
+             y=y, h_out=h),
+         lambda: ref.mamba1_scan_chunk_ref(raw, bias, x, z, Bc, Cc, A, D,
+                                           h0)))
+    for name, y, chunk, whole in cases:
+        h = h0.clone()
+        for c in (slice(0, SSM_L), slice(SSM_L, L2)):
+            if chunk(c, h, y[:, c])[1] is not h:
+                raise AssertionError(f"{name}: h_out was not used")
+        hold(name, "two chained chunks, state in place", (y, h), whole())
     torch.cuda.synchronize()
-    log(f"ssm kernel: within rtol = atol = {SCAN_TOL} of the plain version "
-        f"at the prefill chunk, the decode step, the sweep, ragged di = 200 "
-        f"and two chained chunks in place; max |diff| {err:.3g}")
+    log(f"ssm kernel: both entries within their limits of the plain "
+        f"versions (rtol = atol = {SCAN_TOL}; the gated entry's bf16 y "
+        f"{GATED_BF16_TOL}) at the prefill chunk, the decode step, the "
+        f"sweep, ragged di = 200, N = 8 and 16 and two chained chunks in "
+        f"place; max |diff| {json.dumps(err)}")
     return err
 
 
+def scan_cost(name: str, B: int, L: int, di: int, N: int, item: int):
+    """One call of the scan entry ``name`` with x/B/C of ``item`` bytes →
+    (bytes, each input read once and each output written once;
+    special-function operations; fp32 operations).  The gated entry
+    reads raw dt, x and z and writes y in the working dtype, and adds a
+    softplus (exp, log1p) and a sigmoid (exp, reciprocal) a (b, t, d)."""
+    elems = B * L * di
+    state = 2 * 4 * B * di * N + 4 * di * N + 2 * item * B * L * N
+    if name == "ssm_scan_chunk":
+        return (state + (4 + item + 4) * elems, elems * N,
+                elems * (6 * N + 1))
+    return (state + 4 * item * elems + (item + 4) * di, elems * (N + 4),
+            elems * (6 * N + 9))
+
+
 def time_ssm_kernel(torch, ops, ref, dev) -> dict[str, dict]:
-    """The scan at the slice's prefill chunk and decode step (bf16 x/B/C):
-    ms, bound and plain ms.  Decode rotates over 24 states (100 MB, twice
-    the L2), as its 64 layers' slots do on the path."""
-    rows = {}
+    """Both scan entries at the slice's prefill chunk and decode step
+    (bf16 x/B/C): ms, bound and plain ms, by entry and step.  Decode
+    rotates over 24 states (100 MB, twice the L2), as its 64 layers'
+    slots do on the path."""
+    entries = (("ssm_scan_chunk", scan_inputs, ops.ssm_scan_chunk,
+                ref.ssm_scan_chunk_ref),
+               ("mamba1_scan_chunk", gated_inputs, ops.mamba1_scan_chunk,
+                ref.mamba1_scan_chunk_ref))
+    rows = {name: {} for name, *_ in entries}
     for what, L, n_sets, iters in (("prefill", SSM_L, 1, 20),
                                    ("decode", 1, 24, 96)):
-        sets = [scan_inputs(torch, dev, SSM_B, L, SSM_DI, SSM_N,
-                            torch.bfloat16, 7 + i) for i in range(n_sets)]
-        cyc, pcyc = itertools.cycle(sets), itertools.cycle(sets)
-        B, L, di = sets[0][0].shape
-        N = sets[0][2].shape[-1]
-        item = sets[0][1].element_size()
-        nbytes = (4 * B * L * di + item * B * L * di + 4 * B * L * di
-                  + 2 * 4 * B * di * N + 4 * di * N + 2 * item * B * L * N)
-        flops = B * L * di * (6 * N + 1)
-        exps = B * L * di * N
-        by = {"bytes": nbytes / HBM_BYTES_PER_S,
-              "operations": max(flops / FP32_FLOP_PER_S,
-                                exps / SFU_OPS_PER_S)}
-        bound_by = max(by, key=by.get)
-        rows[what] = dict(
-            shape=f"({B},{L},{di},{N}) bf16 x/B/C",
-            ms=device_ms(torch, f"ssm_scan_chunk {what}",
-                         lambda: ops.ssm_scan_chunk(*next(cyc)), iters),
-            plain_ms=device_ms(torch, f"ssm_scan_chunk {what} plain",
-                               lambda: ref.ssm_scan_chunk_ref(*next(pcyc)),
-                               3 if L > 1 else iters),
-            library_ms=None, bound_ms=by[bound_by] * 1e3, bound_by=bound_by,
-            bytes=nbytes, exps=exps, flops=flops)
-        t = rows[what]
-        log(f"  ssm_scan_chunk {what} {t['shape']}: kernel {t['ms']:.4f} ms  "
-            f"bound {t['bound_ms']:.4f} ms ({bound_by}; {nbytes} B, {exps} "
-            f"exp, {flops} flop)  plain {t['plain_ms']:.4f} ms  library "
-            f"none")
-        del sets
+        for name, make, fn, plain in entries:
+            sets = [make(torch, dev, SSM_B, L, SSM_DI, SSM_N,
+                         torch.bfloat16, 7 + i) for i in range(n_sets)]
+            cyc, pcyc = itertools.cycle(sets), itertools.cycle(sets)
+            nbytes, sfu, flops = scan_cost(name, SSM_B, L, SSM_DI, SSM_N, 2)
+            by = {"bytes": nbytes / HBM_BYTES_PER_S,
+                  "operations": max(flops / FP32_FLOP_PER_S,
+                                    sfu / SFU_OPS_PER_S)}
+            bound_by = max(by, key=by.get)
+            t = rows[name][what] = dict(
+                shape=f"({SSM_B},{L},{SSM_DI},{SSM_N}) bf16",
+                ms=device_ms(torch, f"{name} {what}",
+                             lambda: fn(*next(cyc)), iters),
+                plain_ms=device_ms(torch, f"{name} {what} plain",
+                                   lambda: plain(*next(pcyc)),
+                                   3 if L > 1 else iters),
+                library_ms=None, bound_ms=by[bound_by] * 1e3,
+                bound_by=bound_by)
+            log(f"  {name} {what} {t['shape']}: kernel {t['ms']:.5f} ms  "
+                f"bound {t['bound_ms']:.5f} ms ({bound_by}; {nbytes} B, "
+                f"{sfu} special-function ops, {flops} flop)  plain "
+                f"{t['plain_ms']:.5f} ms  library none")
+            del sets
     return rows
 
 
@@ -925,22 +1006,28 @@ def ssm_truth(torch, lm, inputs, feed, gates):
 
     from repro_torch.kernels import ops
     from repro_torch.models import ssm
-    scan = ops.ssm_scan_chunk
+    scan = ops.mamba1_scan_chunk
     faults = {
-        "A off by 2^-8 of itself": lambda dt, x, B, C, A, h0, **kw: scan(
-            dt, x, B, C, A * (1 + 2 ** -8), h0, **kw),
-        "dt rounded to bf16": lambda dt, x, B, C, A, h0, **kw: scan(
-            dt.to(torch.bfloat16).float(), x, B, C, A, h0, **kw),
-        "B and C swapped": lambda dt, x, B, C, A, h0, **kw: scan(
-            dt, x, C, B, A, h0, **kw),
-        "state not carried in": lambda dt, x, B, C, A, h0, **kw: scan(
-            dt, x, B, C, A, torch.zeros_like(h0), **kw),
+        "A off by 2^-8 of itself":
+            lambda dt, bias, x, z, B, C, A, D, h0, **kw: scan(
+                dt, bias, x, z, B, C, A * (1 + 2 ** -8), D, h0, **kw),
+        # (dt_bias and the conv bias start at zero: dropping them would
+        # change nothing)
+        "D-skip dropped":
+            lambda dt, bias, x, z, B, C, A, D, h0, **kw: scan(
+                dt, bias, x, z, B, C, A, torch.zeros_like(D), h0, **kw),
+        "B and C swapped":
+            lambda dt, bias, x, z, B, C, A, D, h0, **kw: scan(
+                dt, bias, x, z, C, B, A, D, h0, **kw),
+        "state not carried in":
+            lambda dt, bias, x, z, B, C, A, D, h0, **kw: scan(
+                dt, bias, x, z, B, C, A, D, torch.zeros_like(h0), **kw),
     }
     # planted where the model looks the wrapper up, so that the wrapper
     # itself (and its launch count) stays as it is
     for what, faulty in faults.items():
         for gate in gates:
-            ssm.ops = types.SimpleNamespace(ssm_scan_chunk=faulty)
+            ssm.ops = types.SimpleNamespace(mamba1_scan_chunk=faulty)
             try:
                 out, cache = route_logits(lm, gate["cfg"], gate["model"],
                                           inputs, None, feed)
@@ -1311,7 +1398,8 @@ def main() -> int:
         {"h": SSM_STATE_TOL})
     ssm_truth(torch, lm, inputs, feed, gates)
     del gates
-    lm_profile(torch, cfg, model, inputs, cache_len, label="ssm")
+    lm_profile(torch, cfg, model, inputs, cache_len, label="ssm",
+               expect=SSM_STEP_KERNELS)
 
     # --------------------------------------------------------------- report
     rows = []
@@ -1330,13 +1418,14 @@ def main() -> int:
             "max_abs_err": lm_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    t = ssm_timing["prefill"]
-    rows.append({
-        "name": "ssm_scan_chunk", "route": "cuda", "source": SSM_SOURCE,
-        "replaces": SSM_REPLACES, "launches": ssm_launches["ssm_scan_chunk"],
-        "max_abs_err": ssm_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None})
+    for name, steps in ssm_timing.items():
+        t = steps["prefill"]
+        rows.append({
+            "name": name, "route": "cuda", "source": SSM_SOURCE,
+            "replaces": SSM_REPLACES, "launches": ssm_launches[name],
+            "max_abs_err": ssm_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

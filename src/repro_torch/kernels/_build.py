@@ -159,6 +159,11 @@ SSM_SCAN = KernelLibrary("ssm_scan", {
     "ssm_scan_chunk": [P, P, P, P, P, P, P, P, I32, I32, I32, I32,
                        I64, I64, I64, I64, I64, I64, I64, I64, I64, I64,
                        I32],
+    # dt, dt_bias, x, z, Bc, Cc, A, D, h0, y, h_out, B, L, di, N, the
+    # (batch, time) strides of dt, x, z, Bc, Cc and y, dtype
+    "mamba1_scan_chunk": [P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32,
+                          I32, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                          I64, I64, I64, I32],
 }, error_fn="ssm_error_string")
 
 LIBRARIES = (CODEC_PACK, LM_KERNELS, SSM_SCAN)

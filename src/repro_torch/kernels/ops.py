@@ -139,8 +139,32 @@ def ssm_scan_chunk(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
     return out
 
 
+@_counted
+def mamba1_scan_chunk(dt: torch.Tensor, dt_bias: torch.Tensor,
+                      x: torch.Tensor, z: torch.Tensor, Bc: torch.Tensor,
+                      Cc: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                      h0: torch.Tensor, *, y: torch.Tensor | None = None,
+                      h_out: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the Mamba-1 block's scan with its prologue and
+    epilogue: raw dt, x, the gate z (B,L,di) and dt_bias (di) in the
+    working dtype; Bc, Cc (B,L,N); A (di,N), D (di), h0 (B,di,N) fp32 →
+    (y (B,L,di) in x's dtype, h (B,di,N) fp32), with dt =
+    softplus(dt + dt_bias) and y = (scan + x·D)·silu(z).  ``y``/``h_out``,
+    when given, receive the results (``h_out`` may be ``h0``)."""
+    if dt.device.type == "cpu":
+        out = ref.mamba1_scan_chunk_ref(dt, dt_bias, x, z, Bc, Cc, A, D, h0)
+        return tuple(res if dst is None else dst.copy_(res)
+                     for res, dst in zip(out, (y, h_out)))
+    out = _ssm.mamba1_scan_chunk(dt, dt_bias, x, z, Bc, Cc, A, D, h0, y=y,
+                                 h_out=h_out)
+    _launched(mamba1_scan_chunk)
+    return out
+
+
 WRAPPERS = (int8_pack, int8_unpack, fp8_pack, fp8_unpack, topk_select,
-            flash_attention, decode_attention, fused_rmsnorm, ssm_scan_chunk)
+            flash_attention, decode_attention, fused_rmsnorm, ssm_scan_chunk,
+            mamba1_scan_chunk)
 
 
 def launch_counts() -> dict[str, int]:

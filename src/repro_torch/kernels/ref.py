@@ -8,7 +8,9 @@ The LM kernels' versions (attention and RMSNorm) follow the reference's
 ``kernels/ref.py``: dense score matrices in fp32, cast back to the
 input's dtype.  Unlike the reference's Pallas kernels they take any
 ``S``, ``T`` and ``Smax``.  The selective scan's is the reference's
-sequential recurrence in fp32, one time step at a time.
+sequential recurrence in fp32, one time step at a time; the gated scan's
+(``mamba1_scan_chunk_ref``) wraps it in the Mamba-1 block's softplus,
+D-skip and SiLU gate, from the model's own ``softplus`` and ``silu``.
 
 The codec versions repeat their kernel's arithmetic step for step,
 because the wire carries the kernel's bytes:
@@ -190,6 +192,28 @@ def ssm_scan_chunk_ref(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
         ys.append((h * Cc[:, t, None, :]).sum(dim=-1))         # (B, di)
     y = torch.stack(ys, dim=1) if ys else dt.new_zeros(dt.shape)
     return y, h
+
+
+def mamba1_scan_chunk_ref(dt: torch.Tensor, dt_bias: torch.Tensor,
+                          x: torch.Tensor, z: torch.Tensor, Bc: torch.Tensor,
+                          Cc: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                          h0: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the Mamba-1 block's scan with what surrounds it, in
+    the plain route's pieces and order (``models/ssm.py``):
+    ``dt = softplus(fp32(dt) + fp32(dt_bias))``, the recurrence, then
+    ``y + fp32(x)·D`` times ``fp32(silu(z))``, cast to x's dtype.
+
+    dt (raw), x, z: (B, L, di) and dt_bias: (di,) in the working dtype;
+    Bc, Cc: (B, L, N); A: (di, N), D: (di,), h0: (B, di, N) fp32 →
+    (y (B, L, di) in x's dtype, h (B, di, N) fp32)."""
+    # imported here: models.common imports ops, which imports this module
+    from ..models.common import silu, softplus
+    f32 = torch.float32
+    dt = softplus(dt.to(f32) + dt_bias.to(f32))
+    y, h = ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)
+    y = y + x.to(f32) * D
+    return (y * silu(z).to(f32)).to(x.dtype), h
 
 
 def fused_rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,

@@ -3,12 +3,14 @@
 
 ``cfg.attn_impl`` picks the route of the recurrence, as it does for
 attention and RMSNorm: ``"pallas"`` runs every chunk, and the decode
-step, through ``ops.ssm_scan_chunk`` (the CUDA kernel on the card, its
-plain version on the CPU), carrying the state from one chunk to the
-next; ``"xla"`` runs the plain copy of the reference's own route, a
-log-depth associative scan within each chunk (at decode a chunk of one
-step, which is the reference's one-step formula).  (The reference
-declares the switch but always takes the latter.)
+step, through ``ops.mamba1_scan_chunk`` (the CUDA kernel on the card, its
+plain version on the CPU), which also takes the dt softplus, the D-skip
+and the gate, carrying the state from one chunk to the next; ``"xla"``
+runs the plain copy of the reference's own route, a log-depth
+associative scan within each chunk (at decode a chunk of one step, which
+is the reference's one-step formula), with those steps as separate
+tensor ops.  (The reference declares the switch but always takes the
+latter.)
 
 Chunking is the reference's: ``L = min(cfg.ssm_chunk, S)``, and ``L =
 S`` when ``S`` is not a multiple of it.  Dtypes follow the reference
@@ -78,13 +80,13 @@ def mamba1_params(cfg, leaf) -> dict:
 
 
 def _scan_dt(cfg, p, xc: torch.Tensor):
-    """xc: (B, S, di) → (dt (B,S,di) fp32, B_ and C_ (B,S,N) column views
-    of the x_proj output in the working dtype, A (di,N) fp32)."""
+    """xc: (B, S, di) → (dt (B,S,di) raw, before bias and softplus, B_
+    and C_ (B,S,N): the dt_proj output and column views of the x_proj
+    output, all in the working dtype; A (di,N) fp32)."""
     N, R = cfg.ssm_state, cfg.dt_rank
     proj = torch.einsum("bsc,cr->bsr", xc, p.x_proj)
     dt_low, B_, C_ = proj.split([R, N, N], dim=-1)
-    dt = softplus(torch.einsum("bsr,rc->bsc", dt_low, p.dt_proj).float()
-                  + p.dt_bias.float())
+    dt = torch.einsum("bsr,rc->bsc", dt_low, p.dt_proj)
     A = -torch.exp(p.A_log.float())
     return dt, B_, C_, A
 
@@ -126,24 +128,26 @@ def _mamba1_inner(cfg, p, xc: torch.Tensor, z: torch.Tensor,
     if S % L != 0:
         L = S
     if cfg.attn_impl == "pallas":
-        y = torch.empty((B, S, di), dtype=torch.float32, device=xc.device)
+        # softplus, D-skip and gate run inside the kernel
+        y = torch.empty((B, S, di), dtype=xc.dtype, device=xc.device)
         h = h0
         for c0 in range(0, S, L):
             c = slice(c0, c0 + L)
-            _, h = ops.ssm_scan_chunk(dt[:, c], xc[:, c], B_[:, c], C_[:, c],
-                                      A, h, y=y[:, c], h_out=h_out)
+            _, h = ops.mamba1_scan_chunk(dt[:, c], p.dt_bias, xc[:, c],
+                                         z[:, c], B_[:, c], C_[:, c], A, p.D,
+                                         h, y=y[:, c], h_out=h_out)
             h_out = h                   # later chunks update it in place
-    else:
-        h = h0.float()
-        ys = []
-        for c0 in range(0, S, L):
-            c = slice(c0, c0 + L)
-            y_c, h = _plain_chunk(dt[:, c], B_[:, c], C_[:, c], xc[:, c], A,
-                                  h)
-            ys.append(y_c)
-        y = torch.cat(ys, dim=1)
-        if h_out is not None:
-            h = h_out.copy_(h)
+        return y, h
+    dt = softplus(dt.float() + p.dt_bias.float())
+    h = h0.float()
+    ys = []
+    for c0 in range(0, S, L):
+        c = slice(c0, c0 + L)
+        y_c, h = _plain_chunk(dt[:, c], B_[:, c], C_[:, c], xc[:, c], A, h)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)
+    if h_out is not None:
+        h = h_out.copy_(h)
     y = y + xc.float() * p.D
     y = (y * silu(z).float()).to(xc.dtype)
     return y, h

@@ -71,10 +71,17 @@ WRAPPERS = {
         t.reshape(1, 2, 8), t.repeat(4).reshape(8, 8),
         t.repeat(4).reshape(1, 8, 8)),
 }
+# dt, x, z (1,2,8), dt_bias (8,), B/C (1,2,8), A (8,8), D (8,), h0
+# (1,8,8): N = 8
+WRAPPERS["mamba1_scan_chunk"] = lambda t: ops.mamba1_scan_chunk(
+    t.reshape(1, 2, 8), t[:8], t.reshape(1, 2, 8), t.reshape(1, 2, 8),
+    t.reshape(1, 2, 8), t.reshape(1, 2, 8), t.repeat(4).reshape(8, 8), t[:8],
+    t.repeat(4).reshape(1, 8, 8))
 KERNEL_MODULES = {"flash_attention": flash_attention,
                   "decode_attention": decode_attention,
                   "fused_rmsnorm": fused_rmsnorm,
-                  "ssm_scan_chunk": ssm_scan}
+                  "ssm_scan_chunk": ssm_scan,
+                  "mamba1_scan_chunk": ssm_scan}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))

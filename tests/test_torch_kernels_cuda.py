@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, against their plain versions: the
 codec kernels bit for bit, the LM kernels (attention, RMSNorm) within
 ``tests/test_kernels.py``'s tolerances (2e-5 in fp32, 2e-2 in bf16), the
-selective scan within its 1e-4.
+selective scan within its 1e-4, the gated scan's bf16 output within one
+bf16 ulp (1e-2).
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports no jax, so it runs on the GPU machine without the repository's
@@ -394,6 +395,123 @@ def test_ssm_scan_launches_are_counted(cuda):
     ops.ssm_scan_chunk(*args, h_out=args[-1])
     counts = ops.launch_counts()
     assert counts["ssm_scan_chunk"] == 2 and counts["fused_rmsnorm"] == 0
+
+
+# the gated scan (mamba1_scan_chunk): raw dt with dt_bias, the D-skip and
+# the SiLU gate folded in; y in the working dtype, held to one bf16 ulp
+GATED_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+def _gated_inputs(B, L, di, N, dtype, cuda, seed):
+    """Raw dt, dt_bias, x, z, B, C in ``dtype``; A negative, D and h0
+    fp32 — the argument order of ``ops.mamba1_scan_chunk``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+    A = -torch.exp(randn(di, N, scale=0.5))
+    return (randn(B, L, di).to(dtype), randn(di, scale=0.5).to(dtype),
+            randn(B, L, di).to(dtype), randn(B, L, di).to(dtype),
+            randn(B, L, N).to(dtype), randn(B, L, N).to(dtype), A,
+            randn(di), randn(B, di, N))
+
+
+def _hold_gated(got, exp, dtype):
+    (y, h), (ye, he) = got, exp
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y, ye, **GATED_TOL[dtype])
+    torch.testing.assert_close(h, he, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,L,di,N,dtype", [
+    (8, 256, 8192, 16, torch.bfloat16),     # the serving path's prefill chunk
+    (8, 1, 8192, 16, torch.bfloat16),       # its decode step
+    (2, 64, 128, 16, torch.float32),
+    (1, 32, 256, 8, torch.float32),
+    (2, 16, 64, 16, torch.float32),
+    (3, 40, 200, 8, torch.float32),         # ragged di, ragged time tile
+    (2, 33, 200, 16, torch.bfloat16),
+    (2, 70, 136, 8, torch.bfloat16),
+])
+def test_mamba1_scan_kernel_matches_plain(B, L, di, N, dtype, cuda):
+    args = _gated_inputs(B, L, di, N, dtype, cuda, L + di + 1)
+    got = ops.mamba1_scan_chunk(*args)
+    exp = ref.mamba1_scan_chunk_ref(*args)
+    torch.cuda.synchronize()
+    _hold_gated(got, exp, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba1_scan_kernel_chains_in_place_over_views(dtype, cuda):
+    """The model's operands: z the second half of one in_proj output, B/C
+    column slices of one x_proj output, two chunks as views, y into one
+    buffer of the working dtype and the state in place; equal one long
+    plain call."""
+    Bn, L, di, N, R = 2, 96, 264, 16, 8
+    dt, bias, x, _, _, _, A, D, h0 = _gated_inputs(Bn, 2 * L, di, N, dtype,
+                                                   cuda, 15)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    xz = torch.randn(Bn, 2 * L, 2 * di, generator=g, device=cuda).to(dtype)
+    z = xz[..., di:]
+    proj = torch.randn(Bn, 2 * L, R + 2 * N, generator=g,
+                       device=cuda).to(dtype)
+    Bc, Cc = proj[..., R:R + N], proj[..., R + N:]
+    exp = ref.mamba1_scan_chunk_ref(dt, bias, x, z, Bc, Cc, A, D, h0)
+    y = torch.empty(Bn, 2 * L, di, device=cuda, dtype=dtype)
+    h = h0.clone()
+    for c in (slice(0, L), slice(L, 2 * L)):
+        _, h_new = ops.mamba1_scan_chunk(dt[:, c], bias, x[:, c], z[:, c],
+                                         Bc[:, c], Cc[:, c], A, D, h,
+                                         y=y[:, c], h_out=h)
+        assert h_new is h
+    torch.cuda.synchronize()
+    _hold_gated((y, h), exp, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_read_rows_off_16_bytes(dtype, cuda):
+    """Operands whose rows do not start on 16 bytes take the kernel's
+    element loads instead of cp.async: B/C columns after an odd dt_rank,
+    dt, x and z one element into wider tensors.  Both entries equal
+    their plain versions."""
+    Bn, L, di, N, R = 2, 40, 72, 16, 3
+    g = torch.Generator(device=cuda).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    proj = randn(Bn, L, R + 2 * N).to(dtype)
+    Bc, Cc = proj[..., R:R + N], proj[..., R + N:]
+    x, raw = (randn(Bn, L, di + 1).to(dtype)[..., 1:] for _ in range(2))
+    z = randn(Bn, L, 2 * di + 1).to(dtype)[..., di + 1:]
+    dt = torch.nn.functional.softplus(randn(Bn, L, di + 1))[..., 1:]
+    A, h0 = -torch.exp(randn(di, N) * 0.5), randn(Bn, di, N)
+    bias, D = (randn(di) * 0.5).to(dtype), randn(di)
+    assert x.data_ptr() % 16 and Bc.data_ptr() % 16
+    y, h = ops.ssm_scan_chunk(dt, x, Bc, Cc, A, h0)
+    ye, he = ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)
+    got = ops.mamba1_scan_chunk(raw, bias, x, z, Bc, Cc, A, D, h0)
+    exp = ref.mamba1_scan_chunk_ref(raw, bias, x, z, Bc, Cc, A, D, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ye, **SCAN_TOL)
+    torch.testing.assert_close(h, he, **SCAN_TOL)
+    _hold_gated(got, exp, dtype)
+
+
+def test_mamba1_scan_kernel_refuses_an_uncompiled_state_size(cuda):
+    args = _gated_inputs(1, 4, 32, 4, torch.float32, cuda, 17)
+    with pytest.raises(ValueError, match="no compiled instance"):
+        ops.mamba1_scan_chunk(*args)
+
+
+def test_mamba1_scan_launches_are_counted(cuda):
+    ops.reset_launch_counts()
+    args = _gated_inputs(1, 4, 32, 8, torch.bfloat16, cuda, 18)
+    ops.mamba1_scan_chunk(*args)
+    ops.mamba1_scan_chunk(*args, h_out=args[-1])
+    counts = ops.launch_counts()
+    assert counts["mamba1_scan_chunk"] == 2
+    assert counts["ssm_scan_chunk"] == 0
 
 
 # --------------------------------------------------------------------------- #

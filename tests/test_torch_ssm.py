@@ -3,7 +3,11 @@
 The port's selective scan (``ops.ssm_scan_chunk``: on the CPU the plain
 version of the CUDA kernel in ``csrc/ssm_scan.cu``) is held to the
 reference's Pallas kernel in interpret mode at ``tests/test_kernels.py``'s
-sweep shapes, at L = 1 and chained, within that file's 1e-4.  The blocks
+sweep shapes, at L = 1 and chained, within that file's 1e-4.  The gated
+scan (``ops.mamba1_scan_chunk``: raw dt, softplus, D-skip and gate around
+the same kernel) is held to that Pallas kernel wrapped in the reference
+model's own prologue and epilogue, fp32 and bf16, within 1e-4 (fp32; the
+state in both) and one bf16 ulp (bf16 y).  The blocks
 (``causal_conv``, ``mamba1_block``) and reduced falcon-mamba-7b (prefill,
 then four teacher-forced decode steps) are held to the reference on both
 port routes, ``attn_impl="pallas"`` (the scan chunk by chunk through
@@ -23,13 +27,14 @@ from repro import configs as RCFG
 from repro.kernels import ops as rops
 from repro.models import lm as RL
 from repro.models import ssm as RS
+from repro.models import common as RC
 from repro.models.common import InitBuilder
 from repro_torch import configs
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import ssm_scan as kssm
 from repro_torch.launch import serve
 from repro_torch.models import lm, ssm
-from repro_torch.models.common import Init, Leaves, softplus
+from repro_torch.models.common import Init, Leaves, silu, softplus
 
 torch.set_num_threads(1)
 
@@ -156,6 +161,162 @@ def test_kernel_wrapper_refuses_what_it_has_no_instance_for(monkeypatch, bad,
 
 
 # --------------------------------------------------------------------------- #
+# the gated scan: raw dt, the D-skip and the gate folded into the chunk
+# --------------------------------------------------------------------------- #
+# y in the working dtype: fp32 held at the scan's 1e-4, bf16 at one bf16
+# ulp; the state is fp32 either way
+GATED_TOL = {"float32": SCAN_TOL, "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+
+
+def _gated_inputs(B, L, di, N, seed=0):
+    """Raw dt, dt_bias, x, z, B, C (the working-dtype operands), then A
+    (negative), D and h0 (fp32): ``ops.mamba1_scan_chunk``'s order."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    return (normal(B, L, di), normal(di, scale=0.5), normal(B, L, di),
+            normal(B, L, di), normal(B, L, N), normal(B, L, N),
+            -np.exp(normal(di, N, scale=0.5)), normal(di), normal(B, di, N))
+
+
+def _reference_gated(arrays, dtype, block_d):
+    """The reference's own prologue and epilogue around its Pallas kernel
+    in interpret mode (``src/repro/models/ssm.py:82-83`` and
+    ``:111-112``)."""
+    f32 = jnp.float32
+    dt, bias, x, z, Bc, Cc = (jnp.asarray(a).astype(dtype)
+                              for a in arrays[:6])
+    A, D, h0 = map(jnp.asarray, arrays[6:])
+    dt = RC.softplus(dt.astype(f32) + bias.astype(f32))
+    y, h = rops.ssm_scan_chunk(dt, x, Bc, Cc, A, h0, block_d=block_d,
+                               interpret=True)
+    y = y + x.astype(f32) * D
+    y = (y * RC.silu(z).astype(f32)).astype(x.dtype)
+    return np.asarray(y.astype(f32)), np.asarray(h)
+
+
+def _port_gated(arrays, dtype):
+    tdt = getattr(torch, dtype)
+    t = _torch(*arrays)
+    return [a.to(tdt) for a in t[:6]] + t[6:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B_,L,di,N,bd", [
+    (2, 16, 64, 16, 64),
+    (2, 1, 128, 16, 64),             # the decode step
+    (1, 32, 128, 8, 128),
+    (2, 1, 64, 8, 64),
+])
+def test_gated_scan_matches_reference_around_pallas(B_, L, di, N, bd, dtype):
+    arrays = _gated_inputs(B_, L, di, N, seed=L + N)
+    ye, he = _reference_gated(arrays, getattr(jnp, dtype), bd)
+    y, h = ops.mamba1_scan_chunk(*_port_gated(arrays, dtype))
+    assert y.dtype == getattr(torch, dtype) and h.dtype == torch.float32
+    assert y.shape == (B_, L, di) and h.shape == (B_, di, N)
+    assert_allclose(y.float().numpy(), ye, **GATED_TOL[dtype])
+    assert_allclose(h.numpy(), he, **SCAN_TOL)
+
+
+def test_gated_scan_plain_version_is_the_model_route():
+    """The plain version is the plain route's pieces in its order: the
+    model's softplus, the scan, the D-skip, the model's silu."""
+    args = _port_gated(_gated_inputs(2, 8, 16, 8, seed=5), "bfloat16")
+    dt, bias, x, z, Bc, Cc, A, D, h0 = args
+    y, h = ref.mamba1_scan_chunk_ref(*args)
+    ys, hs = ref.ssm_scan_chunk_ref(softplus(dt.float() + bias.float()), x,
+                                    Bc, Cc, A, h0)
+    assert torch.equal(h, hs)
+    assert torch.equal(y, ((ys + x.float() * D) * silu(z).float()).to(
+        torch.bfloat16))
+
+
+def test_gated_wrapper_passes_views_without_copies(monkeypatch):
+    """z as the second half of the in_proj output, B/C as column slices
+    of one projection, chunk views of the bf16 output buffer and the
+    state in place reach the kernel as pointers and strides."""
+    calls = _capture_launch(monkeypatch)
+    Bn, S, di, N, R = 2, 12, 16, 8, 4
+    bf = torch.bfloat16
+    dt = torch.randn(Bn, S, di).to(bf)
+    xz = torch.randn(Bn, S, 2 * di).to(bf)
+    x, z = xz[..., :di], xz[..., di:]
+    proj = torch.randn(Bn, S, R + 2 * N).to(bf)
+    bias, D = torch.randn(di).to(bf), torch.randn(di)
+    A, h = -torch.rand(di, N), torch.zeros(Bn, di, N)
+    y = torch.empty(Bn, S, di, dtype=bf)
+    c = slice(4, 8)
+    Bc, Cc = proj[:, c, R:R + N], proj[:, c, R + N:]
+    out_y, out_h = kssm.mamba1_scan_chunk(dt[:, c], bias, x[:, c], z[:, c],
+                                          Bc, Cc, A, D, h, y=y[:, c],
+                                          h_out=h)
+    assert out_h is h and out_y.data_ptr() == y[:, c].data_ptr()
+    (args,) = calls
+    ptrs = [p.value for p in args[:11]]
+    assert ptrs == [t.data_ptr() for t in (dt[:, c], bias, x[:, c], z[:, c],
+                                           Bc, Cc, A, D, h, y[:, c], h)]
+    assert args[11:15] == (Bn, 4, di, N)
+    assert args[15:27] == (S * di, di, 2 * S * di, 2 * di, 2 * S * di,
+                           2 * di, S * (R + 2 * N), R + 2 * N,
+                           S * (R + 2 * N), R + 2 * N, S * di, di)
+    assert args[27] == _build.DTYPE_CODES[bf]
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(N=4), "N=4 has no compiled instance"),
+    (dict(bias_dtype=torch.float32), "dt, dt_bias and z must be x's dtype"),
+    (dict(D_dtype=torch.bfloat16), "A, D and h0 must be fp32"),
+    (dict(z_len=3), "shapes do not match"),
+    (dict(y_dtype=torch.float32), "y must be torch.bfloat16"),
+])
+def test_gated_wrapper_refuses_what_it_has_no_instance_for(monkeypatch, bad,
+                                                           match):
+    calls = _capture_launch(monkeypatch)
+    N, bf = bad.get("N", 8), torch.bfloat16
+    dt = x = torch.randn(1, 4, 8).to(bf)
+    z = torch.randn(1, bad.get("z_len", 4), 8).to(bf)
+    Bc = Cc = torch.randn(1, 4, N).to(bf)
+    bias = torch.randn(8).to(bad.get("bias_dtype", bf))
+    D = torch.randn(8).to(bad.get("D_dtype", torch.float32))
+    y = torch.empty(1, 4, 8, dtype=bad.get("y_dtype", bf))
+    with pytest.raises((ValueError, TypeError), match=match):
+        kssm.mamba1_scan_chunk(dt, bias, x, z, Bc, Cc, -torch.rand(8, N), D,
+                               torch.zeros(1, 8, N), y=y)
+    assert not calls
+
+
+def test_pallas_route_scans_each_chunk_through_the_gated_wrapper(
+        monkeypatch):
+    """Reduced falcon-mamba, prompt of four chunks: the "pallas" route
+    calls ``ops.mamba1_scan_chunk`` once a chunk a layer at prefill and
+    once a layer a decode step, each time on raw dt, and never the
+    ungated scan; the "xla" route calls neither."""
+    cfg = configs.reduced(ARCH)
+    model = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    S = 4 * cfg.ssm_chunk
+    tokens = torch.randint(0, cfg.vocab, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    calls = {"mamba1_scan_chunk": [], "ssm_scan_chunk": []}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls[_name].append(args[0].dtype)
+            return _real(*args, **kw)
+        monkeypatch.setattr(ops, name, spy)
+    for impl, per_layer in (("pallas", 4), ("xla", 0)):
+        for got in calls.values():
+            got.clear()
+        c = cfg.replace(attn_impl=impl)
+        _, cache = lm.forward_prefill(c, model, {"tokens": tokens})
+        lm.forward_decode(c, model, tokens[:, :1], cache)
+        assert len(calls["mamba1_scan_chunk"]) == \
+            cfg.n_layers * (per_layer + (impl == "pallas"))
+        assert not calls["ssm_scan_chunk"]
+
+
+# --------------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------------- #
 def test_softplus_is_jax_softplus():
@@ -238,6 +399,7 @@ def test_mamba1_block_prefill_and_decode_match_reference(block_case, impl):
             assert_allclose(a.numpy(), b, **TOL,
                             err_msg=f"{what} at step {step}")
     assert ops.launch_counts()["ssm_scan_chunk"] == 0
+    assert ops.launch_counts()["mamba1_scan_chunk"] == 0
 
 
 # --------------------------------------------------------------------------- #

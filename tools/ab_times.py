@@ -14,6 +14,14 @@ events over back-to-back launches):
    time a call over 2000 calls;
 3. two pipeline ``Worker``s at once on two threads, one heavy and one
    light (``chip_smoke.concurrent_stages``): each one's mean ``exe_s``;
+4. ``ops.ssm_scan_chunk`` and ``ops.mamba1_scan_chunk`` (null where the
+   tree has no such wrapper) at falcon-mamba-7b's prefill chunk (8, 256,
+   8192, 16) and decode step (8, 1, 8192, 16) in bf16, on
+   ``chip_smoke``'s inputs; then falcon-mamba-7b at full width and 4
+   layers, served as ``serve.serve`` does (batch 8, prompt 1024, 32 new
+   tokens): prefill ms, decode ms/token, and one prefill under
+   ``torch.profiler``: device busy time, the scan kernels' and the
+   elementwise kernels' time and launches a layer;
 
 then runs the CNN slice (MobileNetV2-224, batch 8, ``pi_chain4``, codecs
 int8, fp8, topk, the cuts ``solve`` picks) through
@@ -33,6 +41,7 @@ B, A) in one call to compare them:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -46,6 +55,7 @@ sys.path.insert(0, str(_REPO))
 import chip_smoke  # noqa: E402
 
 INT8_N, FP8_N = 3_211_264, 1_605_632
+SSM_LAYERS = 4                 # falcon-mamba-7b's depth cut to 4 layers
 
 
 def host_us(torch, fn, calls: int = 2000) -> float:
@@ -60,6 +70,49 @@ def host_us(torch, fn, calls: int = 2000) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / calls * 1e6
+
+
+def ssm_reduced_depth(torch, emit, dev) -> None:
+    """falcon-mamba-7b at full width and ``SSM_LAYERS`` layers, random
+    weights from seed 0: ``serve.serve``'s prefill and decode times, then
+    one prefill under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime.steps import make_prefill_step
+    B, S, new = chip_smoke.SSM_B, chip_smoke.SSM_S, chip_smoke.SSM_NEW
+    cfg = configs.get("falcon-mamba-7b").replace(attn_impl="pallas",
+                                                 n_layers=SSM_LAYERS)
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    inputs = {k: v for k, v in next(SyntheticLM(
+        cfg, DataConfig(B, S, 0), device=dev)).items() if k != "targets"}
+    res = serve.serve(cfg, model, inputs, S + new, new)
+    emit("falcon-mamba serve", layers=SSM_LAYERS,
+         prefill_ms=res["prefill_s"] * 1e3,
+         decode_ms_per_token=res["decode_s"] / res["decode_steps"] * 1e3)
+    prefill = make_prefill_step(cfg, S + new)
+    prefill(model, inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(model, inputs)
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA and r.self_device_time_total]
+
+    def ms(sel):
+        return sum(r.self_device_time_total for r in sel) / 1e3
+    elem = [r for r in rows if "elementwise" in r.key]
+    scan = [r for r in rows if "ssm_scan_kernel" in r.key]
+    emit("falcon-mamba prefill profile", layers=SSM_LAYERS,
+         busy_ms=ms(rows), scan_ms=ms(scan),
+         scan_launches=sum(r.count for r in scan), elementwise_ms=ms(elem),
+         elementwise_launches_per_layer=sum(r.count for r in elem)
+         / SSM_LAYERS)
+    del model
 
 
 def main() -> int:
@@ -108,6 +161,23 @@ def main() -> int:
             torch, "fused_rmsnorm", lambda: ops.fused_rmsnorm(xs, sc),
             50 if rows * d > 1 << 20 else 200),
             host_us=host_us(torch, lambda: ops.fused_rmsnorm(xs, sc)))
+
+    for what, L, n_sets, iters in (("prefill", chip_smoke.SSM_L, 1, 20),
+                                   ("decode", 1, 24, 96)):
+        for name, make in (("ssm_scan_chunk", chip_smoke.scan_inputs),
+                           ("mamba1_scan_chunk", chip_smoke.gated_inputs)):
+            fn = getattr(ops, name, None)
+            shape = [chip_smoke.SSM_B, L, chip_smoke.SSM_DI, chip_smoke.SSM_N]
+            if fn is None:
+                emit(name, step=what, shape=shape, ms=None)
+                continue
+            sets = [make(torch, dev, *shape, torch.bfloat16, 7 + i)
+                    for i in range(n_sets)]
+            cyc = itertools.cycle(sets)
+            emit(name, step=what, shape=shape, ms=chip_smoke.device_ms(
+                torch, name, lambda: fn(*next(cyc)), iters))
+            del sets
+    ssm_reduced_depth(torch, emit, dev)
 
     emit("concurrent stages", **{
         f"{w.name}_exe_ms": w.stats.exe_s / w.stats.calls * 1e3
