@@ -41,6 +41,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              own CUDA stream, the three codec hops concurrent) under the
              profiler and a watchdog: the stages' summed ``exe_s`` beside
              the device's busy time;
+5c. socket — the slice again with ``transport="socket"`` and the
+             sanitizer on: four spawned worker processes, each with its
+             own CUDA context, hops over loopback TCP.  ``run_one``'s
+             output must equal the emulated pipeline's (phase 4) bit for
+             bit; each process's launch counts (sent with its STATS
+             flush) must show its hops' pack and unpack kernels once a
+             batch (``hop_launches``), for the lone batch and for 20
+             streamed ones, each stage on a CUDA device; no sanitizer
+             violation.  ``measure`` (20 batches) is printed beside phase
+             4's, with each hop's receiver-measured wire time and wire /
+             raw bytes; then stage 1 is SIGKILLed mid-stream: the
+             session must raise ``TransportError`` within its timeout and
+             ``close()`` leave no live worker; then ``measure_hop`` over
+             socket at the hops' activation sizes, codec none and int8,
+             the sink unpacking on the card (median us a transfer);
 6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
              the FMA kernel), decode attention (split and combine kernels)
              and RMSNorm against their plain versions on the card, fp32 and
@@ -390,6 +405,126 @@ def streamed_stages(torch, pipe, x) -> dict:
     return dict(wall_ms=wall_ms, stage_exe_ms=exe, sum_exe_ms=sum(exe),
                 busy_ms=busy_us / 1e3, spans=len(spans),
                 kernel_sum_ms=sum(b - a for a, b in spans) / 1e3)
+
+
+def hop_launches(codecs) -> list[dict[str, int]]:
+    """The ``ops`` kernels each stage's process must launch for one
+    batch of the CNN slice: stage i packs hop i's codec, stage i + 1
+    unpacks it (top-k unpacks by a scatter, with no kernel)."""
+    pack = {"int8": "int8_pack", "fp8": "fp8_pack", "topk": "topk_select"}
+    unpack = {"int8": "int8_unpack", "fp8": "fp8_unpack"}
+    want = [{} for _ in range(len(codecs) + 1)]
+    for i, codec in enumerate(codecs):
+        want[i][pack[codec]] = 1
+        if codec in unpack:
+            want[i + 1][unpack[codec]] = 1
+    return want
+
+
+def socket_phase(torch, model, cuts, scen, x, emu_y, emu_res, smi) -> None:
+    """The CNN slice with every stage a spawned worker process on the
+    card, every hop loopback TCP, the sanitizer on: the output against
+    the emulated pipeline's ``emu_y`` bit for bit, each process's
+    launch counts against ``hop_launches``, ``measure`` beside the
+    emulated ``emu_res``, ``measure_hop`` at the hops' sizes, then one
+    stage SIGKILLed mid-stream."""
+    from repro_torch.runtime import EdgePipeline, drain_violations
+    from repro_torch.runtime.transport import TransportError, measure_hop
+    drain_violations()
+    t0 = time.perf_counter()
+    pipe = EdgePipeline(model, cuts, scen, transport="socket", device="cuda",
+                        sanitize=True, timeout_s=STREAM_TIMEOUT_S)
+    procs = list(pipe._engine._procs)
+    try:
+        log(f"socket [{smi}]: {len(procs)} worker processes up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        pipe.warmup(x)
+        pipe._reset_stats()
+        y, lat, hop_t = pipe.run_one(x)
+        lone = pipe.stage_stats()
+        want = hop_launches(pipe.codecs)
+        for i, st in enumerate(lone):
+            log(f"  stage {i} on {st.device}: launches {json.dumps(st.launches)}")
+        if [s.launches for s in lone] != want:
+            raise AssertionError(f"socket: per-process launches "
+                                 f"{[s.launches for s in lone]}, expected "
+                                 f"{want}")
+        if not all(s.device.startswith("cuda") for s in lone):
+            raise AssertionError(f"socket: stage devices "
+                                 f"{[s.device for s in lone]}")
+        if not torch.equal(y, emu_y):
+            raise AssertionError(f"socket: output differs from the emulated "
+                                 f"pipeline's by {float((y - emu_y).abs().max())}")
+        log(f"socket [{smi}]: run_one output == the emulated pipeline's "
+            f"(torch.equal); latency {lat * 1e3:.3f} ms, per-hop wire "
+            f"{[round(h * 1e3, 4) for h in hop_t]} ms")
+        res = pipe.measure(lambda: x, n_batches=STREAM_BATCHES)
+        streamed = pipe.stage_stats()
+        many = [{k: v * STREAM_BATCHES for k, v in w.items()} for w in want]
+        if [s.launches for s in streamed] != many:
+            raise AssertionError(f"socket: streamed launches "
+                                 f"{[s.launches for s in streamed]}, expected "
+                                 f"{many}")
+        log(f"socket [{smi}]: measure latency {res.latency_s * 1e3:.3f} ms, "
+            f"throughput {res.throughput:.3f} samples/s, stage exe_s "
+            f"{[round(e * 1e3, 3) for e in res.stage_exe_s]} ms, hop net "
+            f"{[round(h * 1e3, 4) for h in res.hop_net_s]} ms, mem "
+            f"{[round(m, 3) for m in res.mem_pct]} %")
+        log(f"  emulated (slice phase): measure latency "
+            f"{emu_res.latency_s * 1e3:.3f} ms, throughput "
+            f"{emu_res.throughput:.3f} samples/s, stage exe_s "
+            f"{[round(e * 1e3, 3) for e in emu_res.stage_exe_s]} ms, hop net "
+            f"{[round(h * 1e3, 4) for h in emu_res.hop_net_s]} ms")
+        for i, net in enumerate(pipe.nets):
+            n = net.total_transfers
+            log(f"  hop {i} ({pipe.codecs[i]}): {n} transfers, receiver-"
+                f"measured wire {net.total_elapsed_s / n * 1e3:.4f} ms a "
+                f"transfer, wire {net.total_bytes // n} B, raw "
+                f"{net.total_raw_bytes // n} B a transfer")
+        bad = drain_violations()
+        if bad:
+            raise AssertionError("socket: sanitizer violations: "
+                                 + "; ".join(v.render() for v in bad))
+        log(f"socket: launches in the stage processes, {STREAM_BATCHES} "
+            f"streamed batches: {json.dumps([s.launches for s in streamed])}; "
+            f"no sanitizer violation")
+
+        # one stage SIGKILLed mid-stream: results() raises, nothing hangs
+        t1 = time.perf_counter()
+        try:
+            with pipe.session(inflight=4) as s:
+                s.submit(x)
+                list(s.results())
+                procs[1].kill()
+                procs[1].join(5.0)
+                for _ in range(8):
+                    s.submit(x)
+                list(s.results())
+            raise AssertionError("socket: a killed stage raised nothing")
+        except TransportError as e:
+            waited = time.perf_counter() - t1
+            if waited > STREAM_TIMEOUT_S:
+                raise AssertionError(f"socket: the killed stage took "
+                                     f"{waited:.1f} s to surface") from e
+            log(f"socket: stage 1 SIGKILLed: TransportError after "
+                f"{waited:.3f} s ({e})")
+    finally:
+        pipe.close()
+    alive = [p.name for p in procs if p.is_alive()]
+    if alive:
+        raise AssertionError(f"socket: live workers after close: {alive}")
+    log("socket: close() left no live worker process")
+
+    # one hop alone, at the slice's three activation sizes
+    sizes = sorted({net.total_raw_bytes // net.total_transfers
+                    for net in pipe.nets})
+    for codec in ("none", "int8"):
+        out = measure_hop("socket", sizes, n_per_size=STREAM_BATCHES,
+                          codec=codec, device="cuda")
+        med = {n: sorted(v)[len(v) // 2] * 1e6 for n, v in out.items()}
+        log(f"measure_hop [{smi}] socket codec={codec}, sink unpacking on "
+            f"the card: median us a transfer "
+            f"{json.dumps({n: round(m, 1) for n, m in med.items()})}")
 
 
 def lm_tol(torch, dtype) -> float:
@@ -1353,6 +1488,9 @@ def main() -> int:
         f"spans; their sum {st['kernel_sum_ms']:.3f} ms, so "
         f"{st['kernel_sum_ms'] - st['busy_ms']:.3f} ms ran beside each other "
         f"on different streams)")
+
+    # --------------------------------------------------------------- socket
+    socket_phase(torch, model, cuts, scen, x, y, res, smi)
 
     # ---------------------------------------------------------- lm kernels
     from repro_torch.launch import serve

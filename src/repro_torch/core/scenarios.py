@@ -297,13 +297,13 @@ FAULT_PLANS = ("kill_mid_stream", "lane_kill", "wan_duress", "lossy_feed",
 
 def get_fault_plan(name: str):
     """Fault plans need ``runtime/faults.py``, which arrives with the
-    socket/shmem process transports (ROADMAP queue 1, item 6)."""
+    shmem transport and the supervisor (ROADMAP queue 1, item 6b)."""
     if name not in FAULT_PLANS:
         raise KeyError(
             f"unknown fault plan {name!r}; have {sorted(FAULT_PLANS)}")
     raise NotImplementedError(
-        "fault plans arrive with the process transports (ROADMAP queue 1, "
-        "item 6)")
+        "fault plans arrive with the supervisor (ROADMAP queue 1, "
+        "item 6b)")
 
 
 # --------------------------------------------------------------------------- #

@@ -5,8 +5,10 @@ library with a plain C interface, at the first call that hands one of
 its kernels a CUDA tensor, and bound through ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries go to the git-ignored
 ``kernels/build/``; the compiler's output is kept beside each as
-``<name>.nvcc.log``.  Importing this module needs neither ``nvcc`` nor
-a card.
+``<name>.nvcc.log``.  A build holds an exclusive ``flock`` on
+``<name>.lock`` there, so pipeline stages in several processes that
+reach an unbuilt library at once run one ``nvcc`` between them.
+Importing this module needs neither ``nvcc`` nor a card.
 
 Every entry point of a source takes its pointers and the stream as
 ``c_void_p``, returns ``cudaGetLastError()`` as an ``int``, and
@@ -14,7 +16,9 @@ Every entry point of a source takes its pointers and the stream as
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -32,6 +36,18 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
 F32 = ctypes.c_float
+
+
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """Hold an exclusive ``flock`` on ``path`` (released when the
+    holder exits, even killed, so a stale lock file never blocks)."""
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
 
 
 def _nvcc() -> str:
@@ -55,6 +71,7 @@ class KernelLibrary:
         self.source = CSRC / f"{name}.cu"
         self.path = BUILD_DIR / f"lib{name}.so"
         self.log = BUILD_DIR / f"{name}.nvcc.log"
+        self.lock = BUILD_DIR / f"{name}.lock"
         self.functions = functions
         self.error_fn = error_fn
         self._lock = threading.Lock()
@@ -62,24 +79,35 @@ class KernelLibrary:
 
     def build(self, force: bool = False) -> Path:
         """Compile the source unless an up-to-date library exists;
-        → the library's path."""
+        → the library's path.  Threads of one process wait on a lock,
+        processes on the file lock; a waiter that finds the library
+        built meanwhile does not build it again."""
         with self._lock:
-            if (not force and self.path.exists()
-                    and self.path.stat().st_mtime
-                    >= self.source.stat().st_mtime):
+            if not force and self._fresh():
                 return self.path
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                   str(self.source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  check=False)
-            self.log.write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name} "
-                                   f"({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, self.path)
-            return self.path
+            self.lock.parent.mkdir(parents=True, exist_ok=True)
+            with _file_lock(self.lock):
+                if not force and self._fresh():
+                    return self.path
+                return self._compile()
+
+    def _fresh(self) -> bool:
+        return (self.path.exists() and self.path.stat().st_mtime
+                >= self.source.stat().st_mtime)
+
+    def _compile(self) -> Path:
+        """Run nvcc into a temporary file, then move it into place."""
+        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+               str(self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        self.log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source.name} "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, self.path)
+        return self.path
 
     def library(self) -> ctypes.CDLL:
         """The loaded library, built on first use."""

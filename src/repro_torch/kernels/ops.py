@@ -175,3 +175,13 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for fn in WRAPPERS:
             fn.launches = 0
+
+
+def drain_launch_counts() -> dict[str, int]:
+    """The counts since the last reset or drain, then zero them, in one
+    step (a pipeline stage's process reports them on each STATS flush)."""
+    with _count_lock:
+        counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+        for fn in WRAPPERS:
+            fn.launches = 0
+    return counts

@@ -4,14 +4,21 @@
 This is the *measured* half of the reproduction: a real partitioned
 pipeline, one worker per stage executing its contiguous block range
 ``[cuts[i], cuts[i+1])`` on the pipeline's device, with the hop layer
-behind the Transport API (``runtime.transport``).  The port runs the
-``emulated`` transport: stages are threads, every hop an
-``EmulatedChannel`` (tc-style: RTT/2 + bytes/bw injected as wall-clock
-delay, static ``Link`` or time-varying ``LinkTrace`` sampled at the
-pipeline clock per transfer), and each hop's wire codec packs and
-unpacks on the card with the CUDA kernels.  The reference's worker-
-process transports (``socket``/``shmem``), its protocol sanitizer and
-its fault injection are not ported yet (ROADMAP queue 1, item 6) and
+behind the Transport API (``runtime.transport``):
+
+  * ``emulated`` — stages are threads, every hop an ``EmulatedChannel``
+    (tc-style: RTT/2 + bytes/bw injected as wall-clock delay, static
+    ``Link`` or time-varying ``LinkTrace`` sampled at the pipeline clock
+    per transfer).  Backend cost is *modeled*.
+  * ``socket`` — stages are spawned OS processes, each with its own
+    CUDA context on the card, every hop real TCP on loopback with the
+    reference's wire format.  Backend cost is *measured* per transfer.
+
+Either way each hop's wire codec packs on the sending stage's device
+and unpacks on the receiving stage's, with the CUDA kernels on the
+card.  The protocol sanitizer (``runtime.sanitizer``) checks every hop
+when asked.  The reference's ``shmem`` transport, its fault injection
+and its supervisor are not ported yet (ROADMAP queue 1, item 6b) and
 raise ``NotImplementedError``.
 
 Orthogonally, **dual communication backends per stage** mirror the
@@ -38,13 +45,15 @@ Tensors cross hops with a CUDA event the consumer's stream waits on
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 import queue
 import resource
 import threading
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Literal, Sequence
 
 import numpy as np
@@ -54,8 +63,9 @@ from ..core.devices import AnyLink, Link, LinkTrace
 from ..core.scenarios import Scenario
 from ..models.cnn.zoo import resolve_device
 from . import transport as T
+from .sanitizer import maybe_sanitize, sanitize_enabled
 from .transport import (BATCH, CANCEL, CLOCK, PROBE, RECONFIG, STATS, STOP,
-                        WARMUP, ERROR, HopSpec, TransferRecord,
+                        WARMUP, ERROR, HopMeter, HopSpec, TransferRecord,
                         TransportError, TransportTimeout, _Serializer,
                         get_transport)
 
@@ -74,6 +84,71 @@ class StageStats:
     cpu_s: float = 0.0              # worker CPU time (process clock)
     cpu_pct: float = 0.0
     mem_pct: float = 0.0
+    # worker processes only: kernel launches counted in the stage's own
+    # process (by ``ops`` wrapper name) and the device it computes on
+    launches: dict[str, int] = field(default_factory=dict)
+    device: str = ""
+
+
+def mem_pct(device: torch.device) -> float:
+    """Memory share of ``device`` held by this process: PyTorch's
+    reserved pool over the card's memory on CUDA, the resident set over
+    physical memory on the CPU."""
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        return 100.0 * torch.cuda.memory_reserved(device) / total
+    page = os.sysconf("SC_PAGE_SIZE")
+    try:
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * page
+    except OSError:
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return 100.0 * rss / (page * os.sysconf("SC_PHYS_PAGES"))
+
+
+def numerics() -> dict:
+    """This process's settings that decide a stage's bits: TF32, the
+    cuDNN algorithm choice, and the intra-op thread count.  A spawned
+    worker starts from torch's defaults, so the engine ships these."""
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "threads": torch.get_num_threads()}
+
+
+def apply_numerics(flags: dict) -> None:
+    """Set what ``numerics`` read, before any stage computes."""
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul.allow_tf32"]
+    torch.backends.cudnn.deterministic = flags["cudnn.deterministic"]
+    torch.backends.cudnn.benchmark = flags["cudnn.benchmark"]
+    torch.set_num_threads(flags["threads"])
+
+
+def ship_model(model) -> tuple:
+    """→ (skeleton, state): ``model`` with every parameter and buffer
+    slot emptied, and those tensors as host numpy arrays by state-dict
+    name.  Both pickle by value, whatever device the model is on."""
+    state = {k: v.detach().cpu().numpy()
+             for k, v in model.state_dict().items()}
+    tensors = [*model.parameters(), *model.buffers()]
+    skeleton = copy.deepcopy(model, memo={id(t): None for t in tensors})
+    return skeleton, state
+
+
+def rebuild_model(skeleton, state: dict, device: torch.device):
+    """Inverse of ``ship_model``, the tensors placed on ``device``."""
+    for name, arr in state.items():
+        path, _, leaf = name.rpartition(".")
+        mod = skeleton.get_submodule(path)
+        t = torch.from_numpy(arr).to(device)
+        if leaf in mod._parameters:
+            mod._parameters[leaf] = torch.nn.Parameter(t,
+                                                       requires_grad=False)
+        else:
+            mod._buffers[leaf] = t
+    return skeleton.eval()
 
 
 _STREAM_POOL = 32   # torch's streams a device and priority, handed out in turn
@@ -296,12 +371,14 @@ class _ThreadEngine:
         r = pipe.replicas
         tr = get_transport("emulated", clock=pipe.clock)
         return [
-            tr.open_fan(HopSpec(index=i, link=link,
-                                framing=("pickle" if pipe.backends[i] == "rpc"
-                                         else "raw"),
-                                depth=pipe.queue_depth, seed=pipe.seed + i,
-                                codec=pipe.codecs[i]),
-                        max(r[i], r[i + 1]))
+            [maybe_sanitize(c) for c in
+             tr.open_fan(HopSpec(index=i, link=link,
+                                 framing=("pickle" if pipe.backends[i] == "rpc"
+                                          else "raw"),
+                                 depth=pipe.queue_depth, seed=pipe.seed + i,
+                                 codec=pipe.codecs[i],
+                                 sanitize=pipe.sanitize),
+                         max(r[i], r[i + 1]))]
             for i, link in enumerate(pipe.links)]
 
     @property
@@ -391,6 +468,10 @@ class _ThreadEngine:
     def session_open(self) -> None:
         pipe = self.pipe
         k, r = pipe.n_stages, pipe.replicas
+        for group in self.chan_groups:        # channels outlive sessions:
+            for chan in group:                # STOP is terminal per stream
+                if hasattr(chan, "reset_stream"):
+                    chan.reset_stream()
         self._feed_lanes = [_QueueChan() for _ in range(r[0])]
         self._out_lanes = [_QueueChan() for _ in range(r[k - 1])]
         self._err: queue.Queue = queue.Queue()
@@ -559,19 +640,390 @@ class _ThreadEngine:
                     pass
 
     def mem_pct(self) -> float:
-        """Memory share of the pipeline's device: PyTorch's reserved
-        pool over the card's memory on CUDA, peak resident set over
-        physical memory on the CPU."""
-        dev = self.pipe.device
-        if dev.type == "cuda":
-            total = torch.cuda.get_device_properties(dev).total_memory
-            return 100.0 * torch.cuda.memory_reserved(dev) / total
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-        phys = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
-        return 100.0 * rss / phys
+        """Memory share of the pipeline's device (``mem_pct``)."""
+        return mem_pct(self.pipe.device)
 
     def close(self) -> None:
         pass
+
+
+# how long a blocked orchestrator feed send waits before resurfacing as
+# TransportTimeout so the engine can re-check worker liveness
+_FEED_SEND_CHUNK_S = 0.5
+
+
+class _ProcessEngine:
+    """Stages as spawned OS processes, hops as real socket channels —
+    the measured path.  The orchestrator feeds stage 0 and drains stage
+    k-1 over extra (non-scenario) channels and harvests per-stage stats,
+    per-hop TransferRecords and each process's kernel launch counts over
+    control pipes whenever a STATS token traverses the chain.
+
+    Each worker rebuilds the model from a numpy state dict on the
+    pipeline's device, with this process's numerics settings, so on the
+    card every stage has a CUDA context of its own (the contexts share
+    the card by time-slicing) and packs and unpacks its hops' codecs
+    there.  A dead worker raises ``TransportError``; there is no
+    supervisor to restart it (ROADMAP queue 1, item 6b)."""
+
+    results_persist = True      # the worker loop outlives any session
+
+    def __init__(self, pipe: "EdgePipeline"):
+        import multiprocessing as mp
+        self.pipe = pipe
+        self._ctx = mp.get_context("spawn")
+        self._stop = self._ctx.Event()
+        k = pipe.n_stages
+        self._meters = [HopMeter(l) for l in pipe.links]
+        self._stats = [StageStats() for _ in range(k)]
+        self._procs: list = []
+        self._ctrls: list = []
+        self._ctrl_stage: list[int] = []      # worker w -> its logical stage
+        self._pairs: list = []                # flat (tx, rx) per lane
+        self._groups: list[list] = []         # pairs grouped per channel j
+        self._feed = None                     # Channel or FanOutChannel
+        self._result = None                   # Channel or FanInChannel
+        self._warm_x = None
+        self._closed = False
+        try:
+            self._start(k)
+        except BaseException:
+            # partial standup must not leak live worker processes or
+            # sockets — the caller gets no pipe object to close()
+            self.close()
+            raise
+
+    def _start(self, k: int) -> None:
+        pipe = self.pipe
+        r = pipe.replicas
+        if pipe.device.type == "cuda":
+            # once here, not in k processes at once at their first pack
+            from ..kernels._build import CODEC_PACK
+            CODEC_PACK.build()
+        # channel j carries stage j-1 -> stage j; j=0 is the orchestrator
+        # feed, j=k the result drain (neither is a scenario hop).  A
+        # channel touching a replicated stage becomes a lane *group* of
+        # max(r_left, r_right) lanes
+        chan_names = ([pipe.transports[0], *pipe.transports,
+                       pipe.transports[-1]] if k > 1
+                      else [pipe.transport_names[0]] * 2)
+        trs = {n: get_transport(n, device=pipe.device)
+               for n in set(chan_names)}
+        for j in range(k + 1):
+            internal = 0 < j < k
+            framing = ("pickle" if 0 < j and pipe.backends[j - 1] == "rpc"
+                       else "raw")
+            n_lanes = max(r[j - 1] if j > 0 else 1, r[j] if j < k else 1)
+            spec = HopSpec(
+                index=j - 1,
+                link=pipe.links[j - 1] if internal else None,
+                framing=framing,
+                # the feed must hold a full stream window, or the
+                # orchestrator's send blocks where no liveness check runs
+                depth=(pipe.queue_depth if internal
+                       else max(pipe.queue_depth * k, 1)),
+                seed=pipe.seed + j, epoch=pipe.epoch,
+                scenario_hop=internal,
+                # the feed send's bound doubles as the orchestrator's
+                # liveness cadence: a blocked submit resurfaces every
+                # chunk so the engine can poll worker health instead of
+                # wedging on a dead peer
+                send_timeout_s=(_FEED_SEND_CHUNK_S if j == 0
+                                else pipe.timeout_s),
+                codec=pipe.codecs[j - 1] if internal else "none",
+                # the result drain hands tensors back to user code
+                zero_copy=(j != k),
+                sanitize=pipe.sanitize)
+            group = [maybe_sanitize(c).split()
+                     for c in trs[chan_names[j]].open_fan(spec, n_lanes)]
+            self._groups.append(group)
+            self._pairs.extend(group)
+        g0, gk = self._groups[0], self._groups[k]
+        # the fan dispatch/merge is itself sanitized (when enabled): the
+        # merge-level wrapper is what catches a broadcast token returned
+        # once per lane instead of once per group
+        self._feed = (maybe_sanitize(T.FanOutChannel([p[0] for p in g0]))
+                      if len(g0) > 1 else g0[0][0])
+        self._result = (maybe_sanitize(T.FanInChannel([p[1] for p in gk]))
+                        if len(gk) > 1 else gk[0][1])
+
+        skeleton, state = ship_model(pipe.model)
+        flags = numerics()
+        child_ctrls = []
+        for i in range(k):
+            for m in range(r[i]):
+                parent_c, child_c = self._ctx.Pipe()
+                self._ctrls.append(parent_c)
+                self._ctrl_stage.append(i)
+                child_ctrls.append(child_c)
+                ing = self._groups[i]
+                egr = self._groups[i + 1]
+                # replica m owns lane m through a replicated region; a
+                # solo stage facing a wider group merges in / fans out
+                ingress = (ing[m][1] if r[i] > 1
+                           else maybe_sanitize(
+                               T.FanInChannel([p[1] for p in ing]))
+                           if len(ing) > 1 else ing[0][1])
+                egress = (egr[m][0] if r[i] > 1
+                          else maybe_sanitize(
+                              T.FanOutChannel([p[0] for p in egr]))
+                          if len(egr) > 1 else egr[0][0])
+                spec = {"stage": i, "n_stages": k, "model": skeleton,
+                        "state": state, "device": str(pipe.device),
+                        "numerics": flags, "bounds": pipe.bounds(),
+                        "backend": pipe.backends[i],
+                        "ingress": ingress, "egress": egress,
+                        "ctrl": child_c, "stop": self._stop,
+                        "epoch": pipe.epoch,
+                        "pace_s": pipe.stage_pace_s[i]}
+                name = (f"edge-worker{i}.{m}" if r[i] > 1
+                        else f"edge-worker{i}")
+                p = self._ctx.Process(target=T._worker_main, args=(spec,),
+                                      daemon=True, name=name)
+                p.start()
+                self._procs.append(p)
+        # parent's copies of shipped endpoints must go away, or a dead
+        # worker's socket never reads as closed downstream
+        for c in child_ctrls:
+            c.close()
+        for j in range(k + 1):
+            for pair in self._groups[j]:
+                if j != 0:
+                    pair[0].close()
+                if j != k:
+                    pair[1].close()
+        for w in range(len(self._procs)):
+            msg = self._ctrl_recv(w)
+            if msg[0] != "ready":
+                raise TransportError(
+                    f"worker {self._ctrl_stage[w]} failed to start: {msg}")
+
+    # ------------------------------------------------------------------ #
+    @property
+    def nets(self):
+        return self._meters
+
+    def _dead_workers(self) -> list[int]:
+        return [w for w, p in enumerate(self._procs) if not p.is_alive()]
+
+    def _raise_dead(self, w: int) -> None:
+        raise TransportError(
+            f"worker process {w} died (exitcode {self._procs[w].exitcode})")
+
+    def _check_alive(self) -> None:
+        dead = self._dead_workers()
+        if dead:
+            self._raise_dead(dead[0])
+
+    def _ctrl_recv(self, i: int, timeout: float | None = None):
+        deadline = time.perf_counter() + (timeout or self.pipe.timeout_s)
+        while True:
+            if self._ctrls[i].poll(0.05):
+                msg = self._ctrls[i].recv()
+                if msg[0] == "error":
+                    raise TransportError(msg[2])
+                return msg
+            self._check_alive()
+            if time.perf_counter() > deadline:
+                raise TransportError(f"worker {i}: control channel timeout")
+
+    def _await(self, expected: int):
+        deadline = time.perf_counter() + self.pipe.timeout_s
+        while True:
+            try:
+                kind, obj = self._result.recv(timeout=0.25)
+            except TransportTimeout:
+                self._check_alive()
+                if time.perf_counter() > deadline:
+                    raise TransportError(
+                        f"timed out waiting for "
+                        f"{T._KIND_NAMES[expected]}") from None
+                continue
+            if kind == ERROR:
+                raise TransportError(str(obj))
+            if kind == expected:
+                return obj
+            raise TransportError(
+                f"protocol error: got {T._KIND_NAMES[kind]} while waiting "
+                f"for {T._KIND_NAMES[expected]}")
+
+    def sync(self) -> dict[int, list[TransferRecord]]:
+        """Flush every stage's stats + ingress records to the
+        orchestrator; → {hop index: new records} for the scenario hops."""
+        self._feed.send(kind=STATS)
+        self._await(STATS)
+        return self.harvest()
+
+    def harvest(self) -> dict[int, list[TransferRecord]]:
+        """The control-pipe half of ``sync``: collect the per-worker
+        flushes a ``STATS`` token (already seen at the result end)
+        caused.  Every worker — each replica separately — sends its
+        control message *before* forwarding the token, so all
+        ``sum(replicas)`` messages are in flight by the time the token
+        exits the chain.  Replica flushes fold into their logical
+        stage's counters and their ingress hop's meter."""
+        new: dict[int, list[TransferRecord]] = {}
+        for w in range(len(self._ctrls)):
+            _, stage, d, mem, records = self._ctrl_recv(w)
+            acc = self._stats[stage]
+            acc.exe_s += d["exe_s"]
+            acc.calls += d["calls"]
+            acc.cpu_s += d["cpu_s"]
+            acc.mem_pct = max(acc.mem_pct, mem)
+            acc.device = d["device"]
+            for name, n in d["launches"].items():
+                if n:
+                    acc.launches[name] = acc.launches.get(name, 0) + n
+            if stage > 0:                     # stage i's ingress = hop i-1
+                self._meters[stage - 1].extend(records)
+                new.setdefault(stage - 1, []).extend(
+                    TransferRecord(*r) for r in records)
+        return new
+
+    # session primitives: the worker loop is already persistent --------- #
+    def session_open(self) -> None:
+        pass
+
+    def submit(self, x) -> None:
+        self._send(x, kind=BATCH)
+
+    def submit_token(self, kind: int, obj=None) -> None:
+        self._send(obj, kind=kind)
+
+    def cancel_flush(self) -> None:
+        """Out-of-band skip command: a ("cancel",) ctrl message to every
+        live worker opens its skip window (batches ahead of the next
+        flush CANCEL fence short-circuit compute and travel as empty
+        markers).  Best-effort — a worker that misses it just computes
+        results the session will drop anyway."""
+        for w, c in enumerate(self._ctrls):
+            try:
+                if self._procs[w].is_alive():
+                    c.send(("cancel",))
+            except (OSError, ValueError):
+                pass                          # dying worker: skip is moot
+
+    def _send(self, payload, kind: int) -> None:
+        """Feed send with a liveness loop: a blocked send resurfaces
+        every ``_FEED_SEND_CHUNK_S`` as TransportTimeout (nothing
+        committed — retryable), and the engine checks worker health
+        before trying again."""
+        deadline = time.perf_counter() + self.pipe.timeout_s
+        while True:
+            try:
+                self._feed.send(payload, kind=kind)
+                return
+            except TransportTimeout:
+                pass
+            self._check_alive()
+            if time.perf_counter() > deadline:
+                raise TransportError(
+                    f"feed send blocked for {self.pipe.timeout_s:.0f}s "
+                    f"with all workers alive (pipeline wedged)")
+
+    def poll(self, timeout: float):
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                return self._result.recv(timeout=0.25)
+            except TransportTimeout:
+                self._check_alive()
+                if time.perf_counter() > deadline:
+                    raise
+
+    def max_inflight(self) -> int | None:
+        # the feed channel's depth is what the orchestrator can always
+        # stuff without blocking, whatever the workers are doing; a
+        # submit window beyond it could park the feed send with the
+        # result channel full and nobody pumping
+        return max(self.pipe.queue_depth * self.pipe.n_stages, 1)
+
+    def session_close(self, failed: bool = False) -> None:
+        pass
+
+    # ------------------------------------------------------------------ #
+    def warmup(self, x):
+        self._warm_x = x                      # exemplar for migrate's fence
+        self._feed.send(x, kind=WARMUP)
+        return self._await(WARMUP)
+
+    def migrate(self) -> None:
+        self._feed.send(self.pipe.reconfig_payload(), kind=RECONFIG)
+        self._await(RECONFIG)
+        # the migration protocol's warm-up fence: a WARMUP must reach
+        # every (re)built stage before the next BATCH, so the quiescent
+        # path replays the last warmup exemplar in-band — what
+        # Session.migrate does for the in-flight path
+        if self._warm_x is not None:
+            self._feed.send(self._warm_x, kind=WARMUP)
+            self._await(WARMUP)
+
+    def probe(self) -> None:
+        self._feed.send(kind=PROBE)
+        self._await(PROBE)
+        self.sync()
+
+    def stage_stats(self) -> list[StageStats]:
+        return [dataclasses.replace(s, launches=dict(s.launches))
+                for s in self._stats]
+
+    def reset_stats(self) -> None:
+        self.sync()                           # flush children first
+        self._stats = [StageStats() for _ in range(self.pipe.n_stages)]
+
+    def set_epoch(self, epoch: float) -> None:
+        self._feed.send(epoch, kind=CLOCK)
+        self._await(CLOCK)
+        self._feed.epoch = self._result.epoch = epoch
+
+    def mem_pct(self) -> float:
+        """The orchestrator's own share (``mem_pct``); each worker
+        reports its stage's with its stats."""
+        return mem_pct(self.pipe.device)
+
+    def _teardown_workers(self) -> None:
+        """Tear the worker tier down — processes, channel pairs, control
+        pipes.  Every step is exception-safe and the state lists are
+        cleared, so calling it twice is harmless."""
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        deadline = time.perf_counter() + 3.0
+        for p in self._procs:
+            p.join(max(deadline - time.perf_counter(), 0.1))
+        for p in self._procs:
+            if p.is_alive():                  # terminate ignored: escalate
+                p.kill()
+                p.join(1.0)
+        for pair in self._pairs:              # idempotent; includes feed
+            for end in pair:                  # and result ends
+                try:
+                    end.close()
+                except Exception:
+                    pass
+        for c in self._ctrls:
+            try:
+                c.close()
+            except Exception:
+                pass
+        self._procs, self._ctrls, self._ctrl_stage = [], [], []
+        self._pairs, self._groups = [], []
+        self._feed = self._result = None
+
+    def close(self) -> None:
+        if self._closed:                      # idempotent
+            return
+        self._closed = True
+        self._stop.set()
+        if self._feed is not None:
+            try:
+                self._feed.send(kind=STOP)
+            except Exception:
+                pass
+            deadline = time.perf_counter() + 3.0
+            for p in self._procs:             # graceful drain first
+                p.join(max(deadline - time.perf_counter(), 0.1))
+        self._teardown_workers()
 
 
 # --------------------------------------------------------------------------- #
@@ -587,13 +1039,22 @@ class EdgePipeline:
                     ``Link``/``LinkTrace`` (2-stage convenience), or a
                     sequence of per-hop links.
     ``backend``   — one backend for every stage, or a per-stage sequence.
-    ``transport`` — ``"emulated"`` (threads, modeled wire); the
-                    reference's ``"socket"``/``"shmem"`` are not ported
-                    yet and raise ``NotImplementedError``.
+    ``transport`` — hop transport: ``"emulated"`` (threads, modeled
+                    wire), ``"socket"`` (worker processes, measured
+                    wire), or a per-hop sequence; defaults to the
+                    scenario's ``transports`` else ``"emulated"``.
+                    ``"emulated"`` cannot mix with process transports;
+                    ``"shmem"`` is not ported yet and raises
+                    ``NotImplementedError``.
     ``device``    — where every stage computes and every codec packs:
                     ``cuda`` unless the caller passes another device.
+    ``sanitize``  — check every hop's token protocol
+                    (``runtime.sanitizer``); default: the
+                    ``REPRO_SANITIZE`` environment variable.
 
     The legacy 2-stage keywords ``p=`` and ``link=`` are still accepted.
+    Process-backed pipelines hold OS resources — ``close()`` them (or
+    use the pipeline as a context manager).
     """
 
     def __init__(self, model, cuts=None, scenario=None,
@@ -607,10 +1068,10 @@ class EdgePipeline:
                  stage_pace_s: "float | Sequence[float] | None" = None,
                  device=None, sanitize: bool | None = None,
                  fault_plan=None):
-        if sanitize or fault_plan is not None:
+        if fault_plan is not None:
             raise NotImplementedError(
-                "the protocol sanitizer and fault injection are not ported "
-                "yet (ROADMAP queue 1, item 6)")
+                "fault injection is not ported yet (ROADMAP queue 1, "
+                "item 6b)")
         if p is not None:
             cuts = p
         if link is not None:
@@ -655,8 +1116,21 @@ class EdgePipeline:
             names = tuple(transport)
             if len(names) != n_hops:
                 raise ValueError(f"{len(names)} transports for {n_hops} hops")
-        for n in set(names):
-            get_transport(n)                  # unknown / unported: raise
+        # unknown / unported transports raise here
+        process_based = {n: get_transport(n).process_based for n in set(names)}
+        if len(set(process_based.values())) > 1:
+            raise ValueError(
+                f"cannot mix the in-process 'emulated' transport with "
+                f"process transports in one pipeline: {names}")
+        if any(process_based.values()):
+            # a measured channel cannot follow a schedule; silently
+            # ignoring the trace would mislabel results as degraded
+            traced = [l.name for l in links if isinstance(l, LinkTrace)]
+            if traced:
+                raise ValueError(
+                    f"LinkTrace hops {traced} need the 'emulated' "
+                    f"transport — real {sorted(set(names))} channels "
+                    f"measure the wire, they cannot replay a schedule")
         self.transport_names = names
         self.transports = names[:self.n_stages - 1]   # () for k == 1
 
@@ -713,6 +1187,9 @@ class EdgePipeline:
         self.queue_depth = queue_depth
         self.timeout_s = timeout_s
         self.seed = seed
+        # protocol sanitizer (runtime.sanitizer): explicit arg wins,
+        # REPRO_SANITIZE=1 turns it on fleet-wide
+        self.sanitize = sanitize_enabled(sanitize)
         self._t0 = time.perf_counter()
         self.epoch = self._t0
         self.clock = clock or (lambda: time.perf_counter() - self._t0)
@@ -720,7 +1197,9 @@ class EdgePipeline:
         self.migration_costs_j: list[float] = []   # parallel to migrations
         self._session = None                  # the live Session, if any
         self.cuts = self._check_cuts(cuts)
-        self._engine = _ThreadEngine(self)
+        self._engine = (_ProcessEngine(self)
+                        if any(process_based.values()) else
+                        _ThreadEngine(self))
 
     # ------------------------------------------------------------------ #
     def _check_cuts(self, cuts) -> tuple[int, ...]:
@@ -757,6 +1236,9 @@ class EdgePipeline:
 
     @property
     def workers(self) -> list[Worker]:
+        if not isinstance(self._engine, _ThreadEngine):
+            raise AttributeError("workers live in their own processes under "
+                                 f"transport={self.transport!r}")
         return self._engine.workers
 
     @property
@@ -817,7 +1299,8 @@ class EdgePipeline:
 
     # lifecycle --------------------------------------------------------- #
     def close(self) -> None:
-        """Close a live session, if any (threads hold no OS resources)."""
+        """Close a live session, if any, and tear down worker processes
+        and channels (threads hold no OS resources)."""
         if self._session is not None and not self._session.closed:
             try:
                 self._session.close()

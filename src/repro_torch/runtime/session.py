@@ -1,16 +1,16 @@
 """Streaming Session API — the one always-pipelined entrypoint.
 
 (The PyTorch port of the reference's ``runtime/session.py``.  The
-supervisor hooks of the process engines — payload retention and replay,
-restaffing, device-loss events — arrive with those engines, ROADMAP
-queue 1, item 6.)
+supervisor hooks of the process engine — payload retention and replay,
+restaffing, device-loss events — arrive with the supervisor, ROADMAP
+queue 1, item 6b.)
 
 Everything the runtime used to do through three incompatible entrypoints
 (``EdgePipeline.run_one`` for lone batches, ``stream(x, n)`` for a
 fixed-count burst, ``AdaptiveRuntime.run`` for the adaptive loop) is the
 same execution here: a ``Session`` feeds batches into the pipelined
 stage chain (threads under the ``emulated`` transport, worker processes
-under ``socket``/``shmem``), keeps at most ``inflight`` of them in
+under ``socket``), keeps at most ``inflight`` of them in
 flight, and hands results back **in submit order** —
 
     with pipe.session(controller=AdaptiveController(splitter)) as s:
@@ -658,6 +658,43 @@ class Session:
         raise TransportError(
             f"session: unexpected token kind {kind!r} at the result drain")
 
+    def _flush_failed(self) -> None:
+        """Best-effort flush after a failure.  A session aborted by a
+        *user* exception leaves healthy workers completing in-flight
+        batches into the persistent result channel — unclaimed, they
+        would be misattributed as the next session's first arrivals.
+        Bounded: after a transport failure there may be nothing alive
+        left to drain.  Only process engines need it — a thread
+        session's channels die with its stage threads."""
+        if not getattr(self._engine, "results_persist", False):
+            return
+        deadline = time.perf_counter() + min(self.pipe.timeout_s, 10.0)
+        while (self._pending
+               or any(n > 0 for n in self._expect.values())):
+            if time.perf_counter() > deadline:
+                break
+            try:
+                kind, _ = self._engine.poll(1.0)
+            except TransportTimeout:
+                continue                      # a batch may still be computing
+            except TransportError:
+                break                         # the pipeline really is gone
+            if kind == BATCH and self._pending:
+                self._pending.pop(min(self._pending))
+            elif kind == STATS:
+                try:
+                    self._engine.harvest()
+                except Exception:
+                    pass
+                self._expect[STATS] = max(self._expect[STATS] - 1, 0)
+            elif kind in self._expect:
+                self._expect[kind] = max(self._expect[kind] - 1, 0)
+            else:
+                # unowned BATCH (pending already empty) or a stray
+                # ERROR/STOP: the flush is best-effort by contract, but
+                # the drop is explicit, not an accidental fall-through
+                pass
+
     # lifecycle --------------------------------------------------------- #
     def close(self) -> None:
         """Drain (unless already failed) and release the pipeline for
@@ -672,6 +709,8 @@ class Session:
                 outstanding = [k for k, n in self._expect.items() if n > 0]
                 if outstanding:
                     self._await_tokens(*outstanding)
+            else:
+                self._flush_failed()
         finally:
             try:
                 self._engine.session_close(failed=self._failed)

@@ -566,3 +566,46 @@ def test_stages_keep_streams_of_their_own(cuda):
     out, _, _ = pipe.run_one(x)
     assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
     pipe.close()
+
+
+def test_socket_stages_launch_their_hops_kernels_in_their_own_processes(
+        cuda, monkeypatch):
+    """The CNN slice's cuts and codecs over ``socket``: each stage is a
+    spawned process with a CUDA context of its own, launches its hops'
+    pack and unpack kernels there (counted in that process and sent with
+    its STATS flush), and the output equals the emulated pipeline's bit
+    for bit (TF32 off and deterministic cuDNN, shipped to every worker).
+    Closing leaves no live worker."""
+    from repro_torch.core import scenarios
+    from repro_torch.models.cnn import zoo
+    from repro_torch.runtime import EdgePipeline, drain_violations
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    model = zoo.get("mobilenetv2", 10).init(
+        torch.Generator().manual_seed(0), "cuda")
+    scen = scenarios.get("pi_chain4").with_codec(chip_smoke.CODECS)
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda)
+    want, _, _ = EdgePipeline(model, (1, 2, 3), scen,
+                              device="cuda").run_one(x)
+    drain_violations()
+    pipe = EdgePipeline(model, (1, 2, 3), scen, transport="socket",
+                        sanitize=True, device="cuda")
+    procs = list(pipe._engine._procs)
+    with pipe:
+        pipe.warmup(x)
+        pipe._reset_stats()
+        got, _, hops = pipe.run_one(x)
+        stats = pipe.stage_stats()
+    assert torch.equal(got, want) and all(h > 0 for h in hops)
+    assert [s.launches for s in stats] == chip_smoke.hop_launches(
+        pipe.codecs)
+    assert all(s.device.startswith("cuda") for s in stats)
+    assert drain_violations() == []
+    assert not any(p.is_alive() for p in procs)

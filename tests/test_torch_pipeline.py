@@ -207,12 +207,14 @@ def test_quiescent_migrate(models):
 
 
 def test_unported_paths_raise(models):
+    """The shmem transport and fault plans are still to come (socket and
+    the sanitizer are ported: ``test_torch_socket*.py``)."""
     _, _, port = models
     links = [Link(**FAST)]
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        EdgePipeline(port, (2,), links, transport="socket", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        EdgePipeline(port, (2,), links, sanitize=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 6b"):
+        EdgePipeline(port, (2,), links, transport="shmem", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 6b"):
+        EdgePipeline(port, (2,), links, fault_plan=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             EdgePipeline(port, (2,), links)
