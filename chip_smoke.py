@@ -56,6 +56,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              ``close()`` leave no live worker; then ``measure_hop`` over
              socket at the hops' activation sizes, codec none and int8,
              the sink unpacking on the card (median us a transfer);
+5d. shmem — the slice again with ``transport="shmem"``, the sanitizer
+             on: stages as processes, hops shared-memory doorbell rings
+             whose receiving card copies straight from the slot.  Output
+             ``torch.equal`` to the emulated run; each process's launches
+             equal ``hop_launches`` (1 and 20 batches), every stage on a
+             CUDA device, no violation; ``measure`` beside phases 4 and
+             5c; each hop's wire time and bytes; the standup split (per
+             worker: spawn to ``import torch`` done, the model rebuilt on
+             the card with its CUDA context; the tier's spawn to ready);
+             ``measure_hop`` over shmem beside socket's; after
+             ``close()`` no live worker and none of the pipeline's
+             segments in /dev/shm;
+5e. recovery — the slice supervised over shmem, sanitizer on, under a
+             watchdog: eight batches from seed 0 with stage 1 SIGKILLed
+             after batch 3 must come out equal (``torch.equal``, in
+             order) to an unfaulted run's (phase 5d's pipeline), with
+             exactly one ``restart`` record that replayed at least one
+             batch (its ``detect_s``, ``restart_s`` and ``replay_s``
+             printed, and the rebuilt tier's standup); then with the
+             feed's batch 2 sent twice: equal outputs, no recovery, one
+             ``frame-dup`` injection and launches exactly
+             ``hop_launches`` a batch; no violation, worker or segment
+             left after either;
 6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
              the FMA kernel), decode attention (split and combine kernels)
              and RMSNorm against their plain versions on the card, fp32 and
@@ -214,6 +237,12 @@ HOP_KERNELS = {"int8": ("pack_fused_kernel<Int8Sym>", "int8_unpack_kernel"),
 # the streamed-stage phase: batches, the session's wait for a result, and
 # a watchdog that ends the process if the phase hangs past its limit
 STREAM_BATCHES, STREAM_TIMEOUT_S, STREAM_WATCHDOG_S = 20, 60.0, 180.0
+# the recovery phase: batches (from seed 0), the pipeline's timeout (the
+# workers' ready handshake included) and stall window, each over one
+# standup of four workers on the card (25-29 s), and a watchdog over a
+# standup, one rebuild and the stream
+RECOVERY_BATCHES, RECOVERY_TIMEOUT_S, RECOVERY_STALL_S = 8, 90.0, 45.0
+RECOVERY_WATCHDOG_S = 300.0
 # file:line of the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "int8_pack": "src/repro/kernels/codec_pack.py:51",
@@ -367,17 +396,10 @@ def streamed_stages(torch, pipe, x) -> dict:
     the kernels' summed time, in ms.  A watchdog ends the process if the
     run hangs (the cooperative codec kernels share the card with other
     streams' kernels)."""
-    import threading
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def hung():
-        print(f"chip_smoke: the streamed run still ran after "
-              f"{STREAM_WATCHDOG_S} s", file=sys.stderr, flush=True)
-        os._exit(3)
-    dog = threading.Timer(STREAM_WATCHDOG_S, hung)
-    dog.daemon = True
-    dog.start()
+    dog = watchdog(STREAM_WATCHDOG_S, "the streamed run")
     try:
         pipe.warmup(x)
         pipe.run_one(x)
@@ -421,13 +443,14 @@ def hop_launches(codecs) -> list[dict[str, int]]:
     return want
 
 
-def socket_phase(torch, model, cuts, scen, x, emu_y, emu_res, smi) -> None:
+def socket_phase(torch, model, cuts, scen, x, emu_y, emu_res, smi) -> dict:
     """The CNN slice with every stage a spawned worker process on the
     card, every hop loopback TCP, the sanitizer on: the output against
     the emulated pipeline's ``emu_y`` bit for bit, each process's
     launch counts against ``hop_launches``, ``measure`` beside the
     emulated ``emu_res``, ``measure_hop`` at the hops' sizes, then one
-    stage SIGKILLed mid-stream."""
+    stage SIGKILLed mid-stream → ``measure``'s result and the
+    ``measure_hop`` medians (us a transfer by codec and size)."""
     from repro_torch.runtime import EdgePipeline, drain_violations
     from repro_torch.runtime.transport import TransportError, measure_hop
     drain_violations()
@@ -460,6 +483,10 @@ def socket_phase(torch, model, cuts, scen, x, emu_y, emu_res, smi) -> None:
             f"{[round(h * 1e3, 4) for h in hop_t]} ms")
         res = pipe.measure(lambda: x, n_batches=STREAM_BATCHES)
         streamed = pipe.stage_stats()
+        warm = sorted(pipe.run_one(x)[1] * 1e3 for _ in range(6))
+        log(f"socket [{smi}]: lone-batch latency after measure, 6 run_one: "
+            f"{[round(w, 3) for w in warm]} ms (median "
+            f"{(warm[2] + warm[3]) / 2:.3f})")
         many = [{k: v * STREAM_BATCHES for k, v in w.items()} for w in want]
         if [s.launches for s in streamed] != many:
             raise AssertionError(f"socket: streamed launches "
@@ -518,13 +545,262 @@ def socket_phase(torch, model, cuts, scen, x, emu_y, emu_res, smi) -> None:
     # one hop alone, at the slice's three activation sizes
     sizes = sorted({net.total_raw_bytes // net.total_transfers
                     for net in pipe.nets})
+    return {"measure": res,
+            "hop_us": hop_medians(measure_hop, "socket", sizes, smi)}
+
+
+def hop_medians(measure_hop, transport, sizes, smi, beside=None) -> dict:
+    """``measure_hop`` over ``transport`` at ``sizes``, codec none and
+    int8, the sink unpacking on the card → {codec: {size: median us a
+    transfer}}, each printed beside ``beside``'s (another transport's)."""
+    out = {}
     for codec in ("none", "int8"):
-        out = measure_hop("socket", sizes, n_per_size=STREAM_BATCHES,
+        got = measure_hop(transport, sizes, n_per_size=STREAM_BATCHES,
                           codec=codec, device="cuda")
-        med = {n: sorted(v)[len(v) // 2] * 1e6 for n, v in out.items()}
-        log(f"measure_hop [{smi}] socket codec={codec}, sink unpacking on "
-            f"the card: median us a transfer "
+        med = out[codec] = {n: sorted(v)[len(v) // 2] * 1e6
+                            for n, v in got.items()}
+        log(f"measure_hop [{smi}] {transport} codec={codec}, sink unpacking "
+            f"on the card: median us a transfer "
             f"{json.dumps({n: round(m, 1) for n, m in med.items()})}")
+        if beside is not None:
+            log(f"  socket (phase 5c) codec={codec}: "
+                f"{json.dumps({n: round(m, 1) for n, m in beside[codec].items()})}")
+    return out
+
+
+def shm_names(pipe) -> set[str]:
+    """Every shared-memory segment of ``pipe``'s live tier: each ring's
+    control segment and every payload slot named in its tables."""
+    return {name for pair in pipe._engine._pairs for end in pair
+            for name in end.segment_names()}
+
+
+def spy_segments(pipe) -> tuple[set, list]:
+    """Record the segments and worker processes of every tier ``pipe``
+    tears down (a recovery reaps the old tier) → (names, processes),
+    filled as tiers go; the live tier's are read at the caller's end."""
+    eng, names, procs = pipe._engine, set(), list(pipe._engine._procs)
+    teardown = eng._teardown_workers
+
+    def spied():
+        names.update(shm_names(pipe))
+        procs.extend(p for p in eng._procs if p not in procs)
+        teardown()
+    eng._teardown_workers = spied
+    return names, procs
+
+
+def left_behind(what, names, procs) -> None:
+    """Raise if a worker of ``procs`` lives or a segment of ``names``
+    is still in /dev/shm."""
+    alive = [p.name for p in procs if p.is_alive()]
+    left = sorted(n for n in names if os.path.exists(f"/dev/shm/{n}"))
+    if alive or left:
+        raise AssertionError(f"{what}: live workers {alive}, segments left "
+                             f"{left}")
+    log(f"{what}: close() left no live worker ({len(procs)} spawned) and "
+        f"none of the pipeline's {len(names)} shared-memory segments")
+
+
+def standup_split(what, eng, t_total=None) -> None:
+    """Print the last standup of ``eng`` (``_ProcessEngine.standup``):
+    per worker, when its spawn began, how long ``Process.start``
+    blocked, spawn to its body running (interpreter, ``import torch``,
+    spec unpickled) and the model rebuilt on the card (CUDA context
+    included); and the tier's spawn to the last ready."""
+    split = eng.standup
+
+    def col(key):
+        return [round(w[key], 3) for w in split["workers"]]
+    log(f"{what}: standup {split['total_s']:.3f} s spawn to the last "
+        f"ready" + (f" (constructor {t_total:.3f} s)" if t_total else ""))
+    log(f"  per worker: spawn began at {col('offset_s')} s, "
+        f"Process.start blocked {col('start_call_s')} s, spawn->body "
+        f"(interpreter, import torch, spec unpickled) {col('spawn_s')} s, "
+        f"model rebuilt on the card (CUDA context) {col('build_s')} s")
+
+
+def watchdog(seconds: float, what: str):
+    """A started timer that ends the process if ``what`` still runs
+    after ``seconds`` (cancel it when done)."""
+    import threading
+
+    def hung():
+        print(f"chip_smoke: {what} still ran after {seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+    dog = threading.Timer(seconds, hung)
+    dog.daemon = True
+    dog.start()
+    return dog
+
+
+def shmem_phase(torch, model, cuts, scen, x, emu_y, emu_res, sock, smi,
+                xs) -> list:
+    """Phase 5d: the CNN slice over the shared-memory ring, sanitizer
+    on: the output against the emulated pipeline's ``emu_y`` bit for
+    bit, each process's launches against ``hop_launches`` (1 and 20
+    batches), ``measure`` beside the emulated and socket runs, the
+    standup split, ``measure_hop`` beside socket's, and no worker or
+    segment left → the outputs of the unfaulted ``xs`` (phase 5e's
+    reference)."""
+    from repro_torch.runtime import EdgePipeline, drain_violations
+    from repro_torch.runtime.transport import measure_hop
+    drain_violations()
+    t0 = time.perf_counter()
+    pipe = EdgePipeline(model, cuts, scen, transport="shmem", device="cuda",
+                        sanitize=True, timeout_s=STREAM_TIMEOUT_S)
+    procs = list(pipe._engine._procs)
+    try:
+        standup_split(f"shmem [{smi}]", pipe._engine,
+                      time.perf_counter() - t0)
+        pipe.warmup(x)
+        pipe._reset_stats()
+        y, lat, hop_t = pipe.run_one(x)
+        lone = pipe.stage_stats()
+        want = hop_launches(pipe.codecs)
+        for i, st in enumerate(lone):
+            log(f"  stage {i} on {st.device}: launches {json.dumps(st.launches)}")
+        if [s.launches for s in lone] != want:
+            raise AssertionError(f"shmem: per-process launches "
+                                 f"{[s.launches for s in lone]}, expected "
+                                 f"{want}")
+        if not all(s.device.startswith("cuda") for s in lone):
+            raise AssertionError(f"shmem: stage devices "
+                                 f"{[s.device for s in lone]}")
+        if not torch.equal(y, emu_y):
+            raise AssertionError(f"shmem: output differs from the emulated "
+                                 f"pipeline's by {float((y - emu_y).abs().max())}")
+        log(f"shmem [{smi}]: run_one output == the emulated pipeline's "
+            f"(torch.equal); latency {lat * 1e3:.3f} ms, per-hop wire "
+            f"{[round(h * 1e3, 4) for h in hop_t]} ms")
+        res = pipe.measure(lambda: x, n_batches=STREAM_BATCHES)
+        streamed = pipe.stage_stats()
+        # lone batches again, now that every slot of the feed ring has
+        # been created and touched (measure's lone batches are the
+        # feed ring's first ones: each grows a fresh slot)
+        warm = sorted(pipe.run_one(x)[1] * 1e3 for _ in range(6))
+        many = [{k: v * STREAM_BATCHES for k, v in w.items()} for w in want]
+        if [s.launches for s in streamed] != many:
+            raise AssertionError(f"shmem: streamed launches "
+                                 f"{[s.launches for s in streamed]}, expected "
+                                 f"{many}")
+        for label, r in (("shmem", res), ("  socket (phase 5c)",
+                                          sock["measure"]),
+                         ("  emulated (slice phase)", emu_res)):
+            log(f"{label} [{smi}]: measure latency {r.latency_s * 1e3:.3f} "
+                f"ms, throughput {r.throughput:.3f} samples/s, stage exe_s "
+                f"{[round(e * 1e3, 3) for e in r.stage_exe_s]} ms, hop net "
+                f"{[round(h * 1e3, 4) for h in r.hop_net_s]} ms")
+        log(f"shmem [{smi}]: lone-batch latency with the feed ring's slots "
+            f"warm, 6 run_one: {[round(w, 3) for w in warm]} ms (median "
+            f"{(warm[2] + warm[3]) / 2:.3f})")
+        for i, net in enumerate(pipe.nets):
+            n = net.total_transfers
+            log(f"  hop {i} ({pipe.codecs[i]}): {n} transfers, receiver-"
+                f"measured wire {net.total_elapsed_s / n * 1e3:.4f} ms a "
+                f"transfer, wire {net.total_bytes // n} B, raw "
+                f"{net.total_raw_bytes // n} B a transfer")
+        bad = drain_violations()
+        if bad:
+            raise AssertionError("shmem: sanitizer violations: "
+                                 + "; ".join(v.render() for v in bad))
+        log(f"shmem: launches in the stage processes, {STREAM_BATCHES} "
+            f"streamed batches: {json.dumps([s.launches for s in streamed])}; "
+            f"no sanitizer violation")
+        # phase 5e's reference: the same batches through an unfaulted run
+        with pipe.session() as s:
+            for xb in xs:
+                s.submit(xb)
+            unfaulted = s.drain()
+        names = shm_names(pipe)
+    finally:
+        pipe.close()
+    left_behind("shmem", names, procs)
+    sizes = sorted({net.total_raw_bytes // net.total_transfers
+                    for net in pipe.nets})
+    hop_medians(measure_hop, "shmem", sizes, smi, beside=sock["hop_us"])
+    return unfaulted
+
+
+def recovery_phase(torch, model, cuts, scen, xs, unfaulted, smi) -> None:
+    """Phase 5e: the slice supervised over shmem, sanitizer on, under a
+    watchdog sized for one rebuild: stage 1 SIGKILLed after batch 3 —
+    the outputs equal the unfaulted run's bit for bit, with exactly one
+    ``restart`` recovery that replayed at least one batch — then the
+    feed's batch 2 sent twice — equal outputs, no recovery, one
+    ``frame-dup`` injection and exactly ``hop_launches`` a batch.  No
+    violation, no worker and no segment left after either."""
+    from repro_torch.runtime import (EdgePipeline, FaultPlan,
+                                     drain_injections, drain_recoveries,
+                                     drain_violations)
+    runs = {"kill": FaultPlan().kill_worker(stage=1, at_seq=3),
+            "dup": FaultPlan().duplicate(hop=-1, at_seq=2)}
+    for what, plan in runs.items():
+        drain_recoveries()
+        drain_violations()
+        drain_injections()
+        dog = watchdog(RECOVERY_WATCHDOG_S, f"the recovery phase ({what})")
+        try:
+            pipe = EdgePipeline(model, cuts, scen, transport="shmem",
+                                device="cuda", sanitize=True, fault_plan=plan,
+                                timeout_s=RECOVERY_TIMEOUT_S,
+                                stall_timeout_s=RECOVERY_STALL_S)
+            names, procs = spy_segments(pipe)
+            try:
+                pipe.warmup(xs[0])
+                pipe._reset_stats()
+                t0 = time.perf_counter()
+                with pipe.session() as s:
+                    for xb in xs:
+                        s.submit(xb)
+                    outs = s.drain()
+                    s.checkpoint(probe=False)
+                wall = time.perf_counter() - t0
+                launches = [st.launches for st in pipe.stage_stats()]
+                names |= shm_names(pipe)
+                procs.extend(p for p in pipe._engine._procs
+                             if p not in procs)
+                eng = pipe._engine
+            finally:
+                pipe.close()
+        finally:
+            dog.cancel()
+        if len(outs) != len(unfaulted) or not all(
+                torch.equal(a, b) for a, b in zip(outs, unfaulted)):
+            raise AssertionError(f"recovery ({what}): outputs differ from "
+                                 f"the unfaulted run")
+        recs, injected = drain_recoveries(), drain_injections()
+        bad = drain_violations()
+        if bad:
+            raise AssertionError(f"recovery ({what}): sanitizer violations: "
+                                 + "; ".join(v.render() for v in bad))
+        log(f"recovery [{smi}] ({what}): {len(outs)} outputs == the unfaulted "
+            f"run's (torch.equal, in order) in {wall:.3f} s; recoveries "
+            f"{[r.render() for r in recs]}; injections "
+            f"{[(i.kind, i.hop, i.seq) for i in injected]}; no sanitizer "
+            f"violation")
+        if what == "kill":
+            if [r.kind for r in recs] != ["restart"] \
+                    or recs[0].batches_replayed < 1:
+                raise AssertionError(f"recovery (kill): records {recs}")
+            r = recs[0]
+            log(f"recovery [{smi}]: detect_s {r.detect_s:.6f} restart_s "
+                f"{r.restart_s:.6f} replay_s {r.replay_s:.6f} "
+                f"({r.batches_replayed} batches replayed, reason "
+                f"{r.reason}, stage {r.stage})")
+            standup_split("  rebuilt tier", eng)
+        else:
+            want = [{k: v * len(xs) for k, v in w.items()}
+                    for w in hop_launches(pipe.codecs)]
+            if recs or [(i.kind, i.hop) for i in injected] \
+                    != [("frame-dup", -1)] or launches != want:
+                raise AssertionError(f"recovery (dup): records {recs}, "
+                                     f"injections {injected}, launches "
+                                     f"{launches} (expected {want})")
+            log(f"recovery (dup): the duplicate was absorbed by the "
+                f"receiver's wire-seq dedup; launches {json.dumps(launches)}")
+        left_behind(f"recovery ({what})", names, procs)
 
 
 def lm_tol(torch, dtype) -> float:
@@ -1490,7 +1766,15 @@ def main() -> int:
         f"on different streams)")
 
     # --------------------------------------------------------------- socket
-    socket_phase(torch, model, cuts, scen, x, y, res, smi)
+    sock = socket_phase(torch, model, cuts, scen, x, y, res, smi)
+
+    # ---------------------------------------------------- shmem, recovery
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn(BATCH, HW, HW, 3, generator=rgen, device=dev)
+          for _ in range(RECOVERY_BATCHES)]
+    unfaulted = shmem_phase(torch, model, cuts, scen, x, y, res, sock, smi,
+                            xs)
+    recovery_phase(torch, model, cuts, scen, xs, unfaulted, smi)
 
     # ---------------------------------------------------------- lm kernels
     from repro_torch.launch import serve

@@ -61,9 +61,17 @@ def host_bytes(*parts: torch.Tensor) -> bytes:
 
 
 def device_bytes(buf, device) -> torch.Tensor:
-    """A received buffer as a uint8 tensor on ``device`` (one host copy
-    into torch-owned memory, then one host-to-device copy)."""
-    return torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(device)
+    """A received buffer as a uint8 tensor on ``device``.  For the CPU,
+    one host copy into torch-owned memory (the buffer is reused after
+    the call).  For another device, one synchronous host-to-device copy
+    that reads the buffer where it lies (a socket's receive buffer, a
+    shmem slot); a read-only buffer is copied into writable memory
+    first."""
+    device = torch.device(device)
+    view = memoryview(buf)
+    if device.type == "cpu" or view.readonly:
+        return torch.frombuffer(bytearray(view), dtype=torch.uint8).to(device)
+    return torch.frombuffer(view, dtype=torch.uint8).to(device)
 
 
 class Codec:

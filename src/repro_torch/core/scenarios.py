@@ -286,24 +286,44 @@ def get(name: str) -> Scenario:
 
 
 # --------------------------------------------------------------------------- #
-# Named fault plans.  The chaos scripts drive the process transports'
-# supervisor (the reference's ``runtime/faults.py``), which this package
-# has not ported yet: the names stay so callers fail with a clear error
-# instead of a missing module.
+# Named fault plans — chaos scripts for the fault-tolerance matrix.
+# Factories import lazily (runtime.faults imports runtime.transport, which
+# core must not depend on at module load).  Seqs are global batch indices
+# on the feed hop (hop -1); worker kills name (stage, lane).
 # --------------------------------------------------------------------------- #
+def _plans():
+    from ..runtime.faults import FaultPlan
+    return {
+        # the canonical restart drill: SIGKILL stage 1 mid-stream
+        "kill_mid_stream": lambda: FaultPlan(seed=1).kill_worker(
+            stage=1, at_seq=3),
+        # replica failover: kill one lane of a replicated stage
+        "lane_kill": lambda: FaultPlan(seed=2).kill_worker(
+            stage=1, at_seq=3, lane=1),
+        # WAN under duress: a stall, then a flap, on the feed hop
+        "wan_duress": lambda: FaultPlan(seed=3)
+            .stall(hop=-1, at_seq=2, for_s=0.3)
+            .flap(hop=-1, at_seq=5, down_s=0.5),
+        # lossy feed: a dropped and a duplicated frame
+        "lossy_feed": lambda: FaultPlan(seed=4)
+            .drop(hop=-1, at_seq=2)
+            .duplicate(hop=-1, at_seq=5),
+        # bit-rot on the wire: one corrupt frame header
+        "header_rot": lambda: FaultPlan(seed=5).corrupt(hop=-1, at_seq=2),
+    }
+
+
 FAULT_PLANS = ("kill_mid_stream", "lane_kill", "wan_duress", "lossy_feed",
                "header_rot")
 
 
 def get_fault_plan(name: str):
-    """Fault plans need ``runtime/faults.py``, which arrives with the
-    shmem transport and the supervisor (ROADMAP queue 1, item 6b)."""
-    if name not in FAULT_PLANS:
+    """Build the named :class:`~repro_torch.runtime.faults.FaultPlan`."""
+    try:
+        return _plans()[name]()
+    except KeyError:
         raise KeyError(
-            f"unknown fault plan {name!r}; have {sorted(FAULT_PLANS)}")
-    raise NotImplementedError(
-        "fault plans arrive with the supervisor (ROADMAP queue 1, "
-        "item 6b)")
+            f"unknown fault plan {name!r}; have {sorted(FAULT_PLANS)}") from None
 
 
 # --------------------------------------------------------------------------- #

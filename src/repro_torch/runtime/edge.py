@@ -10,16 +10,19 @@ behind the Transport API (``runtime.transport``):
     (tc-style: RTT/2 + bytes/bw injected as wall-clock delay, static
     ``Link`` or time-varying ``LinkTrace`` sampled at the pipeline clock
     per transfer).  Backend cost is *modeled*.
-  * ``socket`` — stages are spawned OS processes, each with its own
-    CUDA context on the card, every hop real TCP on loopback with the
-    reference's wire format.  Backend cost is *measured* per transfer.
+  * ``socket`` / ``shmem`` — stages are spawned OS processes, each with
+    its own CUDA context on the card, every hop real TCP on loopback or
+    a shared-memory doorbell ring, in the reference's wire format.
+    Backend cost is *measured* per transfer.
 
 Either way each hop's wire codec packs on the sending stage's device
 and unpacks on the receiving stage's, with the CUDA kernels on the
 card.  The protocol sanitizer (``runtime.sanitizer``) checks every hop
-when asked.  The reference's ``shmem`` transport, its fault injection
-and its supervisor are not ported yet (ROADMAP queue 1, item 6b) and
-raise ``NotImplementedError``.
+when asked.  On the process transports a ``FaultPlan``
+(``runtime.faults``) injects scripted faults, and the supervisor
+(``supervise=``) recovers from them: it detects a dead worker, a
+worker-reported error or a stalled stream, rebuilds the worker tier
+and has the session replay its unacked batches.
 
 Orthogonally, **dual communication backends per stage** mirror the
 paper's PyTorch-RPC vs. custom-socket study:
@@ -653,23 +656,39 @@ _FEED_SEND_CHUNK_S = 0.5
 
 
 class _ProcessEngine:
-    """Stages as spawned OS processes, hops as real socket channels —
-    the measured path.  The orchestrator feeds stage 0 and drains stage
-    k-1 over extra (non-scenario) channels and harvests per-stage stats,
-    per-hop TransferRecords and each process's kernel launch counts over
-    control pipes whenever a STATS token traverses the chain.
+    """Stages as spawned OS processes, hops as real socket or shmem
+    channels — the measured path.  The orchestrator feeds stage 0 and
+    drains stage k-1 over extra (non-scenario) channels and harvests
+    per-stage stats, per-hop TransferRecords and each process's kernel
+    launch counts over control pipes whenever a STATS token traverses
+    the chain.
 
     Each worker rebuilds the model from a numpy state dict on the
     pipeline's device, with this process's numerics settings, so on the
     card every stage has a CUDA context of its own (the contexts share
     the card by time-slicing) and packs and unpacks its hops' codecs
-    there.  A dead worker raises ``TransportError``; there is no
-    supervisor to restart it (ROADMAP queue 1, item 6b)."""
+    there.  Unsupervised, a dead worker raises ``TransportError``.
+    Supervised (``pipe.supervise``), worker death, a worker-reported
+    ERROR or a stream stalled past the stall window trigger a recovery
+    (``_recover``): the whole worker tier is torn down and spawned
+    again (at r−1 on a replicated stage that lost a lane), the WARMUP
+    fence is replayed, and the session re-sends its unacked batches;
+    each recovery emits a ``RecoveryRecord``.  ``standup`` holds the
+    last standup's split: per worker, when its spawn began after the
+    first's (``offset_s``), how long ``Process.start`` blocked
+    (``start_call_s``: spawn writes the pickled spec into the child's
+    pipe, which the child drains as it unpickles), spawn to its body
+    running (``spawn_s``: the interpreter, ``import torch``, the spec
+    unpickled) and the model rebuilt on its device (``build_s``, the
+    CUDA context included); and the whole tier's spawn-to-ready time
+    (``total_s``)."""
 
     results_persist = True      # the worker loop outlives any session
 
     def __init__(self, pipe: "EdgePipeline"):
         import multiprocessing as mp
+
+        from .faults import BackoffPolicy
         self.pipe = pipe
         self._ctx = mp.get_context("spawn")
         self._stop = self._ctx.Event()
@@ -679,23 +698,47 @@ class _ProcessEngine:
         self._procs: list = []
         self._ctrls: list = []
         self._ctrl_stage: list[int] = []      # worker w -> its logical stage
+        self._proc_slot: list[tuple[int, int]] = []   # worker w -> (stage, lane)
         self._pairs: list = []                # flat (tx, rx) per lane
         self._groups: list[list] = []         # pairs grouped per channel j
         self._feed = None                     # Channel or FanOutChannel
         self._result = None                   # Channel or FanInChannel
         self._warm_x = None
         self._closed = False
+        self.standup: dict = {}
+        # -- supervisor state (active when pipe.supervise) -------------- #
+        self.supervised = bool(pipe.supervise)
+        self._backoff = BackoffPolicy()
+        self._down: dict[int, int] = {}       # stage -> evicted lane count
+        self._restaff_needed = False
+        self._device_loss: list[tuple[int, int]] = []  # undrained (stage, lane)
+        self._replay_cb: Callable[[], int] | None = None
+        self._recovering = False
+        self._recover_count = 0
+        self._batch_seq = 0                   # global batches fed (kills key)
+        plan = pipe.fault_plan
+        self._kills = plan.kill_events() if plan is not None else {}
+        self._chaos_fired: set = set()        # events already executed
+        self._last_alive = time.perf_counter()
         try:
             self._start(k)
         except BaseException:
-            # partial standup must not leak live worker processes or
-            # sockets — the caller gets no pipe object to close()
+            # partial standup must not leak live worker processes,
+            # sockets or shmem segments — the caller gets no pipe object
+            # to close()
             self.close()
             raise
 
+    def _r_eff(self) -> tuple[int, ...]:
+        """Replica counts net of supervisor-evicted lanes (never < 1):
+        the staffing the next (re)build runs at until ``restaff``."""
+        return tuple(max(r - self._down.get(i, 0), 1)
+                     for i, r in enumerate(self.pipe.replicas))
+
     def _start(self, k: int) -> None:
+        from .faults import maybe_chaos
         pipe = self.pipe
-        r = pipe.replicas
+        r = self._r_eff()
         if pipe.device.type == "cuda":
             # once here, not in k processes at once at their first pack
             from ..kernels._build import CODEC_PACK
@@ -703,7 +746,8 @@ class _ProcessEngine:
         # channel j carries stage j-1 -> stage j; j=0 is the orchestrator
         # feed, j=k the result drain (neither is a scenario hop).  A
         # channel touching a replicated stage becomes a lane *group* of
-        # max(r_left, r_right) lanes
+        # max(r_left, r_right) lanes (one shared control segment under
+        # shmem)
         chan_names = ([pipe.transports[0], *pipe.transports,
                        pipe.transports[-1]] if k > 1
                       else [pipe.transport_names[0]] * 2)
@@ -733,8 +777,12 @@ class _ProcessEngine:
                 codec=pipe.codecs[j - 1] if internal else "none",
                 # the result drain hands tensors back to user code
                 zero_copy=(j != k),
-                sanitize=pipe.sanitize)
-            group = [maybe_sanitize(c).split()
+                sanitize=pipe.sanitize,
+                faults=pipe.fault_plan)
+            # chaos wraps *outside* the sanitizer: honest traffic stays
+            # ledgered while injected wire damage enters below the
+            # observation point (see runtime.faults.ChaosChannel)
+            group = [maybe_chaos(maybe_sanitize(c), self._chaos_fired).split()
                      for c in trs[chan_names[j]].open_fan(spec, n_lanes)]
             self._groups.append(group)
             self._pairs.extend(group)
@@ -750,11 +798,14 @@ class _ProcessEngine:
         skeleton, state = ship_model(pipe.model)
         flags = numerics()
         child_ctrls = []
+        starts = []                           # (offset, start() blocked)
+        t_spawn = time.perf_counter()
         for i in range(k):
             for m in range(r[i]):
                 parent_c, child_c = self._ctx.Pipe()
                 self._ctrls.append(parent_c)
                 self._ctrl_stage.append(i)
+                self._proc_slot.append((i, m))
                 child_ctrls.append(child_c)
                 ing = self._groups[i]
                 egr = self._groups[i + 1]
@@ -780,7 +831,9 @@ class _ProcessEngine:
                         else f"edge-worker{i}")
                 p = self._ctx.Process(target=T._worker_main, args=(spec,),
                                       daemon=True, name=name)
+                spec["t_spawn"] = t = time.perf_counter()
                 p.start()
+                starts.append((t - t_spawn, time.perf_counter() - t))
                 self._procs.append(p)
         # parent's copies of shipped endpoints must go away, or a dead
         # worker's socket never reads as closed downstream
@@ -792,11 +845,17 @@ class _ProcessEngine:
                     pair[0].close()
                 if j != k:
                     pair[1].close()
+        split = []
         for w in range(len(self._procs)):
             msg = self._ctrl_recv(w)
             if msg[0] != "ready":
                 raise TransportError(
                     f"worker {self._ctrl_stage[w]} failed to start: {msg}")
+            split.append({**(msg[2] if len(msg) > 2 else {}),
+                          "offset_s": starts[w][0],
+                          "start_call_s": starts[w][1]})
+        self.standup = {"workers": split,
+                        "total_s": time.perf_counter() - t_spawn}
 
     # ------------------------------------------------------------------ #
     @property
@@ -804,7 +863,10 @@ class _ProcessEngine:
         return self._meters
 
     def _dead_workers(self) -> list[int]:
-        return [w for w, p in enumerate(self._procs) if not p.is_alive()]
+        dead = [w for w, p in enumerate(self._procs) if not p.is_alive()]
+        if not dead:
+            self._last_alive = time.perf_counter()
+        return dead
 
     def _raise_dead(self, w: int) -> None:
         raise TransportError(
@@ -885,7 +947,22 @@ class _ProcessEngine:
         pass
 
     def submit(self, x) -> None:
+        seq = self._batch_seq
+        self._batch_seq += 1
+        if self.supervised:
+            self._dead_workers()              # a liveness mark for detect_s
         self._send(x, kind=BATCH)
+        # scripted worker-kill faults fire the moment their trigger batch
+        # has been fed (pop: each fires exactly once — replays go through
+        # _feed.send directly and never re-trigger)
+        for ev in self._kills.pop(seq, ()):
+            self._inject_kill(ev)
+
+    def _inject_kill(self, ev) -> None:
+        for w, slot in enumerate(self._proc_slot):
+            if slot == (ev.stage, ev.lane) and self._procs[w].is_alive():
+                self._procs[w].kill()         # SIGKILL: no cleanup runs
+                return
 
     def submit_token(self, kind: int, obj=None) -> None:
         self._send(obj, kind=kind)
@@ -906,16 +983,45 @@ class _ProcessEngine:
     def _send(self, payload, kind: int) -> None:
         """Feed send with a liveness loop: a blocked send resurfaces
         every ``_FEED_SEND_CHUNK_S`` as TransportTimeout (nothing
-        committed — retryable), and the engine checks worker health
-        before trying again."""
+        committed — retryable), the engine checks worker health, and —
+        when supervised — recovers instead of raising."""
         deadline = time.perf_counter() + self.pipe.timeout_s
+        rev = self._recover_count
+        attempts = 0
         while True:
+            if (self.supervised and kind == BATCH
+                    and self._recover_count != rev):
+                # a recovery replayed the session's whole pending window,
+                # this batch included — re-sending would duplicate it
+                return
+            err = None
             try:
                 self._feed.send(payload, kind=kind)
                 return
             except TransportTimeout:
                 pass
-            self._check_alive()
+            except TransportError as e:
+                if not self.supervised:
+                    raise
+                err = e
+            dead = self._dead_workers()
+            if not self.supervised:
+                if dead:
+                    self._raise_dead(dead[0])
+                if time.perf_counter() > deadline:
+                    raise TransportError(
+                        f"feed send blocked for {self.pipe.timeout_s:.0f}s "
+                        f"with all workers alive (pipeline wedged)")
+                continue
+            if dead or err is not None:
+                if attempts >= self._backoff.retries:
+                    raise err or TransportError(
+                        "feed send: recovery retries exhausted")
+                time.sleep(self._backoff.delay(attempts))
+                attempts += 1
+                self._recover(dead, reason="worker-death" if dead
+                              else "feed-break")
+                continue
             if time.perf_counter() > deadline:
                 raise TransportError(
                     f"feed send blocked for {self.pipe.timeout_s:.0f}s "
@@ -923,13 +1029,56 @@ class _ProcessEngine:
 
     def poll(self, timeout: float):
         deadline = time.perf_counter() + timeout
+        if not self.supervised:
+            while True:
+                try:
+                    return self._result.recv(timeout=0.25)
+                except TransportTimeout:
+                    self._check_alive()
+                    if time.perf_counter() > deadline:
+                        raise
+        # supervised: worker death, a worker-reported ERROR, or a stream
+        # stalled past the stall window all trigger recovery (bounded by
+        # the backoff policy's retry cap) instead of failing the session
+        stall = self._stall_window()
+        quiet0 = time.perf_counter()
+        attempts = 0
         while True:
+            failure = None
             try:
-                return self._result.recv(timeout=0.25)
+                kind, obj = self._result.recv(timeout=0.25)
+                if kind != ERROR:
+                    # each arrival (like each submit) is a liveness
+                    # check too, so a recovery's detect_s runs from the
+                    # last sign of life before the failure, not from
+                    # the last idle wait
+                    self._dead_workers()
+                    return kind, obj
+                failure = TransportError(str(obj))
             except TransportTimeout:
-                self._check_alive()
-                if time.perf_counter() > deadline:
-                    raise
+                pass
+            except TransportError as e:
+                failure = e
+            dead = self._dead_workers()
+            now = time.perf_counter()
+            if dead or failure is not None or now - quiet0 >= stall:
+                if attempts >= self._backoff.retries:
+                    raise failure or TransportError(
+                        f"stream stalled past {stall:.1f}s and recovery "
+                        f"retries are exhausted")
+                time.sleep(self._backoff.delay(attempts))
+                attempts += 1
+                self._recover(dead,
+                              reason=("worker-death" if dead else
+                                      "worker-error" if failure else "stall"))
+                quiet0 = time.perf_counter()
+                continue
+            if now > deadline:
+                raise TransportTimeout("session: no result arrived")
+
+    def _stall_window(self) -> float:
+        w = self.pipe.stall_timeout_s
+        return w if w is not None else min(self.pipe.timeout_s / 3.0, 10.0)
 
     def max_inflight(self) -> int | None:
         # the feed channel's depth is what the orchestrator can always
@@ -940,6 +1089,88 @@ class _ProcessEngine:
 
     def session_close(self, failed: bool = False) -> None:
         pass
+
+    # -- supervised recovery -------------------------------------------- #
+    def _rebuild(self) -> None:
+        """Tear the worker tier down, spawn it again and replay the
+        WARMUP fence to every rebuilt stage."""
+        self._teardown_workers()
+        self._start(self.pipe.n_stages)
+        if self._warm_x is not None:
+            self._feed.send(self._warm_x, kind=WARMUP)
+            self._await(WARMUP)
+
+    def _recover(self, dead: list[int], reason: str = "worker-death") -> None:
+        """Stage restart / replica failover: rebuild the worker tier (at
+        r−1 on the failed stage when survivors exist), replay the WARMUP
+        fence, then let the Session replay its unacked in-flight
+        batches.  Emits one RecoveryRecord per recovery."""
+        from .faults import RecoveryRecord, note_recovery
+        if self._recovering:
+            raise TransportError(
+                f"recovery failed while already recovering ({reason})")
+        if self._stop.is_set() or self._closed:
+            raise TransportError(f"engine closing; {reason} not recovered")
+        detect_s = time.perf_counter() - self._last_alive
+        self._recovering = True
+        try:
+            kind, stage, lane = "restart", -1, -1
+            if len(dead) == 1:
+                stage, lane = self._proc_slot[dead[0]]
+                if (self.pipe.replicas[stage]
+                        - self._down.get(stage, 0)) > 1:
+                    # a replicated stage lost one lane: continue degraded
+                    # at r−1, restaff at the next quiescent point, and
+                    # tell the controller a device is gone
+                    kind = "failover"
+                    self._down[stage] = self._down.get(stage, 0) + 1
+                    self._restaff_needed = True
+                    self._device_loss.append((stage, lane))
+            t0 = time.perf_counter()
+            self._rebuild()
+            restart_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            replayed = self._replay_cb() if self._replay_cb is not None else 0
+            replay_s = time.perf_counter() - t1
+        finally:
+            self._recovering = False
+        self._recover_count += 1
+        self._last_alive = time.perf_counter()
+        eff = self._r_eff()
+        note_recovery(RecoveryRecord(
+            kind=kind, stage=stage, lane=lane, reason=reason,
+            detect_s=detect_s, restart_s=restart_s, replay_s=replay_s,
+            batches_replayed=replayed,
+            degraded_capacity=min(e / r for e, r
+                                  in zip(eff, self.pipe.replicas))))
+
+    def restaff(self) -> None:
+        """Return a degraded pipeline to full replica strength — called
+        by the Session at a quiescent point (no batches or tokens in
+        flight), so the rebuild needs no replay."""
+        from .faults import RecoveryRecord, note_recovery
+        if not self._restaff_needed or self._recovering or self._closed:
+            return
+        self._restaff_needed = False
+        self._down.clear()
+        t0 = time.perf_counter()
+        self._recovering = True
+        try:
+            self._rebuild()
+        finally:
+            self._recovering = False
+        self._recover_count += 1
+        self._last_alive = time.perf_counter()
+        note_recovery(RecoveryRecord(
+            kind="restaff", stage=-1, lane=-1, reason="restaff",
+            detect_s=0.0, restart_s=time.perf_counter() - t0,
+            replay_s=0.0, batches_replayed=0, degraded_capacity=1.0))
+
+    def drain_device_loss(self) -> list[tuple[int, int]]:
+        """(stage, lane) pairs evicted since the last drain — the
+        Session forwards them to the controller as device-loss events."""
+        out, self._device_loss = self._device_loss, []
+        return out
 
     # ------------------------------------------------------------------ #
     def warmup(self, x):
@@ -982,9 +1213,11 @@ class _ProcessEngine:
         return mem_pct(self.pipe.device)
 
     def _teardown_workers(self) -> None:
-        """Tear the worker tier down — processes, channel pairs, control
-        pipes.  Every step is exception-safe and the state lists are
-        cleared, so calling it twice is harmless."""
+        """Tear the worker tier down — processes, channel pairs, shmem
+        segments, control pipes — leaving the engine ready for a fresh
+        ``_start``.  Every step is exception-safe and the state lists are
+        cleared, so calling it twice (failed recovery, then close) is
+        harmless."""
         for p in self._procs:
             if p.is_alive():
                 p.terminate()
@@ -995,6 +1228,16 @@ class _ProcessEngine:
             if p.is_alive():                  # terminate ignored: escalate
                 p.kill()
                 p.join(1.0)
+        # the workers are gone: reclaim the segments a killed worker
+        # never cleaned up — before closing this process's ends, since
+        # closing a ring's owning end (the feed's sender, the result
+        # drain's receiver) unlinks the control segment whose tables
+        # name the slots
+        for pair in self._pairs:
+            try:
+                pair[0].reap()
+            except Exception:
+                pass
         for pair in self._pairs:              # idempotent; includes feed
             for end in pair:                  # and result ends
                 try:
@@ -1006,7 +1249,8 @@ class _ProcessEngine:
                 c.close()
             except Exception:
                 pass
-        self._procs, self._ctrls, self._ctrl_stage = [], [], []
+        self._procs, self._ctrls = [], []
+        self._ctrl_stage, self._proc_slot = [], []
         self._pairs, self._groups = [], []
         self._feed = self._result = None
 
@@ -1040,17 +1284,24 @@ class EdgePipeline:
                     sequence of per-hop links.
     ``backend``   — one backend for every stage, or a per-stage sequence.
     ``transport`` — hop transport: ``"emulated"`` (threads, modeled
-                    wire), ``"socket"`` (worker processes, measured
-                    wire), or a per-hop sequence; defaults to the
-                    scenario's ``transports`` else ``"emulated"``.
-                    ``"emulated"`` cannot mix with process transports;
-                    ``"shmem"`` is not ported yet and raises
-                    ``NotImplementedError``.
+                    wire), ``"socket"`` or ``"shmem"`` (worker
+                    processes, measured wire), or a per-hop sequence;
+                    defaults to the scenario's ``transports`` else
+                    ``"emulated"``.  ``"emulated"`` cannot mix with
+                    process transports.
     ``device``    — where every stage computes and every codec packs:
                     ``cuda`` unless the caller passes another device.
     ``sanitize``  — check every hop's token protocol
                     (``runtime.sanitizer``); default: the
                     ``REPRO_SANITIZE`` environment variable.
+    ``fault_plan`` — a ``runtime.faults.FaultPlan`` of scripted faults
+                    (process transports only).
+    ``supervise`` — recover from worker death, worker errors and stalls
+                    instead of raising (default: on iff a fault plan is
+                    given; process transports only).
+    ``stall_timeout_s`` — how long a supervised stream may go without a
+                    result before it counts as stalled (default
+                    ``min(timeout_s / 3, 10)``).
 
     The legacy 2-stage keywords ``p=`` and ``link=`` are still accepted.
     Process-backed pipelines hold OS resources — ``close()`` them (or
@@ -1067,11 +1318,8 @@ class EdgePipeline:
                  replicas: Sequence[int] | None = None,
                  stage_pace_s: "float | Sequence[float] | None" = None,
                  device=None, sanitize: bool | None = None,
-                 fault_plan=None):
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP queue 1, "
-                "item 6b)")
+                 fault_plan=None, supervise: bool | None = None,
+                 stall_timeout_s: float | None = None):
         if p is not None:
             cuts = p
         if link is not None:
@@ -1190,6 +1438,19 @@ class EdgePipeline:
         # protocol sanitizer (runtime.sanitizer): explicit arg wins,
         # REPRO_SANITIZE=1 turns it on fleet-wide
         self.sanitize = sanitize_enabled(sanitize)
+        # fault tolerance (runtime.faults): a FaultPlan scripts injected
+        # failures; supervise turns on the _ProcessEngine supervisor —
+        # on by default whenever a plan is given
+        self.fault_plan = fault_plan
+        self.supervise = (bool(supervise) if supervise is not None
+                          else fault_plan is not None)
+        self.stall_timeout_s = stall_timeout_s
+        if ((self.fault_plan is not None or self.supervise)
+                and not any(process_based.values())):
+            raise ValueError(
+                "fault injection / supervised recovery need a process "
+                "transport (socket or shmem) — the emulated transport "
+                "has no worker processes to kill or restart")
         self._t0 = time.perf_counter()
         self.epoch = self._t0
         self.clock = clock or (lambda: time.perf_counter() - self._t0)

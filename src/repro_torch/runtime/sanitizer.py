@@ -27,9 +27,10 @@ send and the receive side of the hop:
   view with a ``_base``) leases it until the *next* ``recv``: a canary
   (CRC of head+tail bytes) is stamped on it and re-checked at the next
   ``recv`` entry, so a sender that wrote into a leased slot raises
-  instead of silently corrupting a tensor.  A CUDA payload is never a
-  view over transport memory, so it is never leased; the socket receive
-  copies into tensor-owned memory, so its leases always hold.
+  instead of silently corrupting a tensor.  A shmem receive on the CPU
+  hands out exactly such a view over its slot.  A CUDA payload is never
+  a view over transport memory, so it is never leased; the socket
+  receive copies into tensor-owned memory, so its leases always hold.
 
 Fingerprints and canaries hash tensor bytes on the host: a CUDA payload
 is sampled (16 elements from each end; all of it in deep mode) and
@@ -39,6 +40,12 @@ Violations are appended to a process-global report *and* raised as
 :class:`SanitizerError` (a ``TransportError``, so engine error paths
 propagate them like any transport failure).  ``drain_violations()``
 empties the report; matrix tests assert it stays empty.
+
+Layering with fault injection: ``runtime.faults.ChaosChannel`` wraps
+*outside* this sanitizer (``maybe_chaos(maybe_sanitize(chan))``) and
+injects wire damage through the raw transport *below* it, so a
+supervised pipeline that recovers from an injected fault must still
+drain zero violations.
 
 Enable per hop with ``HopSpec(sanitize=True)``, per pipeline with
 ``EdgePipeline(..., sanitize=True)``, or globally with

@@ -1,16 +1,17 @@
 """Streaming Session API — the one always-pipelined entrypoint.
 
-(The PyTorch port of the reference's ``runtime/session.py``.  The
-supervisor hooks of the process engine — payload retention and replay,
-restaffing, device-loss events — arrive with the supervisor, ROADMAP
-queue 1, item 6b.)
+(The PyTorch port of the reference's ``runtime/session.py``, with the
+session's side of the process engine's supervisor: pending payloads are
+retained until their results arrive and replayed after a stage restart,
+a degraded pipeline restaffs at the first quiescent point, and
+supervisor-evicted devices reach the controller as device-loss events.)
 
 Everything the runtime used to do through three incompatible entrypoints
 (``EdgePipeline.run_one`` for lone batches, ``stream(x, n)`` for a
 fixed-count burst, ``AdaptiveRuntime.run`` for the adaptive loop) is the
 same execution here: a ``Session`` feeds batches into the pipelined
 stage chain (threads under the ``emulated`` transport, worker processes
-under ``socket``), keeps at most ``inflight`` of them in
+under ``socket``/``shmem``), keeps at most ``inflight`` of them in
 flight, and hands results back **in submit order** —
 
     with pipe.session(controller=AdaptiveController(splitter)) as s:
@@ -208,6 +209,18 @@ class AdaptiveController:
         self._count = 0
         self._checking = False
         self._meter: _EnergyMeter | None = None
+        self._force_check = False
+        self.device_losses: list[tuple[int, int]] = []
+
+    def on_device_loss(self, session: "Session", stage: int,
+                       lane: int) -> None:
+        """Supervisor-reported replica eviction: the failed device
+        changes the pipeline's capacity, so the next arrival re-probes,
+        re-estimates, and re-solves immediately instead of waiting out
+        the ``check_every`` stride — failure is just another regime
+        change to the Pareto loop."""
+        self.device_losses.append((stage, lane))
+        self._force_check = True
 
     def bind(self, session: "Session") -> None:
         if self.estimators is None:
@@ -237,7 +250,9 @@ class AdaptiveController:
         # (captured before any re-solve below replaces it)
         pred = self.splitter.current
         migrated, cost_s, cost_j = False, 0.0, 0.0
-        if self._count % self.check_every == 0 and not self._checking:
+        if ((self._count % self.check_every == 0 or self._force_check)
+                and not self._checking):
+            self._force_check = False
             self._checking = True       # nested arrivals must not re-check
             try:
                 session.checkpoint(probe=self.probe)
@@ -326,6 +341,10 @@ class Session:
         self._rec_lo = 0                # lowest seq a record may hold
         self.closed = False
         self._engine = pipe._engine
+        # supervised engines replay unacked in-flight batches after a
+        # stage restart, so the session retains each pending payload
+        # (bounded by ``inflight``) until its result arrives
+        self._retain = bool(getattr(self._engine, "supervised", False))
         # pending: seq -> (t_submit, cuts, batch size, retained payload)
         self._pending: dict[
             int, tuple[float, tuple[int, ...], int, object]] = {}
@@ -350,6 +369,8 @@ class Session:
             # Session nobody holds a handle to
             self._engine.session_close(failed=True)
             raise
+        if self._retain:
+            self._engine._replay_cb = self._replay_for_recovery
         pipe._session = self
 
     # ------------------------------------------------------------------ #
@@ -395,8 +416,9 @@ class Session:
         self._exemplar = x
         shape = getattr(x, "shape", ())       # no host copy on the hot path
         bsz = int(shape[0]) if shape else 1
-        # keep the caller's reference — free, and it is what
-        # cancel(resubmit=True) re-feeds
+        # keep the caller's reference as it is — no device-to-host copy
+        # and no clone on the hot path; it is what cancel(resubmit=True)
+        # re-feeds and what a supervised recovery replays
         self._pending[seq] = (time.perf_counter(), self.pipe.cuts, bsz, x)
         self._engine.submit(x)
         return seq
@@ -618,6 +640,7 @@ class Session:
             if isinstance(obj, BaseException):
                 raise obj                     # the stage's own exception
             raise TransportError(str(obj))
+        self._drain_device_loss()
         if kind == BATCH:
             seq = self._next_arrival
             self._next_arrival += 1
@@ -643,6 +666,12 @@ class Session:
                                 self._rec_lo += 1
                             del self._records[self._rec_lo]
                             self._rec_lo += 1
+            # a degraded pipeline restaffs to full replica strength at
+            # the first quiescent point (nothing in flight to replay)
+            if (getattr(self._engine, "_restaff_needed", False)
+                    and not self._pending
+                    and not any(n > 0 for n in self._expect.values())):
+                self._engine.restaff()
             return
         if kind == STOP:                    # only during engine teardown
             return
@@ -657,6 +686,41 @@ class Session:
         self._failed = True
         raise TransportError(
             f"session: unexpected token kind {kind!r} at the result drain")
+
+    def _drain_device_loss(self) -> None:
+        """Forward supervisor-evicted (stage, lane) pairs to the
+        controller — a device-loss event enters the adaptation loop like
+        any other regime change (estimator update → re-solve →
+        migrate over the existing RECONFIG path)."""
+        drain = getattr(self._engine, "drain_device_loss", None)
+        if drain is None:
+            return
+        for stage, lane in drain():
+            cb = getattr(self.controller, "on_device_loss", None)
+            if cb is not None:
+                cb(self, stage, lane)
+
+    def _replay_for_recovery(self) -> int:
+        """Engine-supervisor callback, invoked after a stage restart has
+        rebuilt the worker tier and replayed the WARMUP fence: re-send
+        every unacked in-flight batch, oldest first, exactly as it was
+        submitted (the retained payload is the caller's tensor).
+
+        Correctness: pending seqs are the contiguous window
+        [_next_arrival, _next_seq); the teardown destroyed every
+        undelivered result, so re-sending the window in ascending order
+        recomputes exactly the missing results in arrival order — zero
+        lost, zero duplicated, zero reordered.  The fresh feed ring is
+        empty and pending <= inflight <= feed depth, so nothing blocks.
+        In-flight control tokens died with the channels: their expect
+        counters reset here, and any token the engine's send loop
+        retries afterwards is absorbed by _pump's surplus tolerance.
+        """
+        for k in self._expect:
+            self._expect[k] = 0
+        for seq in sorted(self._pending):
+            self._engine._feed.send(self._pending[seq][3], kind=BATCH)
+        return len(self._pending)
 
     def _flush_failed(self) -> None:
         """Best-effort flush after a failure.  A session aborted by a
@@ -712,6 +776,8 @@ class Session:
             else:
                 self._flush_failed()
         finally:
+            if getattr(self._engine, "_replay_cb", None) is not None:
+                self._engine._replay_cb = None
             try:
                 self._engine.session_close(failed=self._failed)
             finally:

@@ -10,9 +10,12 @@ the hop layer first-class so backend cost can be either:
   * **measured** — ``socket``: real TCP between spawned worker
     processes on loopback, with the reference's lightweight wire format
     (one packed ``struct`` header + the payload bytes, vectored
-    ``sendmsg``, a reusable receive buffer).  The ``shmem`` ring of the
-    reference is not ported yet and raises ``NotImplementedError``
-    (ROADMAP queue 1, item 6b).
+    ``sendmsg``, a reusable receive buffer); and ``shmem``: a doorbell
+    ring in shared memory (packed metadata records in a control
+    segment, a seq-counter publish, an eventfd or socketpair doorbell,
+    payload slots that grow on demand).  On the CPU a shmem receive
+    hands out a tensor view over the mapped slot; on the card the
+    host-to-device copy reads straight from the slot.
 
 Every hop is a ``Channel`` (``send(payload, kind)`` / ``recv()`` /
 ``close()`` / ``drain_records()``); a ``Transport`` opens one channel
@@ -27,8 +30,13 @@ Payloads are tensors.  A hop's wire codec runs on the tensor's own
 device: the sender packs with the CUDA kernels (``core/codecs.py``),
 only packed bytes cross to the host and the wire, and the receiver
 unpacks on its device — so a hop carries the codec's exact accuracy cost
-and byte count end to end, and under ``socket`` each stage's process
-launches its hops' kernels in its own CUDA context.
+and byte count end to end, and under ``socket`` and ``shmem`` each
+stage's process launches its hops' kernels in its own CUDA context.
+
+Fault injection (``runtime.faults``) rides the same surface: a hop
+whose ``HopSpec.faults`` plan scripts frame-level faults is wrapped in a
+``ChaosChannel`` on its send side, and the process engine's supervisor
+executes the worker kills.
 
 Messages are typed (``BATCH``/``WARMUP``/``PROBE``/``RECONFIG``/
 ``STATS``/``STOP``/``ERROR``/``CLOCK``/``CANCEL``) and control tokens
@@ -37,11 +45,16 @@ batches around them.  ``_worker_main`` is the per-stage process body:
 recv from the ingress channel, execute the stage's block range, send
 downstream, and flush stats, observations and kernel launch counts to
 the orchestrator over a control pipe when a ``STATS`` token passes.
+
+``record_trace`` turns drained records from a *measured* channel into a
+replayable ``LinkTrace``, so real runs can seed the emulator.
 """
 from __future__ import annotations
 
+import os
 import pickle
 import queue
+import select
 import socket as socketlib
 import struct
 import threading
@@ -54,7 +67,8 @@ import numpy as np
 import torch
 
 from ..core.codecs import codec_for_code, get_codec, host_bytes
-from ..core.devices import AnyLink, LinkTrace
+from ..core.devices import (AnyLink, Link, LinkTrace, attribute_bandwidth,
+                            fit_link_params)
 
 # message kinds (in-band, ordered with the batches around them).
 # CANCEL is the flush fence: submitted behind canceled in-flight
@@ -97,9 +111,7 @@ class TransferRecord(NamedTuple):
 
 @dataclass(frozen=True)
 class HopSpec:
-    """Static description of one hop, consumed by ``Transport.open``.
-    (The reference's shmem fields — spin window and doorbell — and its
-    fault plans arrive with those, ROADMAP queue 1, item 6b.)"""
+    """Static description of one hop, consumed by ``Transport.open``."""
 
     index: int                      # hop number (-1 = orchestrator feed)
     link: AnyLink | None = None     # the scenario link this hop models/labels
@@ -114,10 +126,20 @@ class HopSpec:
     send_timeout_s: float = 180.0   # bound on blocking sends
     # zero-copy receive lease: True for hops whose receiver consumes the
     # batch before its next recv() (the worker loop), False where the
-    # payload outlives the call (the result drain).  The socket receive
-    # always copies into tensor-owned memory, so only the sanitizer's
-    # lease canary reads it there.
+    # payload outlives the call (the result drain).  A shmem receive on
+    # the CPU hands out a tensor view over the slot, valid until the
+    # next recv(); the socket receive and every receive onto the card
+    # copy into tensor-owned memory, so there only the sanitizer's lease
+    # canary reads it.
     zero_copy: bool = True
+    # shmem busy-poll window (µs) before a waiter parks on the doorbell:
+    # the default keeps idle waiters cheap, latency microbenches widen
+    # it so back-to-back transfers stay on the spin path
+    spin_us: float = 80.0
+    # shmem doorbell flavor: "eventfd" (one kernel counter), "socketpair"
+    # (the portable fallback), or "auto" (eventfd where the platform has
+    # it)
+    bell: str = "auto"
     # wire codec applied to float tensor payloads on this hop (a name
     # from ``core.codecs.CODECS``); the sender packs, the receiver
     # decodes off the per-frame codec byte, so a mid-stream RECONFIG
@@ -133,6 +155,11 @@ class HopSpec:
     # raise SanitizerError.  Engines set this from
     # EdgePipeline(sanitize=...) / the REPRO_SANITIZE env var.
     sanitize: bool = False
+    # deterministic fault script for this pipeline (runtime.faults
+    # .FaultPlan); engines wrap send ends whose hop has frame-level
+    # events in runtime.faults.ChaosChannel and execute worker-kill
+    # events from the supervisor.  None = no fault injection.
+    faults: object | None = None
 
 
 # --------------------------------------------------------------------------- #
@@ -148,9 +175,10 @@ WIRE_LAYOUT_VERSION = 2   # v2: per-frame wire seq for duplicate suppression
 # common tensor case needs in one fixed-size read; codec code 0 =
 # uncoded payload bytes.  The wire seq stamps every frame from a
 # per-end counter so the receiver can drop an already-delivered BATCH.
-# The shmem ring's metadata record adds the slot index and lease fields
-# (declared for item 6b).  Both are the reference's layout v2, field for
-# field, so a reference end and a port end share one connection.
+# The shmem ring's metadata record (``_RREC``, with the slot index and
+# the inline lengths) is declared beside it.  Both are the reference's
+# layout v2, field for field, so a reference end and a port end share
+# one connection or one ring.
 _FHDR = struct.Struct("!BBbBB I d Q Q 8q")
 _RREC = struct.Struct("<BBbBB i I I d Q Q 8q")
 
@@ -580,14 +608,17 @@ class SocketChannel(Channel):
                            device=self.device)
         return tx, rx
 
-    def send(self, payload=None, kind: int = BATCH):
+    def send(self, payload=None, kind: int = BATCH, _dup: bool = False):
         if self._tx is None:
             raise TransportError(f"hop {self.hop.index}: receive-only end")
         t0 = time.perf_counter()              # serialization counts
         ftype, code, shape, data, meta, ccode = _frame(
             payload, self.hop.framing, self._send_codec(kind))
-        seq = self._tx_seq
-        self._tx_seq += 1
+        if _dup:                              # chaos re-send: same wire seq
+            seq = self._tx_seq - 1
+        else:
+            seq = self._tx_seq
+            self._tx_seq += 1
         hdr = _FHDR.pack(ftype, kind, code, len(shape), ccode, len(meta),
                          t0, len(data), seq, *shape,
                          *((0,) * (_MAX_NDIM - len(shape))))
@@ -706,6 +737,600 @@ class SocketChannel(Channel):
 
 
 # --------------------------------------------------------------------------- #
+# Doorbells — the park/wake primitive under the shmem ring.
+#
+# A doorbell is rung after a counter publish and parked on by the other
+# end; wakeup state persists (ring-before-park cannot lose the wake):
+# the eventfd counter accumulates until read, and socketpair bytes sit in
+# the kernel buffer until recv'd.  Any number of processes may ring the
+# same bell (eventfd adds are atomic; concurrent socket sends coalesce).
+# --------------------------------------------------------------------------- #
+def _rebuild_eventfd_bell(dupfd):
+    return _EventFdBell(fd=dupfd.detach())
+
+
+class _EventFdBell:
+    """Futex-style doorbell on a Linux ``eventfd``: ring = one atomic
+    8-byte counter add, wait = poll + drain.  Both ends are the same
+    kernel object; copies dup the fd across process boundaries
+    (``multiprocessing.reduction.DupFd``)."""
+
+    def __init__(self, fd: int | None = None):
+        self._fd = os.eventfd(0, os.EFD_NONBLOCK) if fd is None else fd
+
+    def ring(self) -> None:
+        try:
+            os.eventfd_write(self._fd, 1)
+        except (BlockingIOError, InterruptedError):
+            pass                              # counter saturated: wake pending
+
+    def wait(self, timeout_s: float) -> None:
+        try:
+            r, _, _ = select.select([self._fd], [], [], timeout_s)
+        except ValueError as e:               # fd closed under us
+            raise OSError(str(e)) from None
+        if r:
+            try:
+                os.eventfd_read(self._fd)     # drain coalesced rings
+            except (BlockingIOError, InterruptedError):
+                pass
+
+    def close(self) -> None:
+        fd, self._fd = self._fd, -1
+        if fd >= 0:
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+
+    def dup(self) -> "_EventFdBell":
+        return _EventFdBell(fd=os.dup(self._fd))
+
+    def __reduce__(self):
+        from multiprocessing.reduction import DupFd
+        if self._fd < 0:
+            raise TransportError("cannot ship a closed doorbell")
+        return (_rebuild_eventfd_bell, (DupFd(self._fd),))
+
+    @classmethod
+    def pair(cls) -> "tuple[_EventFdBell, _EventFdBell]":
+        # one eventfd counter, one descriptor per end: closing one end
+        # (the parent's copy of a shipped end) must not silence the other
+        a = cls()
+        return a, a.dup()
+
+
+class _SocketPairBell:
+    """One end of a socketpair doorbell — the portable fallback.
+    Sockets cross process boundaries via multiprocessing's standard
+    socket reduction."""
+
+    def __init__(self, sock: socketlib.socket):
+        self._s = sock
+
+    def ring(self) -> None:
+        try:
+            self._s.send(b"\0")
+        except (BlockingIOError, OSError):
+            pass                              # buffered bytes already pending
+
+    def wait(self, timeout_s: float) -> None:
+        try:
+            self._s.settimeout(timeout_s)
+            self._s.recv(4096)                # drain coalesced rings too
+        except (socketlib.timeout, BlockingIOError):
+            pass
+
+    def close(self) -> None:
+        try:
+            self._s.close()
+        except OSError:
+            pass
+
+    def dup(self) -> "_SocketPairBell":
+        s = self._s.dup()
+        s.settimeout(self._s.gettimeout())
+        return _SocketPairBell(s)
+
+    @classmethod
+    def pair(cls) -> "tuple[_SocketPairBell, _SocketPairBell]":
+        ring_end, wait_end = socketlib.socketpair()
+        ring_end.setblocking(False)
+        return cls(ring_end), cls(wait_end)
+
+
+def _bell_pair(flavor: str):
+    """→ (ring end, wait end) for a HopSpec ``bell`` declaration."""
+    if flavor == "auto":
+        flavor = "eventfd" if hasattr(os, "eventfd") else "socketpair"
+    if flavor == "eventfd":
+        return _EventFdBell.pair()
+    if flavor == "socketpair":
+        return _SocketPairBell.pair()
+    raise ValueError(f"unknown doorbell flavor {flavor!r}; "
+                     f"have 'eventfd', 'socketpair', 'auto'")
+
+
+def _dup_bell(bell):
+    """This package's doorbell over another end's descriptor (eventfd or
+    socketpair, whichever package made it), or None."""
+    if bell is None:
+        return None
+    fd = getattr(bell, "_fd", None)
+    if fd is not None:
+        return _EventFdBell(fd=os.dup(fd))
+    return _SocketPairBell(bell._s).dup()
+
+
+# shmem control ring: fixed-stride metadata records packed directly into
+# the shared control segment — ftype, kind, dtype code, ndim, codec
+# code, slot index (-1 = inline/none), meta_len, inline_len, t_send,
+# nbytes, wire seq, shape[8]; the rest of the stride is the inline area
+# (pickled meta + small payloads ride in the record itself).  The wire
+# seq mirrors the socket header's: per-end send counter, receiver-side
+# BATCH dedup.
+_STRIDE = 256
+_INLINE = _STRIDE - _RREC.size
+_BELL_CHUNK_S = 0.05    # re-check cadence while parked on the doorbell
+
+
+def _ctl_layout(depth: int) -> tuple[int, int, int, int, int, int, int]:
+    """Single-lane control layout for ``depth`` in-flight messages →
+    (n_slots, cap, fcap, tab_off, free_off, rec_off, size); offsets are
+    lane-relative so several lanes can pack into one segment."""
+    n_slots = depth + 1                       # +1 backs the zero-copy lease
+    cap = _next_pow2(depth + 8)               # data ring: depth + control slack
+    fcap = _next_pow2(n_slots)
+    tab_off = 256
+    free_off = tab_off + 32 * n_slots
+    rec_off = -(-(free_off + 8 * fcap) // 64) * 64
+    return (n_slots, cap, fcap, tab_off, free_off, rec_off,
+            rec_off + _STRIDE * cap)
+
+
+def _lane_stride(depth: int) -> int:
+    """Page-aligned per-lane footprint inside a multi-producer segment."""
+    return -(-_ctl_layout(depth)[-1] // 4096) * 4096
+
+
+# shmem mappings that could not unmap at close() because a tensor view
+# handed out by recv() still exports their buffer — kept alive so
+# SharedMemory.__del__ never runs; the OS reclaims the pages at exit
+_PINNED_MAPPINGS: list = []
+
+
+def _slot_tensor(view: memoryview, code: int, shape: tuple) -> torch.Tensor:
+    """A zero-copy CPU tensor over a received slot: a view (its ``_base``
+    the uint8 tensor over the mapping), so the sanitizer leases it."""
+    flat = torch.frombuffer(view, dtype=torch.uint8)
+    return flat.view(_dtype_of(code)).view(shape)
+
+
+def _close_mapping(shm) -> None:
+    """Unmap a segment, parking it where a tensor view still pins it."""
+    try:
+        shm.close()
+    except BufferError:
+        _PINNED_MAPPINGS.append(shm)
+    except Exception:
+        pass
+
+
+class ShmemChannel(Channel):
+    """Shared-memory ring between processes (the reference's layout, so a
+    reference end and a port end share one ring):
+
+      * a single-producer/single-consumer **data ring** of packed
+        ``_RREC`` metadata records, published by bumping a seq counter
+        (write the record, then the counter);
+      * a **free ring** of slot indices flowing back from receiver to
+        sender (``depth``-bounded backpressure, slot reuse);
+      * a **slot name table** so payload slots can grow on demand (the
+        sender replaces a too-small slot and republishes its name).
+
+    Payload bytes land in per-slot ``SharedMemory`` segments (small
+    payloads inline in the record itself).  The sender packs on the
+    tensor's device and copies the host bytes into the slot once.  The
+    receiver decodes onto ``device``: on the CPU an uncoded payload is a
+    zero-copy tensor view over the mapped slot, leased — excluded from
+    the free ring — until the *next* ``recv`` (one extra slot backs the
+    lease); on the card the host-to-device copy reads straight from the
+    slot, and the slot is released once that synchronous copy returns.
+    Waiters spin for ``hop.spin_us`` and then park on a doorbell,
+    re-checking the counters every ``_BELL_CHUNK_S``."""
+
+    measured = True
+
+    def __init__(self, hop: HopSpec, _shared: tuple | None = None,
+                 device=None):
+        from multiprocessing import shared_memory
+        super().__init__(hop)
+        self.device = torch.device("cpu" if device is None else device)
+        if _shared is None:
+            # solo lane: own control segment starting at offset 0
+            self._base, self._n_lanes, self._lane_size = 0, 1, 0
+            self._layout(max(hop.depth, 1))
+            self._lane_size = self._ctl_size
+            self._ctl = shared_memory.SharedMemory(create=True,
+                                                   size=self._ctl_size)
+        else:
+            # one lane of a multi-producer segment (ShmemTransport.open_fan)
+            self._ctl, self._base, self._n_lanes, self._lane_size = _shared
+            self._layout(max(hop.depth, 1))
+        self._ctl_name = self._ctl.name
+        self._ctl_owner = True                # double unlink is tolerated
+        # doorbells: (data send, data recv) + (free send, free recv)
+        self._bell_ds, self._bell_dr = _bell_pair(hop.bell)
+        self._bell_fs, self._bell_fr = _bell_pair(hop.bell)
+        self._pool: dict = {}                 # sender: slot idx -> SharedMemory
+        self._attached: dict = {}             # receiver: idx -> (name, shm)
+        self._lease: int | None = None        # slot behind the last recv view
+        self._role = "both"
+        self._tx_seq = 0                      # frames sent from this end
+        self._rx_seen = -1                    # highest wire seq delivered
+        for i in range(self._n_slots):        # all slots start free (no
+            self._push_free(i, ring=False)    # segment until first use)
+
+    @classmethod
+    def adopt(cls, end, hop: HopSpec, device=None) -> "ShmemChannel":
+        """A port end standing in for ``end``, an end of a ring made by
+        either package: the same control segment (attached by name), the
+        same doorbells (descriptors duplicated) and the same wire
+        counters, with ``hop`` this end's description.  ``end`` keeps its
+        own descriptors and close duty."""
+        from multiprocessing import shared_memory
+        self = cls.__new__(cls)
+        Channel.__init__(self, hop)
+        self.device = torch.device("cpu" if device is None else device)
+        self._base, self._n_lanes = end._base, end._n_lanes
+        self._lane_size = end._lane_size
+        self._layout(end._depth)
+        self._ctl_name = end._ctl_name
+        self._ctl = shared_memory.SharedMemory(name=end._ctl_name)
+        self._ctl_owner = False
+        self._bell_ds, self._bell_dr = (_dup_bell(end._bell_ds),
+                                        _dup_bell(end._bell_dr))
+        self._bell_fs, self._bell_fr = (_dup_bell(end._bell_fs),
+                                        _dup_bell(end._bell_fr))
+        self._pool, self._attached, self._lease = {}, {}, None
+        self._role = end._role
+        self._tx_seq, self._rx_seen = end._tx_seq, end._rx_seen
+        return self
+
+    def _layout(self, depth: int) -> None:
+        self._depth = depth
+        self._spin_s = self.hop.spin_us * 1e-6
+        base = getattr(self, "_base", 0)
+        (self._n_slots, self._cap, self._fcap,
+         tab_off, free_off, rec_off, self._ctl_size) = _ctl_layout(depth)
+        # absolute offsets for this lane (counters keep their own cache
+        # lines); self._ctl_size stays the lane-relative footprint
+        self._DH, self._DT = base + 0, base + 64
+        self._FH, self._FT = base + 128, base + 192
+        self._tab_off = base + tab_off
+        self._free_off = base + free_off
+        self._rec_off = base + rec_off
+
+    # -- counters + doorbells ------------------------------------------- #
+    def _ld(self, off: int) -> int:
+        return struct.unpack_from("<Q", self._ctl.buf, off)[0]
+
+    def _st(self, off: int, v: int) -> None:
+        struct.pack_into("<Q", self._ctl.buf, off, v)
+
+    def _wait(self, ready, bell, timeout: float | None, what: str) -> None:
+        """Spin briefly, then park on the doorbell until ``ready()``;
+        ``TransportTimeout`` once ``timeout`` passes (never unbounded
+        while parked: the doorbell wait re-checks every chunk)."""
+        if ready():
+            return
+        deadline = (None if timeout is None
+                    else time.perf_counter() + timeout)
+        spin_until = time.perf_counter() + self._spin_s
+        while True:
+            if ready():
+                return
+            now = time.perf_counter()
+            if now < spin_until:
+                continue
+            if deadline is not None and now >= deadline:
+                raise TransportTimeout(f"hop {self.hop.index}: {what}")
+            chunk = (_BELL_CHUNK_S if deadline is None
+                     else min(deadline - now, _BELL_CHUNK_S))
+            try:
+                bell.wait(chunk)              # drains coalesced rings too
+            except OSError as e:
+                raise TransportError(
+                    f"hop {self.hop.index}: doorbell gone ({e})") from e
+
+    # -- free ring (receiver -> sender) --------------------------------- #
+    def _push_free(self, idx: int, ring: bool = True) -> None:
+        fh = self._ld(self._FH)
+        struct.pack_into("<Q", self._ctl.buf,
+                         self._free_off + (fh % self._fcap) * 8, idx)
+        self._st(self._FH, fh + 1)
+        if ring:
+            self._bell_fs.ring()
+
+    def _pop_free(self) -> int:
+        def ready():
+            avail = self._ld(self._FH) - self._ld(self._FT)
+            return 0 < avail <= self._n_slots  # clamp guards a torn read
+        self._wait(ready, self._bell_fr, self.hop.send_timeout_s,
+                   f"no free shmem slot for {self.hop.send_timeout_s:.0f}s "
+                   f"(receiver not draining)")
+        ft = self._ld(self._FT)
+        idx = struct.unpack_from(
+            "<Q", self._ctl.buf, self._free_off + (ft % self._fcap) * 8)[0]
+        self._st(self._FT, ft + 1)
+        return int(idx)
+
+    # -- payload slots --------------------------------------------------- #
+    def _tab_name(self, idx: int) -> str:
+        off = self._tab_off + 32 * idx
+        return bytes(self._ctl.buf[off:off + 32]).rstrip(b"\0").decode()
+
+    def _get_slot(self, nbytes: int) -> tuple[int, memoryview]:
+        from multiprocessing import shared_memory
+        idx = self._pop_free()
+        shm = self._pool.get(idx)
+        if shm is None and (name := self._tab_name(idx)):
+            # a pre-split sender populated this slot; adopt it
+            try:
+                shm = self._pool[idx] = shared_memory.SharedMemory(name=name)
+            except FileNotFoundError:
+                shm = None
+        if shm is None or shm.size < nbytes:
+            if shm is not None:               # outgrown: replace the slot
+                try:
+                    shm.unlink()
+                except FileNotFoundError:
+                    pass
+                _close_mapping(shm)
+            shm = shared_memory.SharedMemory(
+                create=True, size=_next_pow2(max(nbytes, 1 << 16)))
+            self._pool[idx] = shm
+            off = self._tab_off + 32 * idx    # republish before the record
+            name = shm.name.encode()
+            self._ctl.buf[off:off + 32] = name + b"\0" * (32 - len(name))
+        return idx, shm.buf
+
+    def _slot_view(self, idx: int, nbytes: int) -> memoryview:
+        from multiprocessing import shared_memory
+        name = self._tab_name(idx)
+        cached = self._attached.get(idx)
+        if cached is None or cached[0] != name:
+            if cached is not None:            # stale: the sender grew the slot
+                _close_mapping(cached[1])
+            try:
+                shm = shared_memory.SharedMemory(name=name)
+            except FileNotFoundError:
+                raise TransportError(
+                    f"hop {self.hop.index}: shmem slot {name!r} gone "
+                    f"(peer closed)") from None
+            cached = self._attached[idx] = (name, shm)
+        return cached[1].buf[:nbytes]
+
+    # -- lifecycle across processes / split ------------------------------ #
+    def __getstate__(self):
+        state = super().__getstate__()
+        state.pop("_ctl", None)
+        state["_pool"] = {}
+        state["_attached"] = {}
+        state["_lease"] = None
+        state["_codec"] = None                # resolved again over there
+        # the shipped copy inherits unlink duty for the control segment;
+        # this (parent) copy relinquishes it, so the parent closing its
+        # handles on shipped ends cannot yank the segment from under a
+        # worker that has not attached yet (double unlink is tolerated)
+        state["_ctl_owner"] = True
+        self._ctl_owner = False
+        return state
+
+    def __setstate__(self, state):
+        from multiprocessing import shared_memory
+        super().__setstate__(state)
+        self._layout(self._depth)
+        self._ctl = shared_memory.SharedMemory(name=self._ctl_name)
+
+    def split(self):
+        import copy
+        tx, rx = copy.copy(self), copy.copy(self)
+        tx.__setstate__(tx.__getstate__())    # fresh caches/locks per end
+        rx.__setstate__(rx.__getstate__())
+        tx._role, rx._role = "send", "recv"
+        # each end keeps only its own doorbell fds, so closing one end
+        # (the parent's copy of a shipped end) cannot silence the other
+        tx._bell_dr = tx._bell_fs = None
+        rx._bell_ds = rx._bell_fr = None
+        return tx, rx
+
+    # -- hot path --------------------------------------------------------- #
+    def send(self, payload=None, kind: int = BATCH, _dup: bool = False):
+        t0 = time.perf_counter()              # serialization + copy count
+        ftype, code, shape, data, meta, ccode = _frame(
+            payload, self.hop.framing, self._send_codec(kind))
+        nbytes, mlen = len(data), len(meta)
+        self._pace(nbytes + mlen, kind)
+        if mlen > _INLINE:
+            raise TransportError(
+                f"hop {self.hop.index}: {mlen} B of pickled metadata "
+                f"exceeds the {_INLINE} B inline area")
+        # Reserve ring space *before* claiming a payload slot, so a
+        # TransportTimeout here (the retryable liveness signal — receiver
+        # not draining) leaves no sender state mutated.  0 <= used: a
+        # torn read of the receiver-written tail counter must block the
+        # publish, never overwrite an unconsumed record.
+        self._wait(lambda: 0 <= self._ld(self._DH) - self._ld(self._DT)
+                   < self._cap,
+                   self._bell_fr, self.hop.send_timeout_s,
+                   f"control ring full for {self.hop.send_timeout_s:.0f}s "
+                   f"(receiver not draining)")
+        slot, ilen = -1, 0
+        if nbytes:
+            if mlen + nbytes <= _INLINE:
+                ilen = nbytes                 # small payload: ride inline
+            else:
+                slot, buf = self._get_slot(nbytes)
+                buf[:nbytes] = memoryview(data)
+        if _dup:                              # chaos re-send: same wire seq
+            seq = self._tx_seq - 1
+        else:
+            seq = self._tx_seq
+            self._tx_seq += 1
+        head = self._ld(self._DH)
+        base = self._rec_off + (head % self._cap) * _STRIDE
+        _RREC.pack_into(self._ctl.buf, base, ftype, kind, code, len(shape),
+                        ccode, slot, mlen, ilen, t0, nbytes, seq,
+                        *shape, *((0,) * (_MAX_NDIM - len(shape))))
+        inl = base + _RREC.size
+        if mlen:
+            self._ctl.buf[inl:inl + mlen] = meta
+        if ilen:
+            self._ctl.buf[inl + mlen:inl + mlen + ilen] = memoryview(data)
+        self._st(self._DH, head + 1)          # publish, then ring
+        self._bell_ds.ring()
+        return None
+
+    def _consume(self, tail: int) -> None:
+        """Retire the record at ``tail``, waking a ring-full sender."""
+        was_full = self._ld(self._DH) - tail >= self._cap
+        self._st(self._DT, tail + 1)
+        if was_full:
+            self._bell_fs.ring()
+
+    def recv(self, timeout: float | None = None):
+        if self._lease is not None:           # the handed-out view's slot
+            self._push_free(self._lease)      # is only reclaimed now
+            self._lease = None
+
+        def ready():
+            avail = self._ld(self._DH) - self._ld(self._DT)
+            return 0 < avail <= self._cap     # clamp guards a torn read
+        while True:
+            self._wait(ready, self._bell_dr, timeout, "recv timed out")
+            tail = self._ld(self._DT)
+            base = self._rec_off + (tail % self._cap) * _STRIDE
+            (ftype, kind, code, ndim, ccode, slot, mlen, ilen, t0, nbytes,
+             seq, *shape) = _RREC.unpack_from(self._ctl.buf, base)
+            if kind == BATCH and seq <= self._rx_seen:
+                # duplicate frame: recycle its slot, consume the record
+                if slot >= 0:
+                    self._push_free(slot)
+                self._consume(tail)
+                continue
+            if seq > self._rx_seen + 1:
+                raise TransportError(
+                    f"hop {self.hop.index}: wire gap — frame(s) lost "
+                    f"(seq {seq} after {self._rx_seen})")
+            if not 0 <= kind <= CANCEL:
+                raise TransportError(
+                    f"hop {self.hop.index}: corrupt frame header "
+                    f"(kind=0x{kind:02x})")
+            break
+        self._rx_seen = seq
+        shape = tuple(shape[:ndim])
+        inl = base + _RREC.size
+        meta = bytes(self._ctl.buf[inl:inl + mlen]) if mlen else b""
+        if slot >= 0:
+            view = self._slot_view(slot, nbytes)
+            if (ftype == _F_RAW and not ccode and self.hop.zero_copy
+                    and self.device.type == "cpu"):
+                payload = _slot_tensor(view, code, shape)
+                self._lease = slot            # valid until the next recv
+            else:
+                # decoded onto the card, or copied into tensor-owned
+                # memory: the slot is free again once _unframe returns
+                payload = _unframe(ftype, code, shape, view, meta, ccode,
+                                   self.device)
+                del view
+                self._push_free(slot)
+        else:
+            # inline payloads are copied out — the ring record is reused
+            # after one wraparound, sooner than any lease could track
+            buf = bytes(self._ctl.buf[inl + mlen:inl + mlen + ilen])
+            payload = _unframe(ftype, code, shape, buf, meta, ccode,
+                               self.device)
+        self._consume(tail)
+        if isinstance(payload, torch.Tensor) and payload.is_cuda:
+            # the unpack is part of the transfer: measure to its end
+            torch.cuda.current_stream(payload.device).synchronize()
+        if kind in (BATCH, PROBE) and self.hop.scenario_hop:
+            self.record(nbytes, time.perf_counter() - t0, t0 - self.epoch,
+                        raw_bytes=_raw_payload_bytes(
+                            ftype, code, shape, nbytes, ccode))
+        return kind, payload
+
+    def close(self) -> None:
+        if self._lease is not None:
+            try:
+                self._push_free(self._lease)
+            except Exception:
+                pass
+            self._lease = None
+        for _, shm in self._attached.values():
+            _close_mapping(shm)
+        for shm in self._pool.values():
+            try:
+                shm.unlink()                  # before close: a pinned
+            except Exception:                 # mapping must not skip it
+                pass
+            _close_mapping(shm)
+        self._pool.clear()
+        self._attached.clear()
+        ctl = getattr(self, "_ctl", None)
+        if ctl is not None:
+            _close_mapping(ctl)
+            if self._ctl_owner:
+                try:
+                    ctl.unlink()
+                except Exception:
+                    pass
+            self._ctl = None
+        for bell in (self._bell_ds, self._bell_dr,
+                     self._bell_fs, self._bell_fr):
+            if bell is not None:
+                bell.close()
+
+    def segment_names(self) -> list[str]:
+        """The control segment's name and every payload slot named in
+        the tables of all its lanes (empty once reaped)."""
+        from multiprocessing import shared_memory
+        try:
+            ctl = shared_memory.SharedMemory(name=self._ctl_name)
+        except (FileNotFoundError, OSError):
+            return []
+        try:
+            names = [self._ctl_name]
+            for lane in range(self._n_lanes):
+                tab = lane * self._lane_size + (self._tab_off - self._base)
+                for i in range(self._n_slots):
+                    off = tab + 32 * i
+                    name = bytes(ctl.buf[off:off + 32]).rstrip(b"\0").decode()
+                    if name:
+                        names.append(name)
+            return names
+        finally:
+            ctl.close()
+
+    def reap(self) -> None:
+        """Unlink the control segment and every slot named in its table
+        regardless of ownership or close() state — a SIGKILL'd worker
+        never ran close(), and its segments must not outlive the
+        pipeline.  Reattaches by name, so it works on any end."""
+        from multiprocessing import shared_memory
+        # every lane of a shared fan segment names slots in its own table;
+        # whichever lane reaps first sweeps them all
+        for name in self.segment_names()[::-1]:   # slots, then the ring
+            try:
+                shm = shared_memory.SharedMemory(name=name)
+                shm.close()
+                shm.unlink()
+            except Exception:
+                pass
+
+
+# --------------------------------------------------------------------------- #
 # Replica lane groups (fan-out / fan-in).  Stage i with r replicas owns r
 # parallel lanes; batches stripe round-robin by seq and every control
 # token is broadcast to each lane, then collected once on the far side.
@@ -743,6 +1368,10 @@ class _FanBase:
         for ch in self.lanes:
             ch.close()
 
+    def reap(self) -> None:
+        for ch in self.lanes:
+            ch.reap()
+
 
 class FanOutChannel(_FanBase):
     """Dispatcher end of a replica lane group: batches (and probes —
@@ -763,6 +1392,19 @@ class FanOutChannel(_FanBase):
         for ch in self.lanes:
             rec = ch.send(payload, kind)
         return rec
+
+    def evict_lane(self, m: int) -> None:
+        """Drop a dead lane from the stripe map; later batches stripe
+        round-robin over the survivors, restarting at lane 0.  Only
+        valid at quiescence (no data in flight on the group) and must be
+        mirrored by ``FanInChannel.evict_lane`` on the same lane so both
+        cursors stay aligned."""
+        if len(self.lanes) <= 1:
+            raise ValueError("cannot evict the last lane of a replica fan")
+        if not 0 <= m < len(self.lanes):
+            raise IndexError(f"lane {m} of {len(self.lanes)}")
+        del self.lanes[m]
+        self._seq = 0
 
 
 class FanInChannel(_FanBase):
@@ -807,6 +1449,19 @@ class FanInChannel(_FanBase):
             self._owed.pop(0)
         self._tok = None                      # _next unchanged: the stripe
         return kind, payload                  # resumes where it left off
+
+    def evict_lane(self, m: int) -> None:
+        """Drop a dead lane from the merge, mirroring
+        ``FanOutChannel.evict_lane``: the stripe cursor restarts at lane
+        0 and any pending-token bookkeeping forgets the evicted lane.
+        Only valid at quiescence on the group."""
+        if len(self.lanes) <= 1:
+            raise ValueError("cannot evict the last lane of a replica fan")
+        if not 0 <= m < len(self.lanes):
+            raise IndexError(f"lane {m} of {len(self.lanes)}")
+        del self.lanes[m]
+        self._owed = [x - 1 if x > m else x for x in self._owed if x != m]
+        self._next = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -855,18 +1510,36 @@ class SocketTransport(Transport):
         return SocketChannel(hop, device=self._device)
 
 
-def _not_ported(name: str) -> Callable[..., Transport]:
-    def factory(**_kwargs) -> Transport:
-        raise NotImplementedError(
-            f"the {name!r} process transport is not ported yet (ROADMAP "
-            "queue 1, item 6b); use transport='socket' or 'emulated'")
-    return factory
+class ShmemTransport(Transport):
+    """The shared-memory ring; receiving ends decode onto ``device``
+    (the CPU unless given)."""
+
+    name = "shmem"
+    process_based = True
+
+    def __init__(self, device=None):
+        self._device = device
+
+    def open(self, hop: HopSpec) -> Channel:
+        return ShmemChannel(hop, device=self._device)
+
+    def open_fan(self, hop: HopSpec, n: int) -> list[Channel]:
+        if n <= 1:
+            return [self.open(hop)]
+        from multiprocessing import shared_memory
+        # one segment, n page-aligned SPSC lanes: r producers share the
+        # ingress mapping without r separate control segments
+        stride = _lane_stride(max(hop.depth, 1))
+        ctl = shared_memory.SharedMemory(create=True, size=stride * n)
+        return [ShmemChannel(hop, device=self._device,
+                             _shared=(ctl, m * stride, n, stride))
+                for m in range(n)]
 
 
 TRANSPORTS: dict[str, Callable[..., Transport]] = {
     "emulated": EmulatedTransport,
     "socket": SocketTransport,
-    "shmem": _not_ported("shmem"),
+    "shmem": ShmemTransport,
 }
 
 
@@ -912,7 +1585,12 @@ def _worker_main(spec: dict) -> None:
     state dict (a CUDA tensor would travel as an IPC handle tied to the
     parent), the device to rebuild it on, and the parent's numerics
     settings (TF32, cuDNN determinism, intra-op threads), which a fresh
-    process would not otherwise share."""
+    process would not otherwise share.  The ``ready`` message carries
+    the standup split: spawn (``spec["t_spawn"]``, the parent's clock)
+    to this body running — the interpreter, ``import torch`` and the
+    spec unpickled — and the model rebuilt on its device, the CUDA
+    context included."""
+    t_entry = time.perf_counter()
     from ..kernels import ops
     from .edge import Worker, apply_numerics, rebuild_model
 
@@ -938,8 +1616,13 @@ def _worker_main(spec: dict) -> None:
                           pace_s=spec.get("pace_s", 0.0))
 
         worker = build(bounds)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_built = time.perf_counter()
         ops.reset_launch_counts()
-        ctrl.send(("ready", stage))
+        ctrl.send(("ready", stage, {
+            "spawn_s": t_entry - spec.get("t_spawn", t_entry),
+            "build_s": t_built - t_entry}))
         # flush-cancel skip window: the parent's out-of-band ("cancel",)
         # ctrl message overtakes the in-band stream, so batches already
         # queued ahead of the CANCEL fence skip compute and travel as
@@ -1054,7 +1737,9 @@ def measure_hop(transport: str, sizes: Sequence[int], n_per_size: int = 20,
     waits for the credit, so every transfer measures true per-hop cost
     — without the credit, a fast sender queues messages in the transport
     and later transfers absorb the queueing delay of everything ahead of
-    them."""
+    them.  Sizes run smallest-first over one channel, so the sweep also
+    grows shmem slots in place; a wide spin window keeps the credit
+    round trip on the shmem spin path instead of a scheduler wakeup."""
     import multiprocessing as mp
 
     from ..models.cnn.zoo import resolve_device
@@ -1064,12 +1749,14 @@ def measure_hop(transport: str, sizes: Sequence[int], n_per_size: int = 20,
         from ..kernels._build import CODEC_PACK
         CODEC_PACK.build()                    # once, before the sink needs it
     if warmup is None:
+        # every shmem slot must be grown and first-touched at each size
+        # before timing starts
         warmup = depth + 3
     ctx = mp.get_context("spawn")
     chan = get_transport(transport, device=dev).open(
         HopSpec(index=0, framing=framing, depth=depth,
-                send_timeout_s=timeout_s, codec=codec, pace_link=pace_link,
-                sanitize=sanitize_enabled(sanitize)))
+                send_timeout_s=timeout_s, spin_us=500.0, codec=codec,
+                pace_link=pace_link, sanitize=sanitize_enabled(sanitize)))
     tx, rx = maybe_sanitize(chan).split()
     parent_c, child_c = ctx.Pipe()
     proc = ctx.Process(target=_sink_main, args=({"chan": rx, "ctrl": child_c},),
@@ -1106,5 +1793,78 @@ def measure_hop(transport: str, sizes: Sequence[int], n_per_size: int = 20,
             proc.terminate()
             proc.join(1.0)
         tx.close()
+        tx.reap()
         parent_c.close()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Trace recorder: measured records → replayable LinkTrace
+# --------------------------------------------------------------------------- #
+def record_trace(source, *, name: str = "recorded", bucket_s: float = 0.5,
+                 fallback: Link | None = None) -> LinkTrace:
+    """Convert drained ``TransferRecord``s from a real (measured)
+    channel into a replayable ``LinkTrace`` — measured runs seeding the
+    emulator.
+
+    Records are grouped into ``bucket_s`` windows of hop time; per
+    bucket the RTT comes from header-only probes (nbytes=0: elapsed ≈
+    one-way, so RTT = 2×mean) and the bandwidth from a least-squares
+    fit of elapsed = rtt/2 + overhead + nbytes/bw over the bucket's
+    data transfers (single-size buckets fall back to per-record
+    attribution).  Buckets inherit missing values from their
+    predecessor / the ``fallback`` link.
+
+    ``source`` is a Channel/HopObservations (drained) or an iterable of
+    ``(nbytes, elapsed_s, t_s)`` records.
+    """
+    # duck-typed: a SanitizedChannel wrapper delegates drain_records()
+    # and link without subclassing HopObservations
+    if isinstance(source, HopObservations) or hasattr(source, "drain_records"):
+        records = source.drain_records()
+        if fallback is None and isinstance(getattr(source, "link", None), Link):
+            fallback = source.link
+    else:
+        records = [TransferRecord(*r) for r in source]
+    if not records:
+        raise ValueError("record_trace: no records to convert")
+    records = sorted(records, key=lambda r: r.t_s)
+
+    rtt = fallback.rtt_s if fallback is not None else None
+    overhead = fallback.per_msg_overhead_s if fallback is not None else 0.0
+    bw = fallback.bw_bytes_per_s if fallback is not None else None
+
+    knots: list[tuple[float, float, float]] = []
+    t0, t_end = records[0].t_s, records[-1].t_s
+    n_buckets = max(int((t_end - t0) / bucket_s) + 1, 1)
+    for b in range(n_buckets):
+        lo, hi = t0 + b * bucket_s, t0 + (b + 1) * bucket_s
+        group = [r for r in records
+                 if lo <= r.t_s < hi or (b == n_buckets - 1 and r.t_s == hi)]
+        if not group:
+            continue
+        probes = [r.elapsed_s for r in group if r.nbytes <= 0]
+        if probes:
+            rtt = 2.0 * float(np.mean(probes))
+        data = [r for r in group if r.nbytes > 0]
+        if data:
+            fit = fit_link_params([r.nbytes for r in data],
+                                  [r.elapsed_s for r in data], rtt or 0.0)
+            if fit is not None:               # joint fit: slope → 1/bw
+                bw, overhead = fit
+            else:                             # degenerate bucket: attribute
+                bw = float(np.mean([
+                    attribute_bandwidth(r.nbytes, r.elapsed_s, rtt or 0.0,
+                                        overhead) for r in data]))
+        if rtt is not None and bw is not None and bw > 0:
+            knots.append(((lo + min(hi, t_end)) / 2.0, float(rtt), float(bw)))
+    if not knots:
+        raise ValueError("record_trace: no bucket yielded both an RTT and "
+                         "a bandwidth estimate (need probes or a fallback "
+                         "link for the RTT)")
+    return LinkTrace(
+        name=name, schedule=tuple(knots),
+        per_msg_overhead_s=float(overhead),
+        energy_per_byte_j=(fallback.energy_per_byte_j
+                           if fallback is not None else 0.0),
+    )

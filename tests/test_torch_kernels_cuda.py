@@ -568,17 +568,12 @@ def test_stages_keep_streams_of_their_own(cuda):
     pipe.close()
 
 
-def test_socket_stages_launch_their_hops_kernels_in_their_own_processes(
-        cuda, monkeypatch):
-    """The CNN slice's cuts and codecs over ``socket``: each stage is a
-    spawned process with a CUDA context of its own, launches its hops'
-    pack and unpack kernels there (counted in that process and sent with
-    its STATS flush), and the output equals the emulated pipeline's bit
-    for bit (TF32 off and deterministic cuDNN, shipped to every worker).
-    Closing leaves no live worker."""
+def _slice_on_the_card(monkeypatch):
+    """The CNN slice's model, scenario and a small input on the card,
+    with the numerics every worker is shipped (TF32 off, deterministic
+    cuDNN)."""
     from repro_torch.core import scenarios
     from repro_torch.models.cnn import zoo
-    from repro_torch.runtime import EdgePipeline, drain_violations
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
@@ -590,12 +585,23 @@ def test_socket_stages_launch_their_hops_kernels_in_their_own_processes(
     model = zoo.get("mobilenetv2", 10).init(
         torch.Generator().manual_seed(0), "cuda")
     scen = scenarios.get("pi_chain4").with_codec(chip_smoke.CODECS)
+    return chip_smoke, model, scen
+
+
+def _process_stages_case(cuda, monkeypatch, transport):
+    """The CNN slice's cuts and codecs over ``transport``: each stage is
+    a spawned process with a CUDA context of its own, launches its hops'
+    pack and unpack kernels there (counted in that process and sent with
+    its STATS flush), and the output equals the emulated pipeline's bit
+    for bit.  Closing leaves no live worker."""
+    from repro_torch.runtime import EdgePipeline, drain_violations
+    chip_smoke, model, scen = _slice_on_the_card(monkeypatch)
     x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
     x = x.to(cuda)
     want, _, _ = EdgePipeline(model, (1, 2, 3), scen,
                               device="cuda").run_one(x)
     drain_violations()
-    pipe = EdgePipeline(model, (1, 2, 3), scen, transport="socket",
+    pipe = EdgePipeline(model, (1, 2, 3), scen, transport=transport,
                         sanitize=True, device="cuda")
     procs = list(pipe._engine._procs)
     with pipe:
@@ -609,3 +615,89 @@ def test_socket_stages_launch_their_hops_kernels_in_their_own_processes(
     assert all(s.device.startswith("cuda") for s in stats)
     assert drain_violations() == []
     assert not any(p.is_alive() for p in procs)
+
+
+def test_socket_stages_launch_their_hops_kernels_in_their_own_processes(
+        cuda, monkeypatch):
+    _process_stages_case(cuda, monkeypatch, "socket")
+
+
+def test_shmem_stages_launch_their_hops_kernels_in_their_own_processes(
+        cuda, monkeypatch):
+    _process_stages_case(cuda, monkeypatch, "shmem")
+
+
+def test_supervised_shmem_slice_recovers_a_killed_stage_on_the_card(
+        cuda, monkeypatch):
+    """Stage 1 SIGKILLed after batch 1 of four: the supervisor rebuilds
+    the four CUDA workers, the session replays its unacked batches, and
+    the outputs equal the emulated pipeline's bit for bit, in order, with
+    one ``restart``; no violation, worker or segment is left."""
+    from repro_torch.runtime import (EdgePipeline, FaultPlan,
+                                     drain_recoveries, drain_violations)
+    _, model, scen = _slice_on_the_card(monkeypatch)
+    gen = torch.Generator().manual_seed(2)
+    xs = [torch.randn(2, 64, 64, 3, generator=gen).to(cuda)
+          for _ in range(4)]
+    emu = EdgePipeline(model, (1, 2, 3), scen, device="cuda")
+    want = [emu.run_one(x)[0] for x in xs]
+    drain_violations()
+    drain_recoveries()
+    pipe = EdgePipeline(model, (1, 2, 3), scen, transport="shmem",
+                        sanitize=True, device="cuda", timeout_s=90.0,
+                        stall_timeout_s=45.0,
+                        fault_plan=FaultPlan().kill_worker(stage=1,
+                                                           at_seq=1))
+    procs = list(pipe._engine._procs)
+    with pipe:
+        pipe.warmup(xs[0])
+        with pipe.session() as s:
+            for x in xs:
+                s.submit(x)
+            got = s.drain()
+        names = {n for pair in pipe._engine._pairs for end in pair
+                 for n in end.segment_names()}
+        procs += list(pipe._engine._procs)
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [r.kind for r in drain_recoveries()] == ["restart"]
+    assert drain_violations() == []
+    assert not any(p.is_alive() for p in procs)
+    assert not [n for n in names if Path(f"/dev/shm/{n}").exists()]
+
+
+def test_chaos_duplicate_on_a_coded_hop_packs_twice_on_the_card(
+        cuda, monkeypatch):
+    """A frame duplicated on hop 0 (int8) re-sends below the sanitizer
+    from stage 0's process, so that batch is packed twice there: stage
+    0 launches one ``int8_pack`` more than ``hop_launches``, while stage
+    1's receiver drops the duplicate by its wire seq before unpacking
+    it.  The outputs equal the emulated pipeline's bit for bit, with no
+    recovery and no violation."""
+    from repro_torch.runtime import (EdgePipeline, FaultPlan,
+                                     drain_recoveries, drain_violations)
+    chip_smoke, model, scen = _slice_on_the_card(monkeypatch)
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn(2, 64, 64, 3, generator=gen).to(cuda)
+          for _ in range(3)]
+    emu = EdgePipeline(model, (1, 2, 3), scen, device="cuda")
+    want = [emu.run_one(x)[0] for x in xs]
+    drain_violations()
+    drain_recoveries()
+    with EdgePipeline(model, (1, 2, 3), scen, transport="shmem",
+                      sanitize=True, device="cuda",
+                      fault_plan=FaultPlan().duplicate(hop=0,
+                                                       at_seq=1)) as pipe:
+        pipe.warmup(xs[0])
+        pipe._reset_stats()
+        with pipe.session() as s:
+            for x in xs:
+                s.submit(x)
+            got = s.drain()
+            s.checkpoint(probe=False)
+        launches = [st.launches for st in pipe.stage_stats()]
+    expect = [{k: v * len(xs) for k, v in w.items()}
+              for w in chip_smoke.hop_launches(pipe.codecs)]
+    expect[0]["int8_pack"] += 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert launches == expect
+    assert drain_recoveries() == [] and drain_violations() == []

@@ -206,18 +206,14 @@ def test_quiescent_migrate(models):
     assert torch.equal(before, again)
 
 
-def test_unported_paths_raise(models):
-    """The shmem transport and fault plans are still to come (socket and
-    the sanitizer are ported: ``test_torch_socket*.py``)."""
+def test_default_device_without_cuda_raises(models):
+    """The pipeline runs on the card unless the caller asks for the CPU:
+    where CUDA is not available, the default device raises instead of
+    falling back."""
     _, _, port = models
-    links = [Link(**FAST)]
-    with pytest.raises(NotImplementedError, match="queue 1, item 6b"):
-        EdgePipeline(port, (2,), links, transport="shmem", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6b"):
-        EdgePipeline(port, (2,), links, fault_plan=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            EdgePipeline(port, (2,), links)
+            EdgePipeline(port, (2,), [Link(**FAST)])
 
 
 def test_cpu_worker_owns_no_stream_and_times_as_before(models):

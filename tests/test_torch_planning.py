@@ -89,5 +89,8 @@ def test_scenario_registry_matches():
         assert dataclasses.asdict(S.get(name)) \
             == dataclasses.asdict(RS.get(name))
     assert S.FAULT_PLANS == RS.FAULT_PLANS
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        S.get_fault_plan("kill_mid_stream")
+    for name in S.FAULT_PLANS:
+        assert dataclasses.asdict(S.get_fault_plan(name)) \
+            == dataclasses.asdict(RS.get_fault_plan(name))
+    with pytest.raises(KeyError, match="unknown fault plan"):
+        S.get_fault_plan("nope")
