@@ -79,6 +79,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              ``frame-dup`` injection and launches exactly
              ``hop_launches`` a batch; no violation, worker or segment
              left after either;
+5f. gateway — the serving gateway, the adaptive loop and the profiler on
+             the slice.  Every block of MobileNetV2-224 must give each of
+             8 rows the bits it gives that row alone at row 0 of a
+             zero-padded batch; each tenant of ``octet_uniform`` (3
+             requests of 1 x 224 x 224 x 3, each from its own seed) is
+             served alone through a ``Gateway`` over phase 4's coded and
+             uncoded emulated pipelines (the codec kernels' launches,
+             reset just before, exactly one pack and unpack a request).
+             Inside phase 5d, on its shmem workers, sanitizer on:
+             ``octet_uniform`` and ``duo_bursty`` through gateways, every
+             tenant ``torch.equal`` to its solo run in submit order —
+             coded (a lossy hop couples a batch's rows, so each request
+             rides alone; each process's launches ``hop_launches`` a
+             micro-batch), then with the hops switched to no codec
+             (requests coalesce up to 8) — with the QoS split printed
+             (queue, service and wire p50/p99, occupancy, req/s); then
+             ``cancel_inflight("resubmit")`` redelivers every request
+             ``torch.equal`` to solo and ``cancel_inflight("skip")``
+             surfaces each flushed request as ``(req_id, None)`` in
+             order.  After phase 5e, under watchdogs: closed-loop
+             tenants on the emulated slice while hop 0 rides
+             ``congestion_spike`` under a ``FleetController`` (the AIMD
+             window must halve and grow back, at least one fleet
+             decision; the timeline printed); ``AdaptiveRuntime`` on a
+             ``wan_ramp`` of ``pi_pi_gpu`` at batch 8 (``n_batches``
+             reckoned from the modeled hop-0 wire; at least one
+             migration, toward less hop-0 wire; the cut history
+             printed); ``profile_wallclock`` over the blocks at batch 8
+             with CUDA events (each block's ms, their coefficient of
+             variation);
 6. lm kernels — flash attention (bf16 on the tensor-core kernel, fp32 on
              the FMA kernel), decode attention (split and combine kernels)
              and RMSNorm against their plain versions on the card, fp32 and
@@ -243,6 +273,23 @@ STREAM_BATCHES, STREAM_TIMEOUT_S, STREAM_WATCHDOG_S = 20, 60.0, 180.0
 # standup, one rebuild and the stream
 RECOVERY_BATCHES, RECOVERY_TIMEOUT_S, RECOVERY_STALL_S = 8, 90.0, 45.0
 RECOVERY_WATCHDOG_S = 300.0
+# the gateway phase: requests a tenant (each 1 x 224 x 224 x 3 from its
+# own seed), the mixes served over shmem, and their admission deadline
+GW_REQS, GW_MIXES, GW_WINDOW_S = 3, ("octet_uniform", "duo_bursty"), 0.005
+# AIMD under congestion_spike (clean to 2 s, 200 ms / 5 Mbit by 4 s, clean
+# again by 7 s): closed-loop tenants and their SLO (a lone batch of the
+# slice takes 0.12-0.17 s, so a request queued behind one other about 0.3
+# s; near the peak one hop-0 transfer alone takes 0.2 s of RTT and, at the
+# slice's cuts, seconds of int8 bytes), the admission window, how long the
+# loop runs past the spike, the timeline's bucket and a watchdog
+AIMD_TENANTS, AIMD_SLO_S, AIMD_INFLIGHT = 4, 0.5, 2
+AIMD_T_END_S, AIMD_BUCKET_S, AIMD_WATCHDOG_S = 12.0, 1.0, 240.0
+# AdaptiveRuntime on a wan_ramp of pi_pi_gpu: the ramp (trace seconds),
+# the modeled hop-0 wire seconds the run may spend past the ramp at the
+# duress optimum (with the batches that reach the ramp's end at healthy
+# speed, this sets n_batches), its bounds and a watchdog
+ADAPT_RAMP_S, ADAPT_WIRE_BUDGET_S = (0.5, 3.0), 20.0
+ADAPT_BATCHES, ADAPT_WATCHDOG_S = (12, 64), 300.0
 # file:line of the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "int8_pack": "src/repro/kernels/codec_pack.py:51",
@@ -636,14 +683,15 @@ def watchdog(seconds: float, what: str):
 
 
 def shmem_phase(torch, model, cuts, scen, x, emu_y, emu_res, sock, smi,
-                xs) -> list:
+                xs, gw) -> list:
     """Phase 5d: the CNN slice over the shared-memory ring, sanitizer
     on: the output against the emulated pipeline's ``emu_y`` bit for
     bit, each process's launches against ``hop_launches`` (1 and 20
     batches), ``measure`` beside the emulated and socket runs, the
-    standup split, ``measure_hop`` beside socket's, and no worker or
-    segment left → the outputs of the unfaulted ``xs`` (phase 5e's
-    reference)."""
+    standup split, the gateway's runs of phase 5f on the same workers
+    (``gateway_over_shmem``, against the solo baselines ``gw``),
+    ``measure_hop`` beside socket's, and no worker or segment left → the
+    outputs of the unfaulted ``xs`` (phase 5e's reference)."""
     from repro_torch.runtime import EdgePipeline, drain_violations
     from repro_torch.runtime.transport import measure_hop
     drain_violations()
@@ -713,6 +761,7 @@ def shmem_phase(torch, model, cuts, scen, x, emu_y, emu_res, sock, smi,
             for xb in xs:
                 s.submit(xb)
             unfaulted = s.drain()
+        gateway_over_shmem(torch, pipe, gw, smi)
         names = shm_names(pipe)
     finally:
         pipe.close()
@@ -801,6 +850,376 @@ def recovery_phase(torch, model, cuts, scen, xs, unfaulted, smi) -> None:
             log(f"recovery (dup): the duplicate was absorbed by the "
                 f"receiver's wire-seq dedup; launches {json.dumps(launches)}")
         left_behind(f"recovery ({what})", names, procs)
+
+
+def gateway_requests(torch, dev, names) -> dict:
+    """``GW_REQS`` requests a tenant, (1, 224, 224, 3) on the card, each
+    from its own seed (1000 + 10 * tenant + request)."""
+    def one(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(1, HW, HW, 3, generator=gen, device=dev)
+    return {n: [one(1000 + 10 * i + j) for j in range(GW_REQS)]
+            for i, n in enumerate(names)}
+
+
+def gateway_solo(torch, pipe, reqs) -> dict:
+    """Each tenant alone through a gateway of its own on ``pipe``, padded
+    to ``BATCH`` rows → {tenant: [(req_id, y)]} (the bit-identity
+    baseline of every mixed run)."""
+    from repro_torch.core import scenarios
+    from repro_torch.runtime import Gateway, drain_qos
+    refs = {}
+    for n, xs in reqs.items():
+        with Gateway(pipe, [scenarios.TenantSpec(n)], max_batch=BATCH,
+                     batch_window_s=0.0) as gw:
+            for x in xs:
+                gw.submit(n, x)
+            refs[n] = gw.client(n).drain()
+        if [r for r, _ in refs[n]] != list(range(len(xs))):
+            raise AssertionError(f"gateway solo {n}: ids {refs[n]}")
+    drain_qos()
+    return refs
+
+
+def same_as_solo(torch, got, refs, names, what) -> None:
+    """Every tenant of ``names``: its requests in submit order, each
+    ``torch.equal`` to its solo result."""
+    for n in names:
+        if [r for r, _ in got[n]] != [r for r, _ in refs[n]]:
+            raise AssertionError(f"{what}: {n} got ids "
+                                 f"{[r for r, _ in got[n]]}")
+        for (r, y), (_, want) in zip(got[n], refs[n]):
+            if y is None or not torch.equal(y, want):
+                err = "None" if y is None else \
+                    f"{float((y - want).abs().max()):.3g}"
+                raise AssertionError(f"{what}: {n} request {r} differs "
+                                     f"from its solo run ({err})")
+
+
+def qos_split(qos, wall_s) -> str:
+    """The QoS split of a run: queue, service and wire p50/p99 (ms),
+    occupancy, requests a second."""
+    import numpy as np
+
+    def pct(key):
+        v = np.asarray([getattr(r, key) for r in qos]) * 1e3
+        return f"{np.percentile(v, 50):.3f}/{np.percentile(v, 99):.3f}"
+    occ = sum(r.occupancy for r in qos) / len(qos)
+    return (f"{len(qos)} requests in {len({r.seq for r in qos})} "
+            f"micro-batches, {wall_s:.3f} s, {len(qos) / wall_s:.2f} req/s; "
+            f"latency p50/p99 {pct('latency_s')} ms = queue {pct('queue_s')} "
+            f"+ service {pct('service_s')} ms (wire {pct('wire_s')}); "
+            f"occupancy {occ:.4f}, coalesced up to "
+            f"{max(r.coalesced for r in qos)}")
+
+
+def row_invariance(torch, model, x) -> None:
+    """Each block of ``model`` on a batch of ``BATCH`` rows against the
+    same block on each row alone at row 0 of a zero-padded batch: every
+    row's output must be bit for bit the same (what a coalesced request
+    needs to keep its solo bits)."""
+    broke = []
+    a = x
+    with torch.no_grad():
+        for b, (name, layer) in enumerate(model.blocks):
+            full = layer(a)
+            for k in range(a.shape[0]):
+                alone = torch.zeros_like(a)
+                alone[0] = a[k]
+                if not torch.equal(layer(alone)[0], full[k]):
+                    broke.append((b, name, k))
+            a = full
+    if broke:
+        raise AssertionError(f"row-position invariance breaks at (block, "
+                             f"name, row) {broke[:12]}")
+    log(f"gateway: every block of {model.name} gives each of {x.shape[0]} "
+        f"rows the bits it gives that row alone at row 0 (torch.equal, "
+        f"cuDNN deterministic, TF32 off)")
+
+
+def gateway_refs(torch, pipe, plain_pipe, model, ops, dev, smi) -> dict:
+    """Phase 5f's baseline on the emulated slice: the row-position check,
+    then every tenant of ``GW_MIXES`` alone over the coded pipeline (the
+    codec kernels' launches counted around it: one pack and unpack a
+    micro-batch) and over the uncoded one."""
+    from repro_torch.core import scenarios
+    names = sorted({t.name for m in GW_MIXES
+                    for t in scenarios.get_tenant_mix(m).tenants})
+    reqs = gateway_requests(torch, dev, names)
+    row_invariance(torch, model, torch.cat([r[0] for r in reqs.values()]))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    coded = gateway_solo(torch, pipe, reqs)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n = len(names) * GW_REQS
+    want = {k: 0 for k in REPLACES}
+    for w in hop_launches(pipe.codecs):
+        for k, v in w.items():
+            want[k] += v * n
+    log(f"gateway [{smi}]: {len(names)} tenants alone over the emulated "
+        f"slice, {n} requests in {wall:.3f} s; launches {json.dumps(launches)}")
+    if {k: launches.get(k, 0) for k in REPLACES} != want:
+        raise AssertionError(f"gateway solo: launches {launches}, expected "
+                             f"{want}")
+    plain = gateway_solo(torch, plain_pipe, reqs)
+    return {"reqs": reqs, "coded": coded, "plain": plain}
+
+
+def gateway_mixes(torch, pipe, gw, refs, what, smi) -> int:
+    """``GW_MIXES`` through gateways over ``pipe`` (uniform mixes
+    interleaved, bursty ones tenant by tenant), sanitizer on: every
+    tenant's results ``torch.equal`` to ``refs`` → micro-batches run."""
+    from repro_torch.core import scenarios
+    from repro_torch.runtime import Gateway, drain_violations
+    batches = 0
+    for mix_name in GW_MIXES:
+        mix = scenarios.get_tenant_mix(mix_name)
+        names = [t.name for t in mix.tenants]
+        order = ([(n, j) for n in names for j in range(GW_REQS)]
+                 if mix.arrival == "bursty" else
+                 [(n, j) for j in range(GW_REQS) for n in names])
+        t0 = time.perf_counter()
+        with Gateway(pipe, mix, max_batch=BATCH,
+                     batch_window_s=GW_WINDOW_S) as g:
+            clients = {n: g.client(n) for n in names}
+            for n, j in order:
+                clients[n].submit(gw["reqs"][n][j])
+            got = {n: clients[n].drain() for n in names}
+            qos = g.drain_qos()
+        wall = time.perf_counter() - t0
+        same_as_solo(torch, got, refs, names, f"gateway {what} {mix_name}")
+        bad = drain_violations()
+        if bad:
+            raise AssertionError(f"gateway {what}: sanitizer violations: "
+                                 + "; ".join(v.render() for v in bad))
+        batches += len({r.seq for r in qos})
+        log(f"gateway [{smi}] {what} {mix_name}: every tenant == its solo "
+            f"run (torch.equal, submit order), no sanitizer violation; "
+            f"{qos_split(qos, wall)}")
+    return batches
+
+
+def gateway_cancel(torch, pipe, gw, smi) -> None:
+    """``cancel_inflight`` over ``pipe``: resubmit redelivers every
+    request ``torch.equal`` to its solo run, in order; skip surfaces each
+    flushed request as ``(req_id, None)`` in its tenant's order."""
+    from repro_torch.core import scenarios
+    from repro_torch.runtime import Gateway, drain_violations
+    mix = scenarios.get_tenant_mix(GW_MIXES[0])
+    names = [t.name for t in mix.tenants]
+    refs = gw["plain"]
+    with Gateway(pipe, mix, max_batch=BATCH, batch_window_s=0.0) as g:
+        clients = {n: g.client(n) for n in names}
+        for j in range(GW_REQS):
+            for n in names:
+                clients[n].submit(gw["reqs"][n][j])
+        flushed = g.cancel_inflight(action="resubmit")
+        got = {n: clients[n].drain() for n in names}
+        same_as_solo(torch, got, refs, names, "gateway cancel-resubmit")
+        for n in names:
+            clients[n].submit(gw["reqs"][n][0])
+        skipped = g.cancel_inflight(action="skip")
+        got = {n: clients[n].drain() for n in names}
+        nones = sum(y is None for n in names for _, y in got[n])
+        for n in names:
+            ids = [r for r, _ in got[n]]
+            y = got[n][0][1] if got[n] else None
+            if ids != [GW_REQS] or (y is not None
+                                    and not torch.equal(y, refs[n][0][1])):
+                raise AssertionError(f"gateway cancel-skip: {n} got "
+                                     f"{got[n]}")
+        g.session.drain()
+        cancels = g.session.drain_cancels()
+    if nones != skipped or not all(c.flushed for c in cancels):
+        raise AssertionError(f"gateway cancel-skip: {nones} None results "
+                             f"for {skipped} flushed; cancel records "
+                             f"{cancels}")
+    bad = drain_violations()
+    if bad:
+        raise AssertionError("gateway cancel: sanitizer violations: "
+                             + "; ".join(v.render() for v in bad))
+    log(f"gateway [{smi}] cancel: resubmit flushed {flushed} requests and "
+        f"redelivered all {len(names) * GW_REQS} == solo (torch.equal, in "
+        f"order); skip flushed {skipped}, each surfaced as (req_id, None) "
+        f"in its tenant's order; every CancelRecord flushed")
+
+
+def gateway_over_shmem(torch, pipe, gw, smi) -> None:
+    """Phase 5f over phase 5d's shmem pipeline: ``GW_MIXES`` on the coded
+    slice (a lossy hop couples a batch's rows, so each request rides
+    alone), each process's launches ``hop_launches`` a micro-batch; then
+    the hops uncoded (a quiescent codec switch): the mixes coalesced,
+    every row's bits its solo run's, and ``cancel_inflight``."""
+    pipe._reset_stats()
+    batches = gateway_mixes(torch, pipe, gw, gw["coded"], "shmem coded", smi)
+    pipe._engine.sync()
+    launches = [st.launches for st in pipe.stage_stats()]
+    want = [{k: v * batches for k, v in w.items()}
+            for w in hop_launches(pipe.codecs)]
+    if launches != want:
+        raise AssertionError(f"gateway shmem: launches {launches}, expected "
+                             f"{want}")
+    log(f"gateway: launches in the stage processes over {batches} "
+        f"micro-batches: {json.dumps(launches)}")
+    pipe.migrate(pipe.cuts, codecs=("none",) * len(pipe.codecs))
+    gateway_mixes(torch, pipe, gw, gw["plain"], "shmem uncoded", smi)
+    gateway_cancel(torch, pipe, gw, smi)
+
+
+def aimd_phase(torch, model, scen, dev, smi) -> None:
+    """Closed-loop tenants on the emulated slice while hop 0 rides
+    ``congestion_spike``, under a ``FleetController``: the AIMD window
+    must halve at least once and grow back, and at least one fleet
+    decision must be recorded; the timeline is printed."""
+    import numpy as np
+    from repro_torch.core import scenarios
+    from repro_torch.core.autosplit import AdaptiveSplitter
+    from repro_torch.runtime import (EdgePipeline, FleetController, Gateway,
+                                     drain_violations)
+    spiky = scenarios.with_trace(scen, "congestion_spike")
+    splitter = AdaptiveSplitter(model.block_graph(input_hw=HW), spiky,
+                                batch=BATCH,
+                                policy="throughput", hysteresis=0.10,
+                                migration_cost_s=0.05, include_io=False,
+                                amortize_horizon_s=30.0)
+    splitter.current = splitter.solve()
+    ctrl = FleetController(splitter, check_every=8, probe=False)
+    tenants = [scenarios.TenantSpec(f"tenant{i}", slo_s=AIMD_SLO_S)
+               for i in range(AIMD_TENANTS)]
+    xs = gateway_requests(torch, dev, [t.name for t in tenants])
+    dog = watchdog(AIMD_WATCHDOG_S, "the gateway's AIMD run")
+    try:
+        pipe = EdgePipeline(model, splitter.current.partition, spiky,
+                            device=dev, sanitize=True,
+                            timeout_s=STREAM_TIMEOUT_S)
+        pipe.warmup(torch.cat([xs[t.name][0] for t in tenants]
+                              * (BATCH // AIMD_TENANTS)))
+        pipe.reset_clock()
+        timeline, bucket, edge, served = [], [], AIMD_BUCKET_S, 0
+        with Gateway(pipe, tenants, controller=ctrl, max_batch=BATCH,
+                     batch_window_s=0.01, inflight=AIMD_INFLIGHT) as g:
+            for t in tenants:
+                g.submit(t.name, xs[t.name][0])
+            while pipe.clock() < AIMD_T_END_S:
+                for name, req_id, _ in g.poll(block=True):
+                    served += 1
+                    g.submit(name, xs[name][(req_id + 1) % GW_REQS])
+                bucket.extend(g.drain_qos())
+                while pipe.clock() >= edge:
+                    lats = [r.latency_s for r in bucket] or [0.0]
+                    timeline.append((edge, len(bucket),
+                                     float(np.percentile(lats, 99)),
+                                     sum(r.violated for r in bucket),
+                                     g.inflight_window, splitter.policy,
+                                     pipe.cuts))
+                    bucket, edge = [], edge + AIMD_BUCKET_S
+            served += sum(len(v) for v in g.drain().values())
+            wins = [w for _, w in g.window_history]
+            history = list(g.window_history)
+        migrations = list(pipe.migrations)
+        pipe.close()
+    finally:
+        dog.cancel()
+    log(f"gateway AIMD [{smi}]: {AIMD_TENANTS} closed-loop tenants (SLO "
+        f"{AIMD_SLO_S} s) on {spiky.name}, {served} requests served; "
+        f"timeline (t, req/s, p99 ms, violations, window, policy, cuts):")
+    for t, n, p99, vio, win, policy, cuts in timeline:
+        log(f"  {t:5.1f} s {n / AIMD_BUCKET_S:7.2f} {p99 * 1e3:9.2f} {vio:3d} "
+            f"{win:2d} {policy:>10s} {cuts}")
+    log(f"  window (t, w): {[(round(t, 3), w) for t, w in history]}; fleet "
+        f"decisions {len(ctrl.fleet_history)}, policies "
+        f"{sorted({o.policy for o in ctrl.fleet_history})}; migrations "
+        f"{[(round(t, 3), a, b) for t, a, b in migrations]}")
+    down = min(range(len(wins)), key=lambda i: (wins[i], i))
+    if not (wins[down] < wins[0] and max(wins[down:]) > wins[down]):
+        raise AssertionError(f"gateway AIMD: window {wins} did not halve "
+                             f"and grow back")
+    if not ctrl.fleet_history:
+        raise AssertionError("gateway AIMD: no fleet decision recorded")
+    bad = drain_violations()
+    if bad:
+        raise AssertionError("gateway AIMD: sanitizer violations: "
+                             + "; ".join(v.render() for v in bad))
+
+
+def adaptive_phase(torch, model, dev, smi) -> None:
+    """``AdaptiveRuntime`` on the card: MobileNetV2-224, batch 8, on a
+    ``wan_ramp`` of ``pi_pi_gpu``; ``n_batches`` reckoned from the
+    modeled hop-0 wire seconds at full duress; at least one migration,
+    toward less hop-0 wire; the cut history printed."""
+    from repro_torch.core import devices, scenarios
+    from repro_torch.core.autosplit import AdaptiveSplitter
+    from repro_torch.runtime import AdaptiveRuntime
+    base = scenarios.get("pi_pi_gpu")
+    ramp = scenarios.wan_ramp(base, hop=0, t_start=ADAPT_RAMP_S[0],
+                              t_end=ADAPT_RAMP_S[1], jitter=0.05)
+    graph = model.block_graph(input_hw=HW)
+    deploy = AdaptiveSplitter(graph, ramp, batch=BATCH, policy="throughput",
+                              include_io=False).solve().partition
+    duress = AdaptiveSplitter(graph, scenarios.duress(base), batch=BATCH,
+                              policy="throughput",
+                              include_io=False).solve().partition
+    wire = {c: [devices.link_at(ramp.links[0], t).transfer_time(
+                    BATCH * graph.cut_bytes(c[0]))
+                for t in (0.0, ADAPT_RAMP_S[1])] for c in (deploy, duress)}
+    n = min(max(math.ceil(ADAPT_RAMP_S[1] / wire[deploy][0])
+                + int(ADAPT_WIRE_BUDGET_S / wire[duress][1]),
+                ADAPT_BATCHES[0]), ADAPT_BATCHES[1])
+    log(f"adaptive [{smi}]: {ramp.name} (hop 0 LAN -> 200 ms / 5 Mbit over "
+        f"{ADAPT_RAMP_S} s); hop-0 wire a batch at the deploy cuts {deploy}: "
+        f"{wire[deploy][0]:.4f} s healthy, {wire[deploy][1]:.4f} s at full "
+        f"duress; at the duress optimum {duress}: {wire[duress][1]:.4f} s; "
+        f"{ADAPT_RAMP_S[1]} s of healthy batches and {ADAPT_WIRE_BUDGET_S} "
+        f"s at the optimum make {n} batches")
+    x = torch.randn(BATCH, HW, HW, 3,
+                    generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    dog = watchdog(ADAPT_WATCHDOG_S, "the AdaptiveRuntime run")
+    try:
+        t0 = time.perf_counter()
+        with AdaptiveRuntime(model, ramp, batch=BATCH, policy="throughput",
+                             check_every=2, migration_cost_s=0.05,
+                             alpha=0.6, device=dev) as rt:
+            recs = rt.run(lambda: x, n_batches=n)
+            migrations = list(rt.pipe.migrations)
+        wall = time.perf_counter() - t0
+    finally:
+        dog.cancel()
+    for r in recs:
+        if r.migrated and r.migration_cost_s:
+            log(f"  t={r.t_s:7.3f} s batch {r.batch_idx:2d} cuts={r.cuts} "
+                f"latency {r.latency_s * 1e3:9.3f} ms (model "
+                f"{r.predicted_latency_s * 1e3:9.3f}) << migrated")
+    hist = rt.cut_history
+    log(f"adaptive [{smi}]: {len(recs)} batches in {wall:.3f} s, "
+        f"{len(migrations)} migrations, cut history "
+        f"{' -> '.join(map(str, hist))}; hop-0 bytes a sample "
+        f"{graph.cut_bytes(hist[0][0])} -> {graph.cut_bytes(rt.pipe.cuts[0])}")
+    if (len(recs) != n or not migrations or recs[0].cuts != deploy
+            or graph.cut_bytes(rt.pipe.cuts[0]) > graph.cut_bytes(deploy[0])):
+        raise AssertionError(f"adaptive: {len(recs)} records, migrations "
+                             f"{migrations}, cuts {deploy} -> {rt.pipe.cuts}")
+
+
+def profiler_phase(torch, model, dev, smi) -> None:
+    """``profile_wallclock`` over MobileNetV2-224's blocks at batch 8 on
+    the card (CUDA events): each block's ms and their coefficient of
+    variation."""
+    from repro_torch.core import profiler
+    names, fns = model.block_fns()
+    x = torch.randn(BATCH, HW, HW, 3,
+                    generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    table = profiler.profile_wallclock("h100", fns, names, lambda _: x,
+                                       repeats=10, warmup=2)
+    ms = [table.get("h100", n) * 1e3 for n in names]
+    if not all(t > 0 for t in ms):
+        raise AssertionError(f"profiler: block times {ms}")
+    log(f"profiler [{smi}]: {model.name} blocks at batch {BATCH}, CUDA "
+        f"events, mean of 10: {json.dumps(dict(zip(names, [round(t, 4) for t in ms])))}")
+    log(f"profiler: sum {sum(ms):.4f} ms, coefficient of variation "
+        f"{profiler.coefficient_of_variation(ms):.4f}")
 
 
 def lm_tol(torch, dtype) -> float:
@@ -1741,6 +2160,9 @@ def main() -> int:
         log(f"profile: lone batch wall {wall_ms:.2f} ms; the profiler saw "
             f"no device time (device busy share not measured)")
 
+    # ------------------------------------------- gateway: solo baselines
+    gw = gateway_refs(torch, pipe, plain_pipe, model, ops, dev, smi)
+
     # ------------------------------------------------------ streamed stages
     from repro_torch.runtime.edge import Worker
     heavy, light = concurrent_stages(torch, Worker, dev)
@@ -1773,8 +2195,13 @@ def main() -> int:
     xs = [torch.randn(BATCH, HW, HW, 3, generator=rgen, device=dev)
           for _ in range(RECOVERY_BATCHES)]
     unfaulted = shmem_phase(torch, model, cuts, scen, x, y, res, sock, smi,
-                            xs)
+                            xs, gw)
     recovery_phase(torch, model, cuts, scen, xs, unfaulted, smi)
+
+    # ------------------------------------ gateway, adaptive loop, profiler
+    aimd_phase(torch, model, scen, dev, smi)
+    adaptive_phase(torch, model, dev, smi)
+    profiler_phase(torch, model, dev, smi)
 
     # ---------------------------------------------------------- lm kernels
     from repro_torch.launch import serve

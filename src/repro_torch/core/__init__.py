@@ -15,9 +15,9 @@ Public API:
                                         min/max sense)
     Scenario, scenarios.get           — named testbeds (paper + TPU pods)
     AdaptiveSplitter, LinkEstimator   — network-aware runtime re-splitting
-
-The reference's ``core.profiler`` (wall-clock and compiled-cost
-profiling) is not ported yet (ROADMAP queue 1, item 4).
+    profiler                          — block-wise wall-clock (CUDA events
+                                        on the card), analytic and counted
+                                        (FlopCounterMode) block costs
 """
 from .blocks import Block, BlockGraph, chain
 from .costmodel import CostTable, PipelineMetrics, StageMetrics, evaluate_pipeline
@@ -30,7 +30,7 @@ from .partitioner import (best_energy, best_latency, best_throughput,
                           dp_front_kway, solve, sweep_2way, sweep_kway)
 from .autosplit import AdaptiveSplitter, LinkEstimator
 from .scenarios import Scenario
-from . import devices, scenarios
+from . import devices, profiler, scenarios
 
 __all__ = [
     "Block", "BlockGraph", "chain",
@@ -42,5 +42,5 @@ __all__ = [
     "best_energy", "best_latency", "best_throughput", "dp_front_kway", "solve",
     "sweep_2way", "sweep_kway",
     "AdaptiveSplitter", "LinkEstimator", "Scenario",
-    "devices", "scenarios",
+    "devices", "scenarios", "profiler",
 ]

@@ -82,6 +82,9 @@ class Codec:
     # output degradation assumed when no calibration measured it — the
     # identity codec is exact, lossy subclasses override
     nominal_accuracy: float = 1.0
+    # each row of a batch crosses the hop as it would alone; the lossy
+    # codecs couple rows (one abs-max scale a tensor, one global top-k)
+    row_local: bool = True
 
     def supports(self, dtype: torch.dtype) -> bool:
         return True
@@ -102,6 +105,8 @@ class Codec:
 
 class _LossyCodec(Codec):
     """Shared float-only gate + fp32 staging for the lossy codecs."""
+
+    row_local = False
 
     def supports(self, dtype: torch.dtype) -> bool:
         return dtype in _FLOAT_DTYPES

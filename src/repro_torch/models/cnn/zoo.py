@@ -95,6 +95,12 @@ class CNNModel(nn.Module):
         """Run blocks[lo:hi] — the unit a pipeline stage executes."""
         return self(x, lo, hi)
 
+    def block_fns(self) -> tuple[list[str], list[nn.Module]]:
+        """(block names, the blocks): each block is a module that maps
+        the previous block's activation to its own (the unit the
+        profiler times)."""
+        return list(self.names), list(self.layers)
+
     def param_count(self) -> int:
         return sum(layer.param_count() for layer in self.layers)
 

@@ -14,6 +14,8 @@ Public API:
                                         (``EdgePipeline.session``) with
                                         pluggable controllers and
                                         in-flight drain/drop migration
+    AdaptiveRuntime                   — closed measure→estimate→re-solve→
+                                        migrate loop (a Session shim)
     Transport, Channel, TransferRecord,
     register_transport, get_transport — the hop transport API
                                         ("emulated" | "socket" | "shmem")
@@ -28,15 +30,23 @@ Public API:
                                         (``EdgePipeline(fault_plan=...)``)
                                         and the supervised-recovery
                                         records it produces
-
-Not ported yet (ROADMAP queue 1): ``AdaptiveRuntime`` (item 7) and the
-serving gateway (item 8).
+    Gateway, ClientSession,
+    QoSRecord, drain_qos,
+    FleetController, FleetObjectives,
+    CancelRecord                      — the multi-tenant serving gateway
+                                        (micro-batching, SLO-aware AIMD
+                                        admission, per-request QoS,
+                                        CANCEL-fence flush) and the
+                                        fleet-objective controller
 """
+from .adaptive import AdaptiveRuntime
 from .edge import EdgePipeline, PipelineResult, StageStats, Worker
 from .faults import (BackoffPolicy, ChaosChannel, FaultEvent, FaultPlan,
                      RecoveryRecord, drain_injections, drain_recoveries)
 from .sanitizer import (SanitizedChannel, SanitizerError, Violation,
                         drain_violations)
+from .serve import (ClientSession, FleetController, FleetObjectives, Gateway,
+                    QoSRecord, drain_qos)
 from .session import (AdaptiveController, CancelRecord, Controller,
                       LoopRecord, MigrationPolicy, PinnedController, Session)
 from .transport import (Channel, HopSpec, TransferRecord, Transport,
@@ -44,7 +54,7 @@ from .transport import (Channel, HopSpec, TransferRecord, Transport,
                         record_trace, register_transport)
 
 __all__ = [
-    "LoopRecord",
+    "AdaptiveRuntime", "LoopRecord",
     "Session", "Controller", "PinnedController", "AdaptiveController",
     "MigrationPolicy", "CancelRecord",
     "EdgePipeline", "PipelineResult", "StageStats", "Worker",
@@ -53,4 +63,6 @@ __all__ = [
     "SanitizedChannel", "SanitizerError", "Violation", "drain_violations",
     "FaultPlan", "FaultEvent", "ChaosChannel", "BackoffPolicy",
     "RecoveryRecord", "drain_recoveries", "drain_injections",
+    "Gateway", "ClientSession", "QoSRecord", "drain_qos",
+    "FleetController", "FleetObjectives",
 ]

@@ -513,7 +513,11 @@ class EmulatedChannel(Channel):
         payload travels with an event recorded after it (``recv`` makes
         the receiver's stream wait for it)."""
         if kind == BATCH:
-            if self.hop.framing == "pickle":
+            if payload is None:
+                # a flush-canceled batch's marker: no payload bytes, as
+                # over the process transports (an empty frame)
+                nbytes, raw, out = 0, 0, None
+            elif self.hop.framing == "pickle":
                 buf = _Serializer.dumps(payload)
                 nbytes, raw, out = len(buf), len(buf), _Serializer.loads(
                     buf, payload.device)
