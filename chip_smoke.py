@@ -172,7 +172,41 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              each must run the gated scan instance
              (``ssm_scan_kernel<16, __nv_bfloat16, true>``) and not the
              ungated one; the device time left in elementwise kernels is
-             printed beside the scan's.
+             printed beside the scan's;
+14. moe kernels — phase 6's checks at the MoE slice's shapes (flash q
+             (8,1024,32,128) over k/v (8,1024,4,128) causal, decode over
+             (8,1056,4,128) at pos 0/1/511/1055 and forced split counts,
+             RMSNorm at every row shape of its path, d = 2048 and 128),
+             fp32 and bf16 within 2e-5 / 2e-2, then timed beside their
+             bound and SDPA / ``F.rms_norm``;
+15. moe slice — ``serve.main`` on qwen3-moe-30b-a3b at full width and
+             depth (48 layers, 128 experts top-8, 61 GB of bf16 weights),
+             batch 8, prompt 1024, 32 new tokens, counters reset just
+             before: exactly 96 flash, 1536 decode and 6562 RMSNorm
+             launches, no other kernel; prefill ms, decode ms/token,
+             tokens/s and peak allocated memory printed;
+16. moe parity — (a) ``moe_mlp`` and ``moe_mlp_gshard`` at one group
+             size (128) on one full-width layer and 8192 tokens: fp32
+             within rtol = atol = 2e-4, bf16 within 2e-2 of |y| max (the
+             sort form rounds each weighted slot to bf16 before the sum
+             over k), the same dropped slots, the same aux; (b) fp32, TF32
+             off, full width, 2 layers, qwen3-moe-30b-a3b and
+             phi3.5-moe-42b-a6.6b: the kernel route within 2e-4 of the
+             ``"xla"`` route (logits, argmax, final cache) with every
+             layer's expert choices equal (a flip is printed with the
+             k-th/(k+1)-th gap beside the routes' logit difference); (c)
+             bf16 at full depth on both routes: the largest logit
+             difference, the argmax agreement and each layer's share of
+             differing expert choices printed; at 8 layers each bf16 route
+             against an fp32 plain run of the same weights, the kernel
+             route's mean logit error at most 1.1x the plain route's;
+17. moe profile — one prefill and one decode step of the full-depth
+             model under ``torch.profiler``: prefill must run
+             ``flash_attention_tc_kernel``, decode both decode kernels;
+             the device time inside the expert products (and their
+             matrix products), the router and the rest of the routed MLP
+             (sort, gathers, weighting), beside each step's busy time and
+             idle share.
 
 The kernel table's rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
@@ -183,6 +217,8 @@ the repository beside it, the script fails before printing a result.
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import copy
 import gc
 import itertools
@@ -234,6 +270,22 @@ SSM_STATE_TOL = 1e-3
 LM_B, LM_S, LM_NEW = 8, 1024, 32
 LM_ARGS = ["--arch", "qwen3-1.7b", "--batch", str(LM_B), "--prompt-len",
            str(LM_S), "--new-tokens", str(LM_NEW), "--seed", "0"]
+# the MoE slice: qwen3-moe-30b-a3b at full width and depth (about 61 GB
+# of bf16 weights) at the LM slice's batch and lengths, so that phase 6's
+# timings take its shapes
+MOE_B, MOE_S, MOE_NEW = LM_B, LM_S, LM_NEW
+MOE_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--batch", str(MOE_B),
+            "--prompt-len", str(MOE_S), "--new-tokens", str(MOE_NEW),
+            "--seed", "0"]
+# the two formulations held to each other at one group size, so that
+# both drop the same (t, k) slots
+MOE_GROUP = 128
+# the fp32 two-layer parity's archs, and the depth at which each bf16
+# route is held against an fp32 run of the same weights (about 20 GB)
+MOE_PARITY_ARCHS = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+MOE_TRUTH_LAYERS = 8
+# the parts of a profiler kernel name that mark a matrix product (cuBLAS)
+GEMM_PARTS = ("nvjet", "gemm", "cutlass")
 LM_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
     "decode_attention": "src/repro/kernels/decode_attention.py:26",
@@ -1227,9 +1279,13 @@ def lm_tol(torch, dtype) -> float:
     return 2e-2 if dtype == torch.bfloat16 else 2e-5
 
 
-def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
+def check_lm_kernels(torch, ops, ref, dev, heads=(16, 8), rms_rows=None,
+                     label="lm kernels") -> dict[str, float]:
     """Each LM kernel against its plain version, fp32 and bf16, at the
-    slice's shapes and ragged ones → max |kernel - plain| per kernel."""
+    slice's shapes and ragged ones → max |kernel - plain| per kernel.
+    ``heads`` (H, KV) and ``rms_rows`` (the RMSNorm row shapes) name
+    another slice's; then only its own shapes run (flash at its prefill,
+    decode at its cache, each forced split count)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     err = {name: 0.0 for name in LM_REPLACES}
     by_dtype = {}
@@ -1252,21 +1308,23 @@ def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
         by_dtype[key] = max(by_dtype.get(key, 0.0), worst)
 
     from repro_torch.kernels import decode_attention as dk
-    H, KV, hd = 16, 8, 128
+    (H, KV), hd = heads, 128
+    # the slice's heads; unless another slice's shapes were named, ragged
+    # S and T, every registry head dim (64 whisper, 96 phi-3-vision, 112
+    # zamba2, 128 the rest; 16 the reduced configs), granite-20b's MQA
+    # group, causal S < T
+    flash_cases = ((LM_B, LM_S, LM_S, H, KV, hd, True),)
+    if rms_rows is None:
+        flash_cases += ((2, 1000, 1000, H, KV, hd, True),
+                        (2, 64, 1500, H, KV, hd, False),
+                        (1, 300, 300, 4, 2, 64, True),
+                        (1, 300, 300, 4, 4, 96, True),
+                        (1, 300, 300, 4, 4, 112, False),
+                        (2, 200, 200, 4, 2, 16, True),
+                        (1, 256, 256, 48, 1, hd, True),
+                        (1, 77, 300, 4, 2, hd, True))
     for dtype in (torch.float32, torch.bfloat16):
-        # the slice's heads, ragged S and T, every registry head dim (64
-        # whisper, 96 phi-3-vision, 112 zamba2, 128 the rest; 16 the
-        # reduced configs), granite-20b's MQA group, causal S < T
-        for B, S, T, h, kv, d, causal in (
-                (LM_B, LM_S, LM_S, H, KV, hd, True),
-                (2, 1000, 1000, H, KV, hd, True),
-                (2, 64, 1500, H, KV, hd, False),
-                (1, 300, 300, 4, 2, 64, True),
-                (1, 300, 300, 4, 4, 96, True),
-                (1, 300, 300, 4, 4, 112, False),
-                (2, 200, 200, 4, 2, 16, True),
-                (1, 256, 256, 48, 1, hd, True),
-                (1, 77, 300, 4, 2, hd, True)):
+        for B, S, T, h, kv, d, causal in flash_cases:
             q = randn((B, S, h, d), dtype)
             k, v = randn((B, T, kv, d), dtype), randn((B, T, kv, d), dtype)
             hold("flash_attention", ops.flash_attention(q, k, v, causal=causal),
@@ -1292,23 +1350,25 @@ def check_lm_kernels(torch, ops, ref, dev) -> dict[str, float]:
                          f"Smax={smax} pos={pos} splits={splits}")
         # the LM slice's rows (d_model, q/k heads) at prefill and decode,
         # the SSM slice's (d_model) and a ragged width
-        for shape in ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
-                      (LM_B, 2048), (LM_B * H, hd), (SSM_B * SSM_S, SSM_D),
-                      (SSM_B, SSM_D), (1000, 3)):
+        for shape in rms_rows or ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
+                                  (LM_B, 2048), (LM_B * H, hd),
+                                  (SSM_B * SSM_S, SSM_D), (SSM_B, SSM_D),
+                                  (1000, 3)):
             x, sc = randn(shape, dtype), randn((shape[-1],), dtype)
             hold("fused_rmsnorm", ops.fused_rmsnorm(x, sc),
                  ref.fused_rmsnorm_ref(x, sc), f"shape={shape}")
     torch.cuda.synchronize()
-    log("lm kernels: within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16) of the "
+    log(f"{label}: within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16) of the "
         "plain versions; max |diff| "
         + ", ".join(f"{n} {d} {e:.3g}" for (n, d), e in by_dtype.items()))
     return err
 
 
-def time_lm_kernels(torch, ops, ref, dev) -> dict[str, dict]:
-    """Each LM kernel at the slice's bf16 shapes: ms, bound, plain ms and
-    one PyTorch call's ms.  Decode rotates over three caches (three times
-    the 50 MB L2), as its layers do on the path."""
+def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
+    """Each LM kernel at the slice's bf16 shapes (``heads``: its query and
+    KV heads): ms, bound, plain ms and one PyTorch call's ms.  Decode
+    rotates over three caches (three times the 50 MB L2), as its layers
+    do on the path."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
@@ -1316,7 +1376,7 @@ def time_lm_kernels(torch, ops, ref, dev) -> dict[str, dict]:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    B, S, H, KV, hd = LM_B, LM_S, 16, 8, 128
+    (B, S), (H, KV), hd = (LM_B, LM_S), heads, 128
     rows = {}
     q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1600,21 +1660,72 @@ def named(key: str, name) -> bool:
     return all(p in key for p in ((name,) if isinstance(name, str) else name))
 
 
+def span_times(prof, labels) -> dict[str, tuple[float, float]]:
+    """The device ms of the kernels that ran inside each labelled span's
+    GPU-side ranges → {label: (all kernels, the matrix-product kernels
+    among them)}; (0, 0) where the profiler recorded no range."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in dev if e.name not in labels)
+    starts = [k[0] for k in kernels]
+    out = {}
+    for lab in sorted(labels):
+        total = gemm = 0.0
+        for r in (e.time_range for e in dev if e.name == lab):
+            i = bisect.bisect_left(starts, r.start)
+            while i < len(kernels) and kernels[i][0] < r.end:
+                t0, t1, name = kernels[i]
+                if t1 <= r.end:
+                    total += t1 - t0
+                    gemm += (t1 - t0) * any(p in name for p in GEMM_PARTS)
+                i += 1
+        out[lab] = (total / 1e3, gemm / 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def spans_on(torch, spans):
+    """While open, each function ``module.attr`` of ``spans`` ((module,
+    attr, label) triples) runs inside ``record_function(label)``; the
+    functions are put back on exit."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in spans]
+
+    def wrapped(fn, label):
+        def run(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return run
+    for (m, a, fn), (_, _, label) in zip(saved, spans):
+        setattr(m, a, wrapped(fn, label))
+    try:
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
 def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
-               expect=None) -> None:
+               expect=None, spans=()) -> dict[str, dict[str, float]]:
     """One prefill and one decode step under torch.profiler: device busy
     time by kernel, and that of the elementwise kernels, against the
     step's wall time.  ``expect`` maps each step to the kernel names
-    (see ``named``) it must run and those it must not."""
+    (see ``named``) it must run and those it must not; ``spans`` (see
+    ``spans_on``) are timed by the kernels that ran inside each (see
+    ``span_times``) → {step: {span label: (ms, matrix-product ms),
+    "busy": the step's device busy ms}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     prefill, decode = make_prefill_step(cfg, cache_len), make_decode_step(cfg)
     tok, cache = prefill(model, inputs)
     torch.cuda.synchronize()
+    labels = {lab for _, _, lab in spans}
+    by_span = {}
     for what in ("prefill", "decode step"):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                spans_on(torch, spans):
             t0 = time.perf_counter()
             if what == "prefill":
                 prefill(model, inputs)
@@ -1622,9 +1733,10 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
                 decode(model, tok, cache)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # (a span's GPU-side range is no kernel of its own)
         rows = [r for r in prof.key_averages()
                 if r.device_type == DeviceType.CUDA
-                and r.self_device_time_total]
+                and r.self_device_time_total and r.key not in labels]
         if not rows:
             log(f"{label} profile ({what}): wall {wall_ms:.2f} ms; the "
                 f"profiler saw no device time (busy share not measured)")
@@ -1643,6 +1755,12 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
         log(f"  elementwise kernels: {sum(r.count for r in elem)} launches, "
             f"{sum(r.self_device_time_total for r in elem) / 1e3:.3f} ms "
             f"of the device's busy time")
+        if spans:
+            by_span[what] = dict(span_times(prof, labels), busy=busy_ms)
+            log("  device ms in each span (all kernels / matrix products): "
+                + ", ".join(f"{lab} {t[0]:.3f} / {t[1]:.3f}"
+                            for lab, t in by_span[what].items()
+                            if lab in labels))
         if expect:
             need, forbid = expect[what]
             for name in need:
@@ -1656,6 +1774,7 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
                      if any(named(r.key, n) for n in forbid)]
             if wrong:
                 raise AssertionError(f"{label} {what}: ran {wrong}")
+    return by_span
 
 
 def scan_inputs(torch, dev, B, L, di, N, dtype, seed):
@@ -1871,6 +1990,267 @@ def ssm_truth(torch, lm, inputs, feed, gates):
             log(f"ssm parity control ({what}; {gate['label']}): "
                 + ", ".join(f"{k} {v:.4g}{' FAILS' if bad else ''}"
                             for k, (v, bad) in res.items()))
+
+
+def moe_kernels(torch, ops, ref, dev):
+    """Phase 14: phase 6's checks and timings at the MoE slice's shapes
+    (32 query heads over 4 KV heads; RMSNorm at every row shape of its
+    path) → (max |kernel - plain| per kernel, the path's RMSNorm row
+    shapes with their launches)."""
+    from repro_torch import configs
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    shapes = rms_shapes(cfg, MOE_B, MOE_S, MOE_NEW)
+    err = check_lm_kernels(torch, ops, ref, dev, heads, sorted(shapes),
+                           "moe kernels")
+    log("moe kernels, timed (bf16):")
+    time_lm_kernels(torch, ops, ref, dev, heads)
+    time_rmsnorm_shapes(torch, ops, dev, {"moe": shapes})
+    return err, shapes
+
+
+def moe_formulations(torch, dev) -> None:
+    """Phase 16a: ``moe_mlp`` and ``moe_mlp_gshard`` at one group size
+    (``MOE_GROUP``) on one layer of qwen3-moe-30b-a3b's full-width
+    weights and 8192 tokens: fp32 within rtol = atol = 2e-4, bf16 within
+    2e-2 of the output's largest magnitude, with the same dropped (t, k)
+    slots and the same aux.  (In bf16 the sort formulation rounds each
+    weighted slot to bf16 before the sum over k, as the reference does,
+    and GShard's combine sums in fp32 and rounds once; where the k terms
+    cancel, an element's own magnitude is no scale for that rounding.)"""
+    from repro_torch import configs
+    from repro_torch.models import mlp
+    from repro_torch.models.common import Init, Leaves
+    cfg = configs.get("qwen3-moe-30b-a3b").replace(
+        moe_group_size=MOE_GROUP, moe_gshard_group=MOE_GROUP)
+    p32 = mlp.moe_params(cfg, Init(torch.Generator(device=dev).manual_seed(11),
+                                   torch.float32, dev))
+    x32 = torch.randn(MOE_B, MOE_S, cfg.d_model, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(12))
+    C = mlp._capacity(MOE_GROUP, cfg)
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        p = Leaves({k: v if k == "router" else v.to(dtype)
+                    for k, v in p32.items()})
+        x = x32.to(dtype)
+        y_s, aux_s = mlp.moe_mlp(cfg, p, x)
+        y_g, aux_g = mlp.moe_mlp_gshard(cfg, p, x)
+        r = mlp.route(cfg, p, mlp.groups(x, MOE_GROUP))
+        kept_s = mlp.sort_slots(r.top_e, cfg.n_experts, C).kept
+        kept_g = mlp.gshard_slots(r.top_e, cfg.n_experts, C)[2]
+        same_slots = torch.equal(kept_s.reshape(kept_g.shape), kept_g)
+        d = float((y_s.float() - y_g.float()).abs().max())
+        scale = float(y_g.float().abs().max())
+        close = (torch.allclose(y_s, y_g, rtol=tol, atol=tol)
+                 if dtype == torch.float32 else d <= tol * scale)
+        log(f"moe formulations ({str(dtype).split('.')[-1]}, groups of "
+            f"{MOE_GROUP}, capacity {C}): sort vs gshard max |diff| {d:.4g} "
+            f"(|y| max {scale:.4g}; held at "
+            + (f"rtol = atol = {tol}" if dtype == torch.float32
+               else f"{tol} x |y| max") + f"); dropped slots "
+            f"{int((~kept_s).sum())} of {kept_s.numel()}, the same in both: "
+            f"{same_slots}; aux {float(aux_s):.6g} / {float(aux_g):.6g}")
+        if not (same_slots and close and torch.equal(aux_s, aux_g)):
+            raise AssertionError(f"moe formulations ({dtype}) disagree")
+        del p, x, y_s, y_g, r
+    del p32, x32
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def routes_logged(mlp, calls: list):
+    """While open, each ``mlp.route`` call appends its (logits, top_e)
+    to ``calls``: per forward, one call a layer in order."""
+    route = mlp.route
+
+    def logged(cfg, p, xg):
+        r = route(cfg, p, xg)
+        calls.append((r.logits, r.top_e))
+        return r
+    mlp.route = logged
+    try:
+        yield calls
+    finally:
+        mlp.route = route
+
+
+def moe_route_pair(torch, lm, cfg, model, inputs, cache_len, feed) -> dict:
+    """The kernel and plain routes on one model's weights, prefill then
+    the teacher-forced ``feed``, each layer's routing logged → {"kern",
+    "plain": (logits, final cache, routing calls)}."""
+    from repro_torch.models import mlp
+    runs = {}
+    for name, c in (("kern", cfg), ("plain", cfg.replace(attn_impl="xla"))):
+        with routes_logged(mlp, []) as calls:
+            logits, cache = route_logits(lm, c, model, inputs, cache_len,
+                                         feed)
+        runs[name] = (logits, cache, calls)
+    return runs
+
+
+def choice_flips(torch, kern, plain, K: int):
+    """One routing call of each route → (the share of (token, k) choices
+    whose expert the other route did not choose; a (tokens, 3) tensor
+    with a row for each token with such a choice: on the plain route the
+    gap between its k-th and (k+1)-th probability and logit, and the
+    largest difference of its router logits between the routes).  Two
+    experts can trade places only where the logit gap is at most twice
+    that difference."""
+    (lk, ek), (lp, ep) = kern, plain
+    E = lp.shape[-1]
+
+    def chosen(e):
+        return torch.nn.functional.one_hot(e, E).sum(-2)
+    missing = K - (chosen(ek) * chosen(ep)).sum(-1)          # (G, Tg)
+    lk, lp = lk[missing > 0], lp[missing > 0]                # (flipped, E)
+    logit = lp.topk(K + 1).values
+    prob = torch.softmax(lp, -1).topk(K + 1).values
+    flips = torch.stack([prob[:, K - 1] - prob[:, K],
+                         logit[:, K - 1] - logit[:, K],
+                         (lk - lp).abs().amax(-1)], -1)
+    return float(missing.sum()) / (missing.numel() * K), flips
+
+
+def moe_inputs(torch, cfg, dev):
+    """The slice's synthetic prompts for ``cfg`` (``serve.setup``'s, seed
+    0), its cache length and phase 8's four decode tokens."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(cfg, DataConfig(MOE_B, MOE_S, 0), device=dev)
+    inputs = {k: v for k, v in next(data).items() if k != "targets"}
+    g = torch.Generator(device=dev).manual_seed(4)
+    feed = torch.randint(0, cfg.vocab, (4, MOE_B, 1), generator=g,
+                         device=dev, dtype=torch.int32)
+    return inputs, MOE_S + MOE_NEW, feed
+
+
+def moe_fp32_parity(torch, lm, dev) -> None:
+    """Phase 16b: fp32, TF32 off, full width, 2 layers, for each of
+    ``MOE_PARITY_ARCHS``: the kernel route within 2e-4 of the plain
+    route (logits of the prefill and 4 decode steps, final cache) with
+    the same argmax, and every layer's expert choices equal; a flip is
+    printed with its gaps, and one at a logit gap wider than the routes'
+    difference allows is named a fault."""
+    from repro_torch import configs
+    for arch in MOE_PARITY_ARCHS:
+        cfg = configs.get(arch).replace(n_layers=2, dtype="float32",
+                                        attn_impl="pallas")
+        model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        inputs, cache_len, feed = moe_inputs(torch, cfg, dev)
+        runs = moe_route_pair(torch, lm, cfg, model, inputs, cache_len, feed)
+        gate = dict(tol=2e-4, argmax=True, plain=runs["plain"][0],
+                    cache_tol={"k": 2e-4, "v": 2e-4},
+                    plain_cache=runs["plain"][1])
+        res = held_to(torch, gate, *runs["kern"][:2])
+        flips, shares = [], []
+        for call, (a, b) in enumerate(zip(runs["kern"][2], runs["plain"][2])):
+            share, f = choice_flips(torch, a, b, cfg.top_k)
+            shares.append(share)
+            flips += [(call % cfg.n_layers, *x) for x in f.tolist()]
+        faults = [f for f in flips if f[2] > 2 * f[3]]
+        res["expert choices equal"] = (len(runs["kern"][2]) - sum(
+            s > 0 for s in shares), bool(flips))
+        log(f"moe parity ({arch}, float32, 2 layers, {cfg.n_experts} "
+            f"experts top-{cfg.top_k}): "
+            + ", ".join(f"{k} {v:.4g}{' FAILS' if bad else ''}"
+                        for k, (v, bad) in res.items())
+            + f" (of {len(shares)} routing calls)")
+        for layer, pgap, lgap, diff in flips[:10]:
+            log(f"  flip in layer {layer}: k-th minus (k+1)-th probability "
+                f"{pgap:.4g}, logit {lgap:.4g}; the routes' logits differ "
+                f"by {diff:.4g}{' FAULT' if lgap > 2 * diff else ''}")
+        if faults:
+            raise AssertionError(f"moe parity ({arch}): {len(faults)} expert "
+                                 f"choices flipped at a gap wider than the "
+                                 f"routes' difference")
+        failed = [k for k, (_, bad) in res.items() if bad]
+        if failed:
+            raise AssertionError(f"moe parity ({arch}, float32): the routes "
+                                 f"differ in {failed}")
+        del model, runs, gate
+        torch.cuda.empty_cache()
+
+
+def moe_full_depth(torch, serve, lm, dev):
+    """Phase 16c, first half: the slice's bf16 model at full depth on
+    both routes (prefill and 4 teacher-forced steps): the largest logit
+    difference, the argmax agreement and each layer's share of expert
+    choices that differ, printed → the model, its inputs, cache length
+    and feed."""
+    args = serve.parse_args(MOE_ARGS)
+    cfg, model, inputs, cache_len = serve.setup(args)
+    feed = moe_inputs(torch, cfg, dev)[2]
+    runs = moe_route_pair(torch, lm, cfg, model, inputs, cache_len, feed)
+    (kern, _, kcalls), (plain, _, pcalls) = runs["kern"], runs["plain"]
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    agree = [int((a.argmax(-1) == b.argmax(-1)).sum())
+             for a, b in zip(kern, plain)]
+    L = cfg.n_layers
+    shares = [choice_flips(torch, a, b, cfg.top_k)[0]
+              for a, b in zip(kcalls, pcalls)]
+    prefill, decode = shares[:L], shares[L:]
+    log(f"moe parity ({cfg.dtype}, {L} layers): kernel vs plain route max "
+        f"|diff| of logits, prefill then 4 decode steps: "
+        f"{[f'{d:.4g}' for d in diffs]}; argmax agrees for {agree} of "
+        f"{args.batch} each")
+    log(f"  share of expert choices that differ between the routes, prefill, "
+        f"by layer: {[round(x, 5) for x in prefill]}")
+    log(f"  the same over the 4 decode steps, by layer: "
+        f"{[round(sum(decode[i::L]) / 4, 5) for i in range(L)]}")
+    del runs, kern, plain, kcalls, pcalls
+    torch.cuda.empty_cache()
+    return cfg, model, inputs, cache_len, feed
+
+
+def moe_truth(torch, lm, cfg, inputs, cache_len, feed, dev) -> None:
+    """Phase 16c, second half: at full width and ``MOE_TRUTH_LAYERS``
+    layers, each bf16 route against an fp32 plain run of the same
+    weights; the kernel route's mean logit error must be at most 1.1x
+    the plain route's."""
+    cfg = cfg.replace(n_layers=MOE_TRUTH_LAYERS)
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {name: route_logits(lm, c, model, inputs, cache_len, feed)[0]
+           for name, c in (("kern", cfg),
+                           ("plain", cfg.replace(attn_impl="xla")))}
+    model = copy.deepcopy(model).float()
+    truth = route_logits(lm, cfg.replace(dtype="float32", attn_impl="xla"),
+                         model, inputs, cache_len, feed)[0]
+    del model
+    torch.cuda.empty_cache()
+    err = {n: float(torch.stack([(a - b).abs() for a, b in zip(o, truth)]
+                                ).mean()) for n, o in out.items()}
+    worst = {n: max(float((a - b).abs().max()) for a, b in zip(o, truth))
+             for n, o in out.items()}
+    log(f"moe parity (bfloat16, {MOE_TRUTH_LAYERS} layers) against fp32 from "
+        f"the same weights: "
+        + "; ".join(f"{r} route max {worst[n]:.4g} mean {err[n]:.4g}"
+                    for r, n in (("kernel", "kern"), ("plain", "plain")))
+        + f"; mean ratio {err['kern'] / max(err['plain'], 1e-30):.4f} "
+        f"(held at 1.1)")
+    if err["kern"] > 1.1 * err["plain"]:
+        raise AssertionError("moe parity: the kernel route is less accurate "
+                             "than the plain route")
+
+
+def moe_profile(torch, lm, cfg, model, inputs, cache_len) -> None:
+    """Phase 17: one prefill and one decode step of the full-depth bf16
+    model under torch.profiler (the kernels ``LM_STEP_KERNELS`` names
+    must run), with the device time in the router, the expert products
+    and the rest of the routed MLP (the sort, its searches and the
+    gathers of indices and activations, and the weighting)."""
+    from repro_torch.models import mlp
+    routed, router, experts = ("moe: routed MLP", "moe: router",
+                               "moe: expert products")
+    spans = ((lm, "moe_mlp", routed), (mlp, "route", router),
+             (mlp, "_experts", experts))
+    by_span = lm_profile(torch, cfg, model, inputs, cache_len, label="moe",
+                         expect=LM_STEP_KERNELS, spans=spans)
+    for what, t in by_span.items():
+        rest = t[routed][0] - t[router][0] - t[experts][0]
+        log(f"moe profile ({what}), device ms over {cfg.n_layers} layers: "
+            f"expert products {t[experts][0]:.3f} (matrix products "
+            f"{t[experts][1]:.3f}, the rest the einsums' permute copies and "
+            f"the SiLU), sort/gather/index and weighting {rest:.3f}, router "
+            f"{t[router][0]:.3f}; the routed MLP {t[routed][0]:.3f} of the "
+            f"step's busy {t['busy']:.3f}")
 
 
 def main() -> int:
@@ -2249,6 +2629,40 @@ def main() -> int:
     del gates
     lm_profile(torch, cfg, model, inputs, cache_len, label="ssm",
                expect=SSM_STEP_KERNELS)
+    del cfg, model, inputs, cache_len, feed
+
+    # ---------------------------------------------------------- moe kernels
+    gc.collect()                       # the falcon-mamba model is unreferenced
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    moe_err, moe_rows = moe_kernels(torch, ops, ref, dev)
+    log(f"moe kernels (check-phase launches): "
+        f"{json.dumps(ops.launch_counts())}")
+
+    # ------------------------------------------------------------ moe slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the MoE path launches the dense path's kernels (its router, sort,
+    # gathers and expert products are library calls)
+    moe_launches = serve_slice(torch, ops, serve, "moe", MOE_ARGS, lm_expect)
+    rms_counted(moe_launches, moe_rows, "moe")
+
+    # ---------------------------------------------------- moe parity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_formulations(torch, dev)
+    moe_fp32_parity(torch, lm, dev)
+    cfg, model, inputs, cache_len, feed = moe_full_depth(torch, serve, lm, dev)
+    moe_profile(torch, lm, cfg, model, inputs, cache_len)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_truth(torch, lm, cfg, inputs, cache_len, feed, dev)
+    log(f"moe phases 14-17 took {time.perf_counter() - t_moe:.1f} s; max "
+        f"|kernel - plain| at the moe shapes {json.dumps(moe_err)}; the "
+        f"slice's launches flash {moe_launches['flash_attention']}, decode "
+        f"{moe_launches['decode_attention']}, rmsnorm "
+        f"{moe_launches['fused_rmsnorm']}")
 
     # --------------------------------------------------------------- report
     rows = []

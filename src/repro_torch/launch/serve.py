@@ -8,7 +8,8 @@ reports prefill latency and decode throughput — the paper's two
 metrics, on the LM serving path.  It serves with
 ``attn_impl="pallas"``: on the card attention, the selective scan and
 every RMSNorm run the port's CUDA kernels, on the CPU (``--device
-cpu``) their plain versions.  ``cache_len`` is unused by the ssm family.
+cpu``) their plain versions; a moe arch routes its MLP through the
+sort formulation.  ``cache_len`` is unused by the ssm family.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
@@ -17,6 +18,10 @@ cpu``) their plain versions.  ``cache_len`` is unused by the ssm family.
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced \\
       --device cpu
   python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --reduced \\
+      --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
 
 ``main`` prints the reference's lines and returns the numbers.

@@ -1,5 +1,5 @@
-"""Decoder LM for serving: the dense, vlm and ssm (Mamba-1) families
-(counterpart of ``src/repro/models/lm.py``).
+"""Decoder LM for serving: the dense, vlm, moe and ssm (Mamba-1)
+families (counterpart of ``src/repro/models/lm.py``).
 
 The reference stacks per-layer params on a leading ``layers`` axis and
 scans over it; here the layers are an ``nn.ModuleList`` walked by a
@@ -7,10 +7,11 @@ Python loop, each block a ``Leaves`` node with the reference's keys and
 leaf shapes, so ``from_reference`` only unstacks that axis.
 
 Cache (serving): ``{"k", "v": (L, B, cache_len, KV, hd), "pos": int}``,
-zero past the prompt, for attention; ``{"conv": (L, B, K-1, di) in the
-working dtype, "h": (L, B, di, N) fp32, "pos": int}`` for ssm, which
-ignores ``cache_len`` as the reference does.  ``pos`` stays a Python
-int on the host, so no decode step waits on the device to read it.
+zero past the prompt, for attention (dense, vlm, moe); ``{"conv": (L,
+B, K-1, di) in the working dtype, "h": (L, B, di, N) fp32, "pos":
+int}`` for ssm, which ignores ``cache_len`` as the reference does.
+``pos`` stays a Python int on the host, so no decode step waits on the
+device to read it.
 Decode writes the new k/v rows, or the new conv window and state, into
 the cache tensors in place (the reference returns updated copies): the
 cache passed to ``forward_decode`` is the one it returns, with ``pos``
@@ -18,8 +19,11 @@ advanced.
 
 ``cfg.attn_impl`` picks the kernels: ``"pallas"`` runs attention, the
 selective scan and every RMSNorm through ``kernels.ops``, ``"xla"``
-through the plain copies of the reference's routes.  The moe, hybrid
-and encdec families are not ported yet (ROADMAP queue 1, item 10).
+through the plain copies of the reference's routes.  A moe block's MLP
+is ``mlp.moe_mlp`` (``cfg.moe_impl="sort"``) or ``mlp.moe_mlp_gshard``
+(``"gshard"``) on either route; serving discards its load-balance term,
+as the reference's prefill and decode do.  The hybrid and encdec
+families are not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -31,10 +35,10 @@ from .attention import (attend_decode, attend_prefill, attn_params,
                         cache_update, o_project, qkv_project)
 from .cnn.zoo import resolve_device
 from .common import DTYPES, Init, Leaves, embed_lookup, lm_logits, norm
-from .mlp import mlp, mlp_params
+from .mlp import mlp, mlp_params, moe_mlp, moe_mlp_gshard, moe_params
 from .ssm import mamba1_block, mamba1_params
 
-FAMILIES = ("dense", "vlm", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "ssm")
 
 
 def _check_family(cfg) -> None:
@@ -53,15 +57,20 @@ def _norm_params(leaf, d: int) -> dict:
 
 
 def layer_params(cfg, leaf) -> dict:
-    """One block: the reference's ``_attn_block_params`` (dense/vlm) or
-    its ssm layer (a norm and a Mamba-1 mixer)."""
+    """One block: the reference's ``_attn_block_params`` (dense/vlm), its
+    moe layer (the same with a routed MLP) or its ssm layer (a norm and
+    a Mamba-1 mixer)."""
     if cfg.family == "ssm":
         return {"ln": _norm_params(leaf, cfg.d_model),
                 "mamba": mamba1_params(cfg, leaf)}
-    return {"ln1": _norm_params(leaf, cfg.d_model),
-            "attn": attn_params(cfg, leaf),
-            "ln2": _norm_params(leaf, cfg.d_model),
-            "mlp": mlp_params(cfg, leaf)}
+    p = {"ln1": _norm_params(leaf, cfg.d_model),
+         "attn": attn_params(cfg, leaf),
+         "ln2": _norm_params(leaf, cfg.d_model)}
+    if cfg.family == "moe":
+        p["moe"] = moe_params(cfg, leaf)
+    else:
+        p["mlp"] = mlp_params(cfg, leaf)
+    return p
 
 
 def build_params(cfg, leaf) -> dict:
@@ -113,9 +122,11 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
 def from_reference(cfg, params_np: dict, device=None) -> LM:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as a
     port ``LM`` on ``device``: the stacked ``layers`` axis is split into
-    per-block nodes, every leaf keeps its shape.  bf16 leaves arrive as
-    numpy's ``bfloat16`` extension type and are widened to fp32 on the
-    host, then narrowed back on the device (exact both ways)."""
+    per-block nodes (a moe block's expert stacks included), every leaf
+    keeps its shape and dtype (a moe router stays fp32 in a bf16 tree).
+    bf16 leaves arrive as numpy's ``bfloat16`` extension type and are
+    widened to fp32 on the host, then narrowed back on the device (exact
+    both ways)."""
     dev = resolve_device(device)
 
     def tensor(a) -> torch.Tensor:
@@ -144,11 +155,9 @@ def from_reference(cfg, params_np: dict, device=None) -> LM:
 # --------------------------------------------------------------------------- #
 # Blocks and trunk
 # --------------------------------------------------------------------------- #
-def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
-    """Standard pre-norm transformer block (the reference's
-    ``_attn_mlp_block`` without the layer-norm variant).  Returns
-    (x, (k, v)): the prompt's k/v in prefill, the updated caches in
-    decode."""
+def _attention(cfg, p, x, positions, kv_cache, pos):
+    """The pre-norm attention half of a block → (x, (k, v)): the
+    prompt's k/v in prefill, the updated caches in decode."""
     h = norm(cfg, x, p.ln1.scale)
     q, k, v = qkv_project(cfg, p.attn, h, positions)
     if kv_cache is not None:
@@ -158,9 +167,35 @@ def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
     else:
         o = attend_prefill(cfg, q, k, v, causal=True)
         new_kv = (k, v)
-    x = x + o_project(p.attn, o)
+    return x + o_project(p.attn, o), new_kv
+
+
+def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
+    """Standard pre-norm transformer block (the reference's
+    ``_attn_mlp_block`` without the layer-norm variant).  Returns
+    (x, (k, v)): the prompt's k/v in prefill, the updated caches in
+    decode."""
+    x, new_kv = _attention(cfg, p, x, positions, kv_cache, pos)
     h2 = norm(cfg, x, p.ln2.scale)
     return x + mlp(cfg, p.mlp, h2), new_kv
+
+
+def moe_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
+    """The reference's ``_moe_block``: attention, then the routed MLP of
+    ``cfg.moe_impl``.  Returns (x, (k, v), aux)."""
+    x, new_kv = _attention(cfg, p, x, positions, kv_cache, pos)
+    h2 = norm(cfg, x, p.ln2.scale)
+    moe_fn = moe_mlp_gshard if cfg.moe_impl == "gshard" else moe_mlp
+    y, aux = moe_fn(cfg, p.moe, h2)
+    return x + y, new_kv, aux
+
+
+def _serving_block(cfg, p, x, positions, **kw):
+    """An attention family's block for serving → (x, (k, v)); a moe
+    block's aux is discarded."""
+    if cfg.family == "moe":
+        return moe_block(cfg, p, x, positions, **kw)[:2]
+    return attn_mlp_block(cfg, p, x, positions, **kw)
 
 
 def ssm_block(cfg, p, x, cache=None, h_out=None):
@@ -189,7 +224,7 @@ def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for i, p in enumerate(model.layers):
-        x, (k, v) = attn_mlp_block(cfg, p, x, positions)
+        x, (k, v) = _serving_block(cfg, p, x, positions)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     return x, {"k": ks, "v": vs, "pos": S}
@@ -209,7 +244,7 @@ def trunk_decode(cfg, model: LM, x, cache: dict):
         return x, {"conv": cache["conv"], "h": cache["h"], "pos": pos + 1}
     positions = torch.arange(pos, pos + 1, device=x.device)
     for i, p in enumerate(model.layers):
-        x, _ = attn_mlp_block(cfg, p, x, positions,
+        x, _ = _serving_block(cfg, p, x, positions,
                               kv_cache=(cache["k"][i], cache["v"][i]),
                               pos=pos)
     return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

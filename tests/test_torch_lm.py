@@ -1,8 +1,11 @@
 """LM serving parity between the PyTorch port and the JAX reference.
 
-For reduced qwen3-1.7b (qk_norm, GQA, tied head), starcoder2-3b (GELU,
-untied head, no qk_norm) and phi-3-vision-4.2b (vlm image prefix), the
-reference's weights are loaded into the port with ``from_reference`` and
+For reduced qwen3-1.7b (qk_norm, GQA, tied head), starcoder2-3b and
+starcoder2-7b (GELU, untied head, no qk_norm), granite-20b (MQA: one KV
+head), phi-3-vision-4.2b (vlm image prefix) and the two MoE archs,
+qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (the sort formulation, fp32
+router, groups of 64; the prompt is two groups, a decode step less
+than one), the reference's weights are loaded into the port with ``from_reference`` and
 both packages prefill the same numpy-seeded prompt, then take four
 teacher-forced decode steps on the same tokens.  The port runs both of
 its routes: ``attn_impl="pallas"`` (the kernels' plain versions here on
@@ -30,7 +33,8 @@ from repro_torch.models import lm
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen3-1.7b", "starcoder2-3b", "phi-3-vision-4.2b"]
+ARCHS = ["qwen3-1.7b", "starcoder2-3b", "phi-3-vision-4.2b", "granite-20b",
+         "starcoder2-7b", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 B, S, STEPS = 2, 64, 4
 
@@ -141,12 +145,12 @@ def test_init_draws_the_reference_scales(name):
     wq = model.layers[0].attn.wq
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
     again = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    assert torch.equal(again.layers[1].mlp.w_up, model.layers[1].mlp.w_up)
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    assert torch.equal(getattr(again.layers[1], ffn).w_up,
+                       getattr(model.layers[1], ffn).w_up)
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b",
-                                  "phi3.5-moe-42b-a6.6b", "zamba2-7b",
-                                  "whisper-small"])
+@pytest.mark.parametrize("name", ["zamba2-7b", "whisper-small"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         lm.init(configs.reduced(name), torch.Generator().manual_seed(0),
