@@ -206,9 +206,52 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              the device time inside the expert products (and their
              matrix products), the router and the rest of the routed MLP
              (sort, gathers, weighting), beside each step's busy time and
-             idle share.
+             idle share;
+18. hybrid/enc-dec kernels — phase 6's checks at the shapes of the two
+             slices below (flash: zamba2's shared block q (8,1024,32,112)
+             causal, whisper's encoder (8,1500,12,64) non-causal, decoder
+             (8,416,12,64) causal, cross-attention (8,416,12,64) over
+             (8,1500,12,64) and at decode one query row over 1500; decode
+             over (8,1056,32,112) at pos 0/1/511/1055 and (8,448,12,64) at
+             pos 0/1/447, with forced split counts; RMSNorm at every row
+             shape of the hybrid path, d = 3584 and 7168), fp32 and bf16
+             within 2e-5 / 2e-2, then each shape timed beside its bound and
+             SDPA / ``F.rms_norm``;
+19. hybrid slice — ``serve.main`` on zamba2-7b at full width and depth
+             (81 Mamba-2 layers, d_model 3584, 112 SSD heads of 64, N 64,
+             the shared attention+MLP block at every 6th layer: 14
+             applications; about 13.5 GB of bf16 weights), batch 8, prompt
+             1024, 32 new tokens (cache 1056), counters reset just before:
+             exactly 28 flash, 448 decode and 6494 RMSNorm launches, no
+             scan; prefill ms, decode ms/token, tokens/s and peak
+             allocated memory printed;
+20. hybrid parity — the same weights and prompt through the ``"xla"``
+             route in bf16 at full depth (the largest logit difference and
+             the argmax agreement printed); fp32, TF32 off, full width, 8
+             layers (the shared block at layers 0 and 6): logits, argmax
+             and the final conv/h/ak/av within 2e-4; at 8 layers each bf16
+             route against an fp32 plain run of the same weights, the kernel
+             route's mean logit error at most 1.1x the plain route's;
+21. enc-dec slice — ``serve.main`` on whisper-small (12 + 12 layers,
+             d_model 768, 12 heads of 64, vocab 51865, tied head), batch 8,
+             the published 1500 encoder frames, prompt 416, 32 new tokens
+             (cache 448, whisper's decoder context): exactly 456 flash,
+             384 decode and no RMSNorm launches; the same numbers printed;
+22. enc-dec parity — as phase 8: bf16 at full depth within 5e-2 with the
+             same argmax, then fp32 at full depth within 2e-4 with the same
+             argmax and final k/v/ck/cv;
+23. hybrid/enc-dec profile — one prefill and one decode step of each
+             model under ``torch.profiler``: zamba2's prefill must run
+             ``flash_attention_tc_kernel`` and its decode both decode
+             kernels (no scan in either), with the device time in the SSD
+             (mask/exp, carry, the rest), the Mamba-2 blocks, the shared
+             block and RMSNorm; whisper's with the encoder, the decoder's
+             self-attention and the cross-attention (decode also runs
+             flash for its one-row cross-attention; no RMSNorm); busy time
+             and idle share beside each.
 
-The kernel table's rows for the two scan entries carry their
+The kernel table's LM rows count the launches of every LM serving path
+(phases 7, 11, 15, 19 and 21).  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
 last three lines of
 standard output are the kernel table (JSON), the
@@ -284,6 +327,31 @@ MOE_GROUP = 128
 # route is held against an fp32 run of the same weights (about 20 GB)
 MOE_PARITY_ARCHS = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
 MOE_TRUTH_LAYERS = 8
+# the hybrid slice: zamba2-7b at full width and depth (81 Mamba-2 layers,
+# the shared block at 14 of them; about 13.5 GB of bf16 weights), batch
+# 8, prompt 1024 (a multiple of the SSD chunk: a ragged prompt would be
+# one chunk of 8 x 1000 x 1000 x 112 fp32 weights, 3.6 GB), 32 new tokens
+HYB_B, HYB_S, HYB_NEW = 8, 1024, 32
+HYB_ARGS = ["--arch", "zamba2-7b", "--batch", str(HYB_B), "--prompt-len",
+            str(HYB_S), "--new-tokens", str(HYB_NEW), "--seed", "0"]
+# fp32 parity and bf16 accuracy at 8 layers: two applications of the
+# shared block (before layers 0 and 6)
+HYB_LAYERS = 8
+# the enc-dec slice: whisper-small, batch 8, the published 1500 encoder
+# frames, prompt 416 and 32 new tokens: a cache of 448, whisper's
+# published decoder context
+ENC_B, ENC_S, ENC_NEW = 8, 416, 32
+ENC_ARGS = ["--arch", "whisper-small", "--batch", str(ENC_B), "--prompt-len",
+            str(ENC_S), "--new-tokens", str(ENC_NEW), "--seed", "0"]
+# each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
+# positions
+HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
+ENC_FLASH = {"whisper encoder": (ENC_B, 1500, 1500, 12, 12, 64, False),
+             "whisper decoder": (ENC_B, ENC_S, ENC_S, 12, 12, 64, True),
+             "whisper cross": (ENC_B, ENC_S, 1500, 12, 12, 64, False),
+             "whisper cross at decode": (ENC_B, 1, 1500, 12, 12, 64, False)}
+HYB_POSITIONS = (0, 1, 511, HYB_S + HYB_NEW - 1)
+ENC_POSITIONS = (0, 1, ENC_S + ENC_NEW - 1)
 # the parts of a profiler kernel name that mark a matrix product (cuBLAS)
 GEMM_PARTS = ("nvjet", "gemm", "cutlass")
 LM_REPLACES = {
@@ -301,6 +369,17 @@ SSM_STEP_KERNELS = {
 LM_STEP_KERNELS = {
     "prefill": (("flash_attention_tc_kernel",), ("flash_attention_kernel",)),
     "decode step": (("decode_split_kernel", "decode_combine_kernel"), ()),
+}
+# the hybrid runs no scan kernel (its SSD is plain code); the enc-dec no
+# RMSNorm (its norms are layer norms) and its decode step also flash, for
+# the cross-attention's one query row
+HYB_STEP_KERNELS = {step: (need, (*forbid, "ssm_scan_kernel"))
+                    for step, (need, forbid) in LM_STEP_KERNELS.items()}
+ENC_STEP_KERNELS = {
+    "prefill": (("flash_attention_tc_kernel",),
+                ("flash_attention_kernel", "rmsnorm")),
+    "decode step": (("decode_split_kernel", "decode_combine_kernel",
+                     "flash_attention_tc_kernel"), ("rmsnorm",)),
 }
 # the __global__ functions of codec_pack.cu (each template instance on
 # its own), by the parts of the profiler's name that tell them apart
@@ -1279,13 +1358,24 @@ def lm_tol(torch, dtype) -> float:
     return 2e-2 if dtype == torch.bfloat16 else 2e-5
 
 
-def check_lm_kernels(torch, ops, ref, dev, heads=(16, 8), rms_rows=None,
+def lm_cases(H: int, KV: int, hd: int = 128) -> tuple[tuple, tuple]:
+    """The LM slice's flash case (batch, prompt; ``H`` query over ``KV``
+    heads of ``hd``) and its decode case over the slice's cache at
+    positions 0, 1, 511 and the last."""
+    smax = LM_S + LM_NEW
+    return ((LM_B, LM_S, LM_S, H, KV, hd, True),
+            (LM_B, smax, H, KV, hd, (0, 1, 511, smax - 1)))
+
+
+def check_lm_kernels(torch, ops, ref, dev, flash_cases=None,
+                     decode_cases=None, rms_rows=None,
                      label="lm kernels") -> dict[str, float]:
-    """Each LM kernel against its plain version, fp32 and bf16, at the
-    slice's shapes and ragged ones → max |kernel - plain| per kernel.
-    ``heads`` (H, KV) and ``rms_rows`` (the RMSNorm row shapes) name
-    another slice's; then only its own shapes run (flash at its prefill,
-    decode at its cache, each forced split count)."""
+    """Each LM kernel against its plain version, fp32 and bf16 → max
+    |kernel - plain| per kernel.  ``flash_cases`` are (B, S, T, H, KV,
+    hd, causal); ``decode_cases`` (B, Smax, H, KV, hd, positions), each
+    also at forced split counts at its first and last position;
+    ``rms_rows`` the RMSNorm row shapes.  Unnamed, they are the LM
+    slice's shapes and ragged ones."""
     gen = torch.Generator(device=dev).manual_seed(2)
     err = {name: 0.0 for name in LM_REPLACES}
     by_dtype = {}
@@ -1308,21 +1398,19 @@ def check_lm_kernels(torch, ops, ref, dev, heads=(16, 8), rms_rows=None,
         by_dtype[key] = max(by_dtype.get(key, 0.0), worst)
 
     from repro_torch.kernels import decode_attention as dk
-    (H, KV), hd = heads, 128
-    # the slice's heads; unless another slice's shapes were named, ragged
+    lm_flash, lm_decode = lm_cases(16, 8)
+    hd = 128
+    # unless another slice's shapes were named: the slice's heads, ragged
     # S and T, every registry head dim (64 whisper, 96 phi-3-vision, 112
     # zamba2, 128 the rest; 16 the reduced configs), granite-20b's MQA
     # group, causal S < T
-    flash_cases = ((LM_B, LM_S, LM_S, H, KV, hd, True),)
-    if rms_rows is None:
-        flash_cases += ((2, 1000, 1000, H, KV, hd, True),
-                        (2, 64, 1500, H, KV, hd, False),
-                        (1, 300, 300, 4, 2, 64, True),
-                        (1, 300, 300, 4, 4, 96, True),
-                        (1, 300, 300, 4, 4, 112, False),
-                        (2, 200, 200, 4, 2, 16, True),
-                        (1, 256, 256, 48, 1, hd, True),
-                        (1, 77, 300, 4, 2, hd, True))
+    flash_cases = flash_cases or (
+        lm_flash, (2, 1000, 1000, 16, 8, hd, True),
+        (2, 64, 1500, 16, 8, hd, False), (1, 300, 300, 4, 2, 64, True),
+        (1, 300, 300, 4, 4, 96, True), (1, 300, 300, 4, 4, 112, False),
+        (2, 200, 200, 4, 2, 16, True), (1, 256, 256, 48, 1, hd, True),
+        (1, 77, 300, 4, 2, hd, True))
+    decode_cases = decode_cases or (lm_decode,)
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, T, h, kv, d, causal in flash_cases:
             q = randn((B, S, h, d), dtype)
@@ -1330,28 +1418,30 @@ def check_lm_kernels(torch, ops, ref, dev, heads=(16, 8), rms_rows=None,
             hold("flash_attention", ops.flash_attention(q, k, v, causal=causal),
                  ref.flash_attention_ref(q, k, v, causal=causal),
                  f"B={B} S={S} T={T} H={h} KV={kv} hd={d} causal={causal}")
-        smax = LM_S + LM_NEW
-        q = randn((LM_B, H, hd), dtype)
-        kc = randn((LM_B, smax, KV, hd), dtype)
-        vc = randn((LM_B, smax, KV, hd), dtype)
-        for pos in (0, 1, 511, smax - 1):
-            hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
-                 ref.decode_attention_ref(q, kc, vc, pos),
-                 f"Smax={smax} pos={pos}")
-        # forced split counts, empty splits included, against the plain
-        # version and the plain split-and-combine
-        for pos in (0, smax - 1):
-            for splits in (1, 2, 7, pos + 3):
-                out = dk.decode_attention(q, kc, vc, pos, splits=splits)
-                for exp in (ref.decode_attention_ref(q, kc, vc, pos),
-                            ref.decode_attention_split_ref(q, kc, vc, pos,
-                                                           splits)):
-                    hold("decode_attention", out, exp,
-                         f"Smax={smax} pos={pos} splits={splits}")
+            del q, k, v
+        for B, smax, h, kv, d, positions in decode_cases:
+            q = randn((B, h, d), dtype)
+            kc = randn((B, smax, kv, d), dtype)
+            vc = randn((B, smax, kv, d), dtype)
+            for pos in positions:
+                hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
+                     ref.decode_attention_ref(q, kc, vc, pos),
+                     f"Smax={smax} H={h} KV={kv} hd={d} pos={pos}")
+            # forced split counts, empty splits included, against the
+            # plain version and the plain split-and-combine
+            for pos in (positions[0], positions[-1]):
+                for splits in (1, 2, 7, pos + 3):
+                    out = dk.decode_attention(q, kc, vc, pos, splits=splits)
+                    for exp in (ref.decode_attention_ref(q, kc, vc, pos),
+                                ref.decode_attention_split_ref(q, kc, vc, pos,
+                                                               splits)):
+                        hold("decode_attention", out, exp,
+                             f"Smax={smax} H={h} KV={kv} hd={d} pos={pos} "
+                             f"splits={splits}")
         # the LM slice's rows (d_model, q/k heads) at prefill and decode,
         # the SSM slice's (d_model) and a ragged width
-        for shape in rms_rows or ((LM_B * LM_S, 2048), (LM_B * LM_S * H, hd),
-                                  (LM_B, 2048), (LM_B * H, hd),
+        for shape in rms_rows or ((LM_B * LM_S, 2048), (LM_B * LM_S * 16, hd),
+                                  (LM_B, 2048), (LM_B * 16, hd),
                                   (SSM_B * SSM_S, SSM_D), (SSM_B, SSM_D),
                                   (1000, 3)):
             x, sc = randn(shape, dtype), randn((shape[-1],), dtype)
@@ -1364,38 +1454,59 @@ def check_lm_kernels(torch, ops, ref, dev, heads=(16, 8), rms_rows=None,
     return err
 
 
-def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
-    """Each LM kernel at the slice's bf16 shapes (``heads``: its query and
-    KV heads): ms, bound, plain ms and one PyTorch call's ms.  Decode
-    rotates over three caches (three times the 50 MB L2), as its layers
-    do on the path."""
+def with_bound(name: str, t: dict) -> dict:
+    """``t`` (a timed row with its ``flops`` and ``bytes``) with its bound
+    (the larger of operations at the bf16 tensor-core peak and bytes at
+    HBM's rate), logged beside the times."""
+    by_ops = t["flops"] / BF16_FLOP_PER_S
+    by_bytes = t["bytes"] / HBM_BYTES_PER_S
+    t["bound_ms"] = max(by_ops, by_bytes) * 1e3
+    t["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
+    log(f"  {name:16s} {t['shape']}: kernel {t['ms']:.4f} ms  bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})  plain "
+        f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
+    return t
+
+
+def time_flash(torch, ops, ref, dev, B, S, T, H, KV, hd, causal) -> dict:
+    """Flash attention at one bf16 shape: ms, plain ms, SDPA's ms and the
+    bound (the score pairs that the causal mask leaves, counted)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf = torch.bfloat16
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf)
-
-    (B, S), (H, KV), hd = (LM_B, LM_S), heads, 128
-    rows = {}
-    q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = randn(B, S, H, hd), randn(B, T, KV, hd), randn(B, T, KV, hd)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    flops = 4 * B * H * S * S * hd / 2
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    rows["flash_attention"] = dict(
-        shape=f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KV},{hd}) causal bf16",
+    pairs = S * (T - S) + S * (S + 1) // 2 if causal else S * T
+    iters = 10 if B * H * pairs * hd > 1 << 28 else 100
+    return with_bound("flash_attention", dict(
+        shape=f"q ({B},{S},{H},{hd}) k/v ({B},{T},{KV},{hd}) "
+              f"{'causal' if causal else 'non-causal'} bf16",
         ms=device_ms(torch, "flash_attention",
-                     lambda: ops.flash_attention(q, k, v), 10),
+                     lambda: ops.flash_attention(q, k, v, causal=causal),
+                     iters),
         plain_ms=device_ms(torch, "flash_attention plain",
-                           lambda: ref.flash_attention_ref(q, k, v), 5),
+                           lambda: ref.flash_attention_ref(q, k, v,
+                                                           causal=causal), 5),
         library_ms=device_ms(
             torch, "scaled_dot_product_attention",
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True), 10),
-        flops=flops, bytes=nbytes)
-    del q, k, v, qt, kt, vt
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters),
+        flops=4 * B * H * pairs * hd,
+        bytes=2 * (2 * B * S * H * hd + 2 * B * T * KV * hd)))
 
-    smax, pos = LM_S + LM_NEW, LM_S + LM_NEW - 1
+
+def time_decode(torch, ops, ref, dev, B, smax, H, KV, hd, pos) -> dict:
+    """Decode attention at one bf16 cache shape and ``pos``: ms, plain
+    ms, SDPA's over rows ``0..pos`` and the bound.  It rotates over three
+    caches (three times the 50 MB L2 at the LM slice's), as its layers do
+    on the path."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     q = randn(B, H, hd)
     caches = [(randn(B, smax, KV, hd), randn(B, smax, KV, hd))
               for _ in range(3)]
@@ -1404,8 +1515,9 @@ def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
     q4 = q[:, :, None]
     cyc, pcyc, lcyc = (itertools.cycle(c) for c in (caches, caches,
                                                     lib_caches))
-    rows["decode_attention"] = dict(
-        shape=f"q ({B},{H},{hd}) caches ({B},{smax},{KV},{hd}) pos {pos} bf16",
+    return with_bound("decode_attention", dict(
+        shape=f"q ({B},{H},{hd}) caches ({B},{smax},{KV},{hd}) pos {pos} "
+              "bf16",
         ms=device_ms(torch, "decode_attention",
                      lambda: ops.decode_attention(q, *next(cyc), pos), 30),
         plain_ms=device_ms(torch, "decode_attention plain",
@@ -1416,12 +1528,22 @@ def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
             lambda: F.scaled_dot_product_attention(q4, *next(lcyc),
                                                    enable_gqa=True), 30),
         flops=4 * B * H * (pos + 1) * hd,
-        bytes=2 * (2 * B * (pos + 1) * KV * hd + 2 * B * H * hd))
-    del caches, lib_caches
+        bytes=2 * (2 * B * (pos + 1) * KV * hd + 2 * B * H * hd)))
 
-    rows_n, d = B * S, 2048
-    x, sc = randn(rows_n, d), randn(d)
-    rows["fused_rmsnorm"] = dict(
+
+def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
+    """Each LM kernel at the LM slice's bf16 shapes (``heads``: its query
+    and KV heads): ms, bound, plain ms and one PyTorch call's ms."""
+    import torch.nn.functional as F
+    flash, (B, smax, H, KV, hd, positions) = lm_cases(*heads)
+    rows = {"flash_attention": time_flash(torch, ops, ref, dev, *flash),
+            "decode_attention": time_decode(torch, ops, ref, dev, B, smax,
+                                            H, KV, hd, positions[-1])}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows_n, d = LM_B * LM_S, 2048
+    x = torch.randn(rows_n, d, generator=gen, device=dev).to(torch.bfloat16)
+    sc = torch.randn(d, generator=gen, device=dev).to(torch.bfloat16)
+    rows["fused_rmsnorm"] = with_bound("fused_rmsnorm", dict(
         shape=f"x ({rows_n},{d}) scale ({d},) bf16",
         ms=device_ms(torch, "fused_rmsnorm",
                      lambda: ops.fused_rmsnorm(x, sc), 50),
@@ -1429,31 +1551,29 @@ def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
                            lambda: ref.fused_rmsnorm_ref(x, sc), 50),
         library_ms=device_ms(torch, "F.rms_norm",
                              lambda: F.rms_norm(x, (d,), sc, eps=1e-6), 50),
-        flops=4 * rows_n * d, bytes=2 * (2 * rows_n * d + d))
-    for name, t in rows.items():
-        by_ops = t["flops"] / BF16_FLOP_PER_S
-        by_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t["bound_ms"] = max(by_ops, by_bytes) * 1e3
-        t["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
-        log(f"  {name:16s} {t['shape']}: kernel {t['ms']:.4f} ms  bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})  plain "
-            f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
+        flops=4 * rows_n * d, bytes=2 * (2 * rows_n * d + d)))
     return rows
 
 
 def rms_shapes(cfg, B: int, S: int, new: int) -> dict[tuple, int]:
     """Each row shape the serving path hands RMSNorm → its launches over
     the slice: two prefills (d_model rows of every token, the q and k
-    heads' rows with qk-norm; the final norm of the last token) and
-    ``new`` decode steps (the same for one token)."""
+    heads' rows with qk-norm, the hybrid's d_inner rows; the final norm
+    of the last token) and ``new`` decode steps (the same for one
+    token)."""
     D, L = cfg.d_model, cfg.n_layers
-    per_layer = 1 if cfg.family == "ssm" else 2
+    per_layer = 1 if cfg.family in ("ssm", "hybrid") else 2
     out: dict[tuple, int] = {}
 
     def add(shape, n):
         out[shape] = out.get(shape, 0) + n
     for tokens, times in ((B * S, 2), (B, new)):
         add((tokens, D), per_layer * L * times)
+        if cfg.family == "hybrid":
+            # the shared block's two pre-norms at each application; each
+            # Mamba-2 layer's gated norm over d_inner
+            add((tokens, D), 2 * cfg.n_attn_apps * times)
+            add((tokens, cfg.d_inner), L * times)
         if cfg.qk_norm:
             add((tokens * cfg.n_heads, cfg.hd), L * times)
             add((tokens * cfg.n_kv_heads, cfg.hd), L * times)
@@ -1540,6 +1660,29 @@ def ssm_expect(cfg, args) -> dict[str, int]:
             "fused_rmsnorm": (cfg.n_layers + 1) * (2 + args.new_tokens)}
 
 
+def hybrid_expect(cfg, args) -> dict[str, int]:
+    """The same for the hybrid path: the shared block's attention at
+    each of its applications, flash in a prefill and decode attention
+    in a step; per prefill or step one pre-norm and one gated norm a
+    Mamba-2 layer, two norms an application and the final one."""
+    steps, apps = 2 + args.new_tokens, cfg.n_attn_apps
+    return {"flash_attention": 2 * apps,
+            "decode_attention": apps * args.new_tokens,
+            "fused_rmsnorm": (2 * cfg.n_layers + 2 * apps + 1) * steps}
+
+
+def encdec_expect(cfg, args) -> dict[str, int]:
+    """The same for the enc-dec path: a prefill's flash for every encoder
+    layer and for each decoder layer's self- and cross-attention; a
+    decode step's decode attention and its cross-attention (through
+    flash, one query row) for each decoder layer; no RMSNorm (its norms
+    are layer norms)."""
+    L = cfg.n_layers
+    return {"flash_attention": 2 * (cfg.n_enc_layers + 2 * L)
+            + L * args.new_tokens,
+            "decode_attention": L * args.new_tokens}
+
+
 def serve_slice(torch, ops, serve, name, argv, expect_of) -> dict[str, int]:
     """A serving path through its entry point, counters reset just
     before; each kernel's count must be ``expect_of(cfg, args)``'s, 0
@@ -1587,12 +1730,13 @@ def route_logits(lm, cfg, model, inputs, cache_len, feed):
 def held_to(torch, gate, out, cache) -> dict[str, tuple]:
     """A kernel route's logits ``out`` and final ``cache`` against the
     plain route's in ``gate`` → {check: (max |diff| or the number of
-    equal prefill argmaxes, whether the check fails)}."""
+    equal prefill argmaxes, whether the check fails)}; a ``tol`` of None
+    holds the logits to nothing."""
     tol, plain = gate["tol"], gate["plain"]
     res = {"logits": (
         max(float((a - b).abs().max()) for a, b in zip(out, plain)),
-        not all(torch.allclose(a, b, rtol=tol, atol=tol)
-                for a, b in zip(out, plain)))}
+        tol is not None and not all(torch.allclose(a, b, rtol=tol, atol=tol)
+                                    for a, b in zip(out, plain)))}
     agree = int((out[0].argmax(-1) == plain[0].argmax(-1)).sum())
     res["argmax equal"] = (agree,
                            gate["argmax"] and agree != out[0].shape[0])
@@ -1604,16 +1748,17 @@ def held_to(torch, gate, out, cache) -> dict[str, tuple]:
 
 
 def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
-           bf16_cache_tol=None):
+           bf16_cache_tol=None, fp32_layers=2):
     """Kernel route against the plain ``"xla"`` route on the same weights:
     prefill logits and 4 teacher-forced decode steps at full depth in the
-    working dtype within ``bf16_tol`` (with the same prefill argmax when
-    ``bf16_argmax``, and each final-cache entry named in
-    ``bf16_cache_tol`` within its limit); then fp32, TF32 off, full
-    width, 2 layers, within 2e-4 with the same argmax and final cache.
-    → the full-depth model, its inputs, the decode feed, and for each of
-    the two runs its gate: config, model, each route's logits, the plain
-    route's final cache and the limits."""
+    working dtype within ``bf16_tol`` (None: printed, not held; with the
+    same prefill argmax when ``bf16_argmax``, and each final-cache entry
+    named in ``bf16_cache_tol`` within its limit); then fp32, TF32 off,
+    full width, ``fp32_layers`` layers (None: full depth), within 2e-4
+    with the same argmax and final cache.  → the full-depth model, its
+    inputs, the decode feed, and for each of the two runs its gate:
+    config, model, each route's logits, the plain route's final cache
+    and the limits."""
     def routes(cfg, model, tol, argmax, cache_tol, label):
         kern, ck = route_logits(lm, cfg, model, inputs, cache_len, feed)
         plain, cp = route_logits(lm, cfg.replace(attn_impl="xla"), model,
@@ -1629,7 +1774,9 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
         res = held_to(torch, gate, kern, ck)
         log(f"{name} parity ({label}): kernel vs plain route max |diff| of "
             f"logits, prefill then 4 decode steps: "
-            f"{[f'{d:.3g}' for d in diffs]} (rtol = atol = {tol}); final "
+            f"{[f'{d:.3g}' for d in diffs]} ("
+            + (f"rtol = atol = {tol}" if tol is not None
+               else "printed, not held") + "); final "
             f"cache {', '.join(f'{k} {d:.3g}' for k, d in cache.items())} "
             f"(held: {', '.join(f'{k} {t}' for k, t in cache_tol.items())}"
             f"); prefill argmax agrees for {res['argmax equal'][0]} of "
@@ -1647,10 +1794,11 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
                          device=dev, dtype=torch.int32)
     gates = [routes(cfg, model, bf16_tol, bf16_argmax, bf16_cache_tol or {},
                     f"{cfg.dtype}, {cfg.n_layers} layers")]
-    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    cfg32 = cfg.replace(n_layers=fp32_layers or cfg.n_layers,
+                        dtype="float32")
     model32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
     gates.append(routes(cfg32, model32, 2e-4, True, None,
-                        "float32, 2 layers"))
+                        f"float32, {cfg32.n_layers} layers"))
     return cfg, model, inputs, cache_len, feed, gates
 
 
@@ -1713,7 +1861,8 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
     (see ``named``) it must run and those it must not; ``spans`` (see
     ``spans_on``) are timed by the kernels that ran inside each (see
     ``span_times``) → {step: {span label: (ms, matrix-product ms),
-    "busy": the step's device busy ms}}."""
+    "busy": the step's device busy ms, "wall": its wall ms, "rmsnorm":
+    the RMSNorm kernels' device ms}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -1756,7 +1905,10 @@ def lm_profile(torch, cfg, model, inputs, cache_len, label="lm",
             f"{sum(r.self_device_time_total for r in elem) / 1e3:.3f} ms "
             f"of the device's busy time")
         if spans:
-            by_span[what] = dict(span_times(prof, labels), busy=busy_ms)
+            by_span[what] = dict(
+                span_times(prof, labels), busy=busy_ms, wall=wall_ms,
+                rmsnorm=sum(r.self_device_time_total for r in rows
+                            if "rmsnorm" in r.key) / 1e3)
             log("  device ms in each span (all kernels / matrix products): "
                 + ", ".join(f"{lab} {t[0]:.3f} / {t[1]:.3f}"
                             for lab, t in by_span[what].items()
@@ -2001,8 +2153,9 @@ def moe_kernels(torch, ops, ref, dev):
     cfg = configs.get("qwen3-moe-30b-a3b")
     heads = (cfg.n_heads, cfg.n_kv_heads)
     shapes = rms_shapes(cfg, MOE_B, MOE_S, MOE_NEW)
-    err = check_lm_kernels(torch, ops, ref, dev, heads, sorted(shapes),
-                           "moe kernels")
+    flash, decode = lm_cases(*heads)
+    err = check_lm_kernels(torch, ops, ref, dev, (flash,), (decode,),
+                           sorted(shapes), "moe kernels")
     log("moe kernels, timed (bf16):")
     time_lm_kernels(torch, ops, ref, dev, heads)
     time_rmsnorm_shapes(torch, ops, dev, {"moe": shapes})
@@ -2200,34 +2353,34 @@ def moe_full_depth(torch, serve, lm, dev):
     return cfg, model, inputs, cache_len, feed
 
 
-def moe_truth(torch, lm, cfg, inputs, cache_len, feed, dev) -> None:
-    """Phase 16c, second half: at full width and ``MOE_TRUTH_LAYERS``
-    layers, each bf16 route against an fp32 plain run of the same
-    weights; the kernel route's mean logit error must be at most 1.1x
-    the plain route's."""
-    cfg = cfg.replace(n_layers=MOE_TRUTH_LAYERS)
+def truth(torch, lm, name, cfg, inputs, cache_len, feed, dev,
+          layers) -> None:
+    """At full width and ``layers`` layers (fresh weights from seed 0),
+    each bf16 route against an fp32 plain run of the same weights; the
+    kernel route's mean logit error must be at most 1.1x the plain
+    route's (phases 16c and 20)."""
+    cfg = cfg.replace(n_layers=layers)
     model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    out = {name: route_logits(lm, c, model, inputs, cache_len, feed)[0]
-           for name, c in (("kern", cfg),
-                           ("plain", cfg.replace(attn_impl="xla")))}
+    out = {n: route_logits(lm, c, model, inputs, cache_len, feed)[0]
+           for n, c in (("kern", cfg), ("plain", cfg.replace(attn_impl="xla")))}
     model = copy.deepcopy(model).float()
-    truth = route_logits(lm, cfg.replace(dtype="float32", attn_impl="xla"),
-                         model, inputs, cache_len, feed)[0]
+    ref_out = route_logits(lm, cfg.replace(dtype="float32", attn_impl="xla"),
+                           model, inputs, cache_len, feed)[0]
     del model
     torch.cuda.empty_cache()
-    err = {n: float(torch.stack([(a - b).abs() for a, b in zip(o, truth)]
+    err = {n: float(torch.stack([(a - b).abs() for a, b in zip(o, ref_out)]
                                 ).mean()) for n, o in out.items()}
-    worst = {n: max(float((a - b).abs().max()) for a, b in zip(o, truth))
+    worst = {n: max(float((a - b).abs().max()) for a, b in zip(o, ref_out))
              for n, o in out.items()}
-    log(f"moe parity (bfloat16, {MOE_TRUTH_LAYERS} layers) against fp32 from "
-        f"the same weights: "
+    log(f"{name} parity (bfloat16, {layers} layers) against fp32 from the "
+        f"same weights: "
         + "; ".join(f"{r} route max {worst[n]:.4g} mean {err[n]:.4g}"
                     for r, n in (("kernel", "kern"), ("plain", "plain")))
         + f"; mean ratio {err['kern'] / max(err['plain'], 1e-30):.4f} "
         f"(held at 1.1)")
     if err["kern"] > 1.1 * err["plain"]:
-        raise AssertionError("moe parity: the kernel route is less accurate "
-                             "than the plain route")
+        raise AssertionError(f"{name} parity: the kernel route is less "
+                             f"accurate than the plain route")
 
 
 def moe_profile(torch, lm, cfg, model, inputs, cache_len) -> None:
@@ -2251,6 +2404,137 @@ def moe_profile(torch, lm, cfg, model, inputs, cache_len) -> None:
             f"the SiLU), sort/gather/index and weighting {rest:.3f}, router "
             f"{t[router][0]:.3f}; the routed MLP {t[routed][0]:.3f} of the "
             f"step's busy {t['busy']:.3f}")
+
+
+def hybrid_encdec_kernels(torch, ops, ref, dev):
+    """Phase 18: phase 6's checks at the hybrid and enc-dec slices'
+    shapes (``HYB_FLASH``/``ENC_FLASH``, decode over each slice's cache
+    at ``HYB_POSITIONS``/``ENC_POSITIONS`` and forced split counts,
+    RMSNorm at every row shape of the hybrid path), fp32 and bf16 within
+    2e-5 / 2e-2; then each shape timed beside its bound and SDPA /
+    ``F.rms_norm`` → (max |kernel - plain| per kernel, the hybrid path's
+    RMSNorm row shapes with their launches)."""
+    from repro_torch import configs
+    hyb, enc = configs.get("zamba2-7b"), configs.get("whisper-small")
+    shapes = rms_shapes(hyb, HYB_B, HYB_S, HYB_NEW)
+    decode = {
+        "hybrid": (HYB_B, HYB_S + HYB_NEW, hyb.n_heads, hyb.n_kv_heads,
+                   hyb.hd, HYB_POSITIONS),
+        "enc-dec": (ENC_B, ENC_S + ENC_NEW, enc.n_heads, enc.n_kv_heads,
+                    enc.hd, ENC_POSITIONS)}
+    flash = {**HYB_FLASH, **ENC_FLASH}
+    err = check_lm_kernels(torch, ops, ref, dev, tuple(flash.values()),
+                           tuple(decode.values()), sorted(shapes),
+                           "hybrid/enc-dec kernels")
+    log("hybrid/enc-dec kernels, timed (bf16):")
+    for what, case in flash.items():
+        log(f" {what}:")
+        time_flash(torch, ops, ref, dev, *case)
+    for what, (B, smax, H, KV, hd, positions) in decode.items():
+        log(f" {what} decode:")
+        time_decode(torch, ops, ref, dev, B, smax, H, KV, hd, positions[-1])
+    time_rmsnorm_shapes(torch, ops, dev, {"hybrid": shapes})
+    return err, shapes
+
+
+def hybrid_profile(torch, lm, cfg, model, inputs, cache_len) -> None:
+    """Phase 23, hybrid half: one prefill and one decode step of the
+    full-depth bf16 zamba2 under torch.profiler (prefill must run
+    ``flash_attention_tc_kernel``, decode both decode kernels, neither
+    the scan), with the device time in the SSD (its intra-chunk mask and
+    exp, its carry, and the rest: the products, dt·x, the cumulative
+    sum), in the Mamba-2 blocks, in the shared block and in RMSNorm."""
+    from repro_torch.models import ssm
+    ssd, decay, carry, blocks, shared = (
+        "hybrid: SSD", "hybrid: SSD mask/exp", "hybrid: SSD carry",
+        "hybrid: Mamba-2 blocks", "hybrid: shared block")
+    spans = ((ssm, "_ssd_chunk", ssd), (ssm, "_ssd_decay", decay),
+             (ssm, "_ssd_carry", carry), (lm, "mamba2_block", blocks),
+             (lm, "attn_mlp_block", shared))
+    by_span = lm_profile(torch, cfg, model, inputs, cache_len, label="hybrid",
+                         expect=HYB_STEP_KERNELS, spans=spans)
+    for what, t in by_span.items():
+        rest = t[ssd][0] - t[decay][0] - t[carry][0]
+        log(f"hybrid profile ({what}), device ms over {cfg.n_layers} layers: "
+            f"SSD {t[ssd][0]:.3f} (mask/exp {t[decay][0]:.3f}, carry "
+            f"{t[carry][0]:.3f}, products and the rest {rest:.3f}); Mamba-2 "
+            f"blocks {t[blocks][0]:.3f} (matrix products {t[blocks][1]:.3f}); "
+            f"shared block {t[shared][0]:.3f} (matrix products "
+            f"{t[shared][1]:.3f}) over {cfg.n_attn_apps} applications; "
+            f"RMSNorm {t['rmsnorm']:.3f}; busy {t['busy']:.3f} of wall "
+            f"{t['wall']:.2f} (idle share {1 - t['busy'] / t['wall']:.4f})")
+
+
+def encdec_profile(torch, lm, cfg, model, inputs, cache_len) -> None:
+    """Phase 23, enc-dec half: one prefill and one decode step of
+    whisper-small under torch.profiler (prefill must run
+    ``flash_attention_tc_kernel``; decode both decode kernels and flash
+    for the cross-attention; no RMSNorm), with the device time in the
+    encoder, the decoder's self-attention and its cross-attention."""
+    encoder, self_attn, cross = ("whisper: encoder",
+                                 "whisper: decoder self-attention",
+                                 "whisper: cross-attention")
+    spans = ((lm, "encode", encoder), (lm, "attn_mlp_block", self_attn),
+             (lm, "_cross_attention", cross))
+    by_span = lm_profile(torch, cfg, model, inputs, cache_len,
+                         label="enc-dec", expect=ENC_STEP_KERNELS,
+                         spans=spans)
+    for what, t in by_span.items():
+        log(f"enc-dec profile ({what}), device ms: encoder {t[encoder][0]:.3f}"
+            f" (matrix products {t[encoder][1]:.3f}); decoder self-attention "
+            f"{t[self_attn][0]:.3f}; cross-attention {t[cross][0]:.3f} "
+            f"(matrix products {t[cross][1]:.3f}); busy {t['busy']:.3f} of "
+            f"wall {t['wall']:.2f} (idle share "
+            f"{1 - t['busy'] / t['wall']:.4f})")
+
+
+def hybrid_encdec_phases(torch, ops, ref, serve, lm, dev):
+    """Phases 18-23 → (max |kernel - plain| at their shapes, the hybrid
+    and the enc-dec slices' launch counts)."""
+    t_new = time.perf_counter()
+    new_err, hyb_rows = hybrid_encdec_kernels(torch, ops, ref, dev)
+    log(f"hybrid/enc-dec kernels (check-phase launches): "
+        f"{json.dumps(ops.launch_counts())}")
+
+    # --------------------------------------------------------- hybrid slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb_launches = serve_slice(torch, ops, serve, "hybrid", HYB_ARGS,
+                               hybrid_expect)
+    rms_counted(hyb_launches, hyb_rows, "hybrid")
+
+    # ------------------------------------------------- hybrid parity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, inputs, cache_len, feed, gates = parity(
+        torch, serve, lm, dev, "hybrid", HYB_ARGS, None, False,
+        fp32_layers=HYB_LAYERS)
+    del gates
+    hybrid_profile(torch, lm, cfg, model, inputs, cache_len)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    truth(torch, lm, "hybrid", cfg, inputs, cache_len, feed, dev, HYB_LAYERS)
+
+    # -------------------------------------------------------- enc-dec slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc_launches = serve_slice(torch, ops, serve, "enc-dec", ENC_ARGS,
+                               encdec_expect)
+
+    # ------------------------------------------------ enc-dec parity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, inputs, cache_len, feed, gates = parity(
+        torch, serve, lm, dev, "enc-dec", ENC_ARGS, 5e-2, True,
+        fp32_layers=None)
+    del gates
+    encdec_profile(torch, lm, cfg, model, inputs, cache_len)
+    log(f"hybrid/enc-dec phases 18-23 took {time.perf_counter() - t_new:.1f} "
+        f"s; max |kernel - plain| at their shapes {json.dumps(new_err)}; the "
+        f"slices' launches: hybrid {json.dumps(hyb_launches)}, enc-dec "
+        f"{json.dumps(enc_launches)}")
+    return new_err, hyb_launches, enc_launches
 
 
 def main() -> int:
@@ -2657,14 +2941,25 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    moe_truth(torch, lm, cfg, inputs, cache_len, feed, dev)
+    truth(torch, lm, "moe", cfg, inputs, cache_len, feed, dev,
+          MOE_TRUTH_LAYERS)
     log(f"moe phases 14-17 took {time.perf_counter() - t_moe:.1f} s; max "
         f"|kernel - plain| at the moe shapes {json.dumps(moe_err)}; the "
         f"slice's launches flash {moe_launches['flash_attention']}, decode "
         f"{moe_launches['decode_attention']}, rmsnorm "
         f"{moe_launches['fused_rmsnorm']}")
 
+    # ----------------------------------------------- hybrid and enc-dec slices
+    del cfg, inputs, cache_len, feed
+    gc.collect()                       # the MoE models are unreferenced now
+    torch.cuda.empty_cache()
+    new_err, hyb_launches, enc_launches = hybrid_encdec_phases(
+        torch, ops, ref, serve, lm, dev)
+
     # --------------------------------------------------------------- report
+    # the LM kernels' launches over every LM serving path's run
+    lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
+                enc_launches)
     rows = []
     for name in REPLACES:
         t = timings[name]
@@ -2677,8 +2972,10 @@ def main() -> int:
     for name, t in lm_timings.items():
         rows.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
-            "replaces": LM_REPLACES[name], "launches": lm_launches[name],
-            "max_abs_err": lm_err[name], "ms": t["ms"],
+            "replaces": LM_REPLACES[name],
+            "launches": sum(path[name] for path in lm_paths),
+            "max_abs_err": max(e[name] for e in (lm_err, moe_err, new_err)),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for name, steps in ssm_timing.items():

@@ -9,7 +9,12 @@ metrics, on the LM serving path.  It serves with
 ``attn_impl="pallas"``: on the card attention, the selective scan and
 every RMSNorm run the port's CUDA kernels, on the CPU (``--device
 cpu``) their plain versions; a moe arch routes its MLP through the
-sort formulation.  ``cache_len`` is unused by the ssm family.
+sort formulation.  A hybrid arch (zamba2) caches its conv windows,
+states and one k/v cache per application of its shared attention
+block; an encdec arch (whisper) encodes the synthetic batch's stub
+frames once per prefill and caches its cross-attention k/v.
+``cache_len`` is prompt + new tokens (+ the image patches of a vlm),
+as in the reference, and unused by the ssm family.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
@@ -23,6 +28,14 @@ sort formulation.  ``cache_len`` is unused by the ssm family.
       --device cpu
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
+  python -m repro_torch.launch.serve --arch zamba2-7b --reduced \\
+      --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --batch 8 --prompt-len 1024 --new-tokens 32        # on the card
+  python -m repro_torch.launch.serve --arch whisper-small --reduced \\
+      --device cpu
+  python -m repro_torch.launch.serve --arch whisper-small \\
+      --batch 8 --prompt-len 416 --new-tokens 32         # on the card
 
 ``main`` prints the reference's lines and returns the numbers.
 """

@@ -1,15 +1,25 @@
-"""Decoder LM for serving: the dense, vlm, moe and ssm (Mamba-1)
-families (counterpart of ``src/repro/models/lm.py``).
+"""LM for serving: the dense, vlm, moe, ssm (Mamba-1), hybrid (Mamba-2
+with a shared attention block) and encdec (whisper) families
+(counterpart of ``src/repro/models/lm.py``).
 
 The reference stacks per-layer params on a leading ``layers`` axis and
 scans over it; here the layers are an ``nn.ModuleList`` walked by a
 Python loop, each block a ``Leaves`` node with the reference's keys and
-leaf shapes, so ``from_reference`` only unstacks that axis.
+leaf shapes, so ``from_reference`` only unstacks that axis (of
+``layers``, or of ``enc_layers`` and ``dec_layers``).  The hybrid's
+``shared`` block has no layer axis: one ``Leaves`` node, applied before
+every ``shared_attn_every``-th layer.
 
-Cache (serving): ``{"k", "v": (L, B, cache_len, KV, hd), "pos": int}``,
-zero past the prompt, for attention (dense, vlm, moe); ``{"conv": (L,
-B, K-1, di) in the working dtype, "h": (L, B, di, N) fp32, "pos":
-int}`` for ssm, which ignores ``cache_len`` as the reference does.
+Caches (serving), zero past the prompt where they have a ``cache_len``
+axis:
+  dense/vlm/moe : {"k", "v": (L, B, cache_len, KV, hd), "pos"}
+  ssm           : {"conv": (L, B, K-1, di), "h": (L, B, di, N) fp32,
+                   "pos"}; ``cache_len`` unused, as in the reference
+  hybrid        : {"conv": (L, B, K-1, di+2N), "h": (L, B, H, P, N) fp32,
+                   "ak", "av": (n_attn_apps, B, cache_len, KV, hd), "pos"}
+  encdec        : {"k", "v": (L, B, cache_len, KV, hd), "ck", "cv": (L, B,
+                   F, KV, hd) (cross-attention, computed once at
+                   prefill), "pos"}
 ``pos`` stays a Python int on the host, so no decode step waits on the
 device to read it.
 Decode writes the new k/v rows, or the new conv window and state, into
@@ -19,11 +29,12 @@ advanced.
 
 ``cfg.attn_impl`` picks the kernels: ``"pallas"`` runs attention, the
 selective scan and every RMSNorm through ``kernels.ops``, ``"xla"``
-through the plain copies of the reference's routes.  A moe block's MLP
-is ``mlp.moe_mlp`` (``cfg.moe_impl="sort"``) or ``mlp.moe_mlp_gshard``
+through the plain copies of the reference's routes.  Layer norms (the
+encdec family's) and Mamba-2's SSD are plain on both routes: the
+reference has no kernel for either.  A moe block's MLP is
+``mlp.moe_mlp`` (``cfg.moe_impl="sort"``) or ``mlp.moe_mlp_gshard``
 (``"gshard"``) on either route; serving discards its load-balance term,
-as the reference's prefill and decode do.  The hybrid and encdec
-families are not ported yet (ROADMAP queue 1, item 10).
+as the reference's prefill and decode do.
 """
 from __future__ import annotations
 
@@ -34,73 +45,108 @@ from torch import nn
 from .attention import (attend_decode, attend_prefill, attn_params,
                         cache_update, o_project, qkv_project)
 from .cnn.zoo import resolve_device
-from .common import DTYPES, Init, Leaves, embed_lookup, lm_logits, norm
+from .common import (DTYPES, Init, Leaves, embed_lookup, layer_norm,
+                     lm_logits, norm)
 from .mlp import mlp, mlp_params, moe_mlp, moe_mlp_gshard, moe_params
-from .ssm import mamba1_block, mamba1_params
+from .ssm import mamba1_block, mamba1_params, mamba2_block, mamba2_params
 
-FAMILIES = ("dense", "vlm", "moe", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the stacked trees of the reference, each with its depth
+STACKS = {"layers": "n_layers", "enc_layers": "n_enc_layers",
+          "dec_layers": "n_layers"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1, item 10; the port serves the "
-            f"{', '.join(FAMILIES)} families)")
+            f"{cfg.name}: unknown family {cfg.family!r} (the port serves "
+            f"the {', '.join(FAMILIES)} families)")
 
 
 # --------------------------------------------------------------------------- #
 # Parameters
 # --------------------------------------------------------------------------- #
-def _norm_params(leaf, d: int) -> dict:
-    return {"scale": leaf((d,), "ones")}
+def _norm_params(leaf, d: int, bias: bool = False) -> dict:
+    p = {"scale": leaf((d,), "ones")}
+    if bias:
+        p["bias"] = leaf((d,), "zeros")
+    return p
+
+
+def _attn_block_params(cfg, leaf, bias_norm: bool = False) -> dict:
+    """The reference's ``_attn_block_params``: pre-norms (with a bias for
+    the encdec family's layer norms), attention and a dense MLP."""
+    return {"ln1": _norm_params(leaf, cfg.d_model, bias_norm),
+            "attn": attn_params(cfg, leaf),
+            "ln2": _norm_params(leaf, cfg.d_model, bias_norm),
+            "mlp": mlp_params(cfg, leaf)}
 
 
 def layer_params(cfg, leaf) -> dict:
     """One block: the reference's ``_attn_block_params`` (dense/vlm), its
-    moe layer (the same with a routed MLP) or its ssm layer (a norm and
-    a Mamba-1 mixer)."""
-    if cfg.family == "ssm":
+    moe layer (the same with a routed MLP) or its ssm / hybrid layer (a
+    norm and a Mamba-1 / Mamba-2 mixer)."""
+    if cfg.family in ("ssm", "hybrid"):
+        mixer = mamba1_params if cfg.family == "ssm" else mamba2_params
         return {"ln": _norm_params(leaf, cfg.d_model),
-                "mamba": mamba1_params(cfg, leaf)}
-    p = {"ln1": _norm_params(leaf, cfg.d_model),
-         "attn": attn_params(cfg, leaf),
-         "ln2": _norm_params(leaf, cfg.d_model)}
+                "mamba": mixer(cfg, leaf)}
     if cfg.family == "moe":
-        p["moe"] = moe_params(cfg, leaf)
-    else:
-        p["mlp"] = mlp_params(cfg, leaf)
-    return p
+        return {"ln1": _norm_params(leaf, cfg.d_model),
+                "attn": attn_params(cfg, leaf),
+                "ln2": _norm_params(leaf, cfg.d_model),
+                "moe": moe_params(cfg, leaf)}
+    return _attn_block_params(cfg, leaf)
 
 
 def build_params(cfg, leaf) -> dict:
-    """The reference's ``build_params`` tree, with ``layers`` a list of
+    """The reference's ``build_params`` tree, with each stacked tree
+    (``layers``; ``enc_layers`` and ``dec_layers`` for encdec) a list of
     per-layer trees instead of one stacked tree."""
     _check_family(cfg)
+    encdec = cfg.family == "encdec"
     tree: dict = {"embed": {"table": leaf((cfg.vocab, cfg.d_model),
                                           scale=0.02)}}
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": leaf((cfg.d_model, cfg.vocab))}
-    tree["final_norm"] = _norm_params(leaf, cfg.d_model)
+    tree["final_norm"] = _norm_params(leaf, cfg.d_model, encdec)
+    if encdec:
+        tree["enc_layers"] = [_attn_block_params(cfg, leaf, True)
+                              for _ in range(cfg.n_enc_layers)]
+        tree["dec_layers"] = [
+            {**_attn_block_params(cfg, leaf, True),
+             "ln_x": _norm_params(leaf, cfg.d_model, True),
+             "xattn": attn_params(cfg, leaf)}
+            for _ in range(cfg.n_layers)]
+        tree["enc_final_norm"] = _norm_params(leaf, cfg.d_model, True)
+        return tree
     tree["layers"] = [layer_params(cfg, leaf) for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        tree["shared"] = _attn_block_params(cfg, leaf)
     return tree
 
 
 class LM(nn.Module):
     """Embedding, blocks, final norm and the optional untied head, as
-    frozen parameters; the forward functions below run it."""
+    frozen parameters (plus the hybrid's ``shared`` block, or the encdec
+    family's ``enc_layers``, ``dec_layers`` and ``enc_final_norm``); the
+    forward functions below run it."""
 
     def __init__(self, cfg, tree: dict):
         super().__init__()
         _check_family(cfg)
-        if len(tree["layers"]) != cfg.n_layers:
-            raise ValueError(f"{len(tree['layers'])} layers for "
-                             f"{cfg.name}'s {cfg.n_layers}")
         self.cfg = cfg
         self.embed = Leaves(tree["embed"])
-        self.layers = nn.ModuleList(Leaves(p) for p in tree["layers"])
+        for name, depth in STACKS.items():
+            if name not in tree:
+                continue
+            n = getattr(cfg, depth)
+            if len(tree[name]) != n:
+                raise ValueError(f"{len(tree[name])} {name} for "
+                                 f"{cfg.name}'s {n}")
+            setattr(self, name, nn.ModuleList(Leaves(p) for p in tree[name]))
         self.final_norm = Leaves(tree["final_norm"])
-        self.lm_head = Leaves(tree["lm_head"]) if "lm_head" in tree else None
+        for name in ("lm_head", "shared", "enc_final_norm"):
+            setattr(self, name, Leaves(tree[name]) if name in tree else None)
 
     @property
     def device(self) -> torch.device:
@@ -121,12 +167,13 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
 
 def from_reference(cfg, params_np: dict, device=None) -> LM:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as a
-    port ``LM`` on ``device``: the stacked ``layers`` axis is split into
-    per-block nodes (a moe block's expert stacks included), every leaf
-    keeps its shape and dtype (a moe router stays fp32 in a bf16 tree).
-    bf16 leaves arrive as numpy's ``bfloat16`` extension type and are
-    widened to fp32 on the host, then narrowed back on the device (exact
-    both ways)."""
+    port ``LM`` on ``device``: each stacked tree's layer axis is split
+    into per-block nodes (a moe block's expert stacks included); the
+    hybrid's ``shared`` block, which has none, converts whole.  Every
+    leaf keeps its shape and dtype (a moe router stays fp32 in a bf16
+    tree).  bf16 leaves arrive as numpy's ``bfloat16`` extension type
+    and are widened to fp32 on the host, then narrowed back on the
+    device (exact both ways)."""
     dev = resolve_device(device)
 
     def tensor(a) -> torch.Tensor:
@@ -146,19 +193,29 @@ def from_reference(cfg, params_np: dict, device=None) -> LM:
             return {k: layer(v, i) for k, v in node.items()}
         return tensor(np.asarray(node)[i])
 
-    tree = {k: convert(v) for k, v in params_np.items() if k != "layers"}
-    tree["layers"] = [layer(params_np["layers"], i)
-                      for i in range(cfg.n_layers)]
+    tree = {k: convert(v) for k, v in params_np.items() if k not in STACKS}
+    for name, depth in STACKS.items():
+        if name in params_np:
+            tree[name] = [layer(params_np[name], i)
+                          for i in range(getattr(cfg, depth))]
     return LM(cfg, tree)
 
 
 # --------------------------------------------------------------------------- #
 # Blocks and trunk
 # --------------------------------------------------------------------------- #
-def _attention(cfg, p, x, positions, kv_cache, pos):
-    """The pre-norm attention half of a block → (x, (k, v)): the
-    prompt's k/v in prefill, the updated caches in decode."""
-    h = norm(cfg, x, p.ln1.scale)
+def _pre_norm(cfg, x, q, bias_norm: bool):
+    """A block's pre-norm: the encdec family's layer norm with a bias
+    (plain on both routes), else RMSNorm as ``cfg.attn_impl`` picks it."""
+    if bias_norm:
+        return layer_norm(x, q.scale, q.bias, cfg.norm_eps)
+    return norm(cfg, x, q.scale)
+
+
+def _attention(cfg, p, x, positions, kv_cache, pos, bias_norm=False):
+    """The pre-norm causal self-attention half of a block → (x, (k, v)):
+    the prompt's k/v in prefill, the updated caches in decode."""
+    h = _pre_norm(cfg, x, p.ln1, bias_norm)
     q, k, v = qkv_project(cfg, p.attn, h, positions)
     if kv_cache is not None:
         kc, vc = cache_update(*kv_cache, k, v, pos)
@@ -170,13 +227,17 @@ def _attention(cfg, p, x, positions, kv_cache, pos):
     return x + o_project(p.attn, o), new_kv
 
 
-def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
+def attn_mlp_block(cfg, p, x, positions, *, kv_cache=None, pos=None,
+                   bias_norm=False, with_mlp=True):
     """Standard pre-norm transformer block (the reference's
-    ``_attn_mlp_block`` without the layer-norm variant).  Returns
-    (x, (k, v)): the prompt's k/v in prefill, the updated caches in
-    decode."""
-    x, new_kv = _attention(cfg, p, x, positions, kv_cache, pos)
-    h2 = norm(cfg, x, p.ln2.scale)
+    ``_attn_mlp_block``): RMSNorm, or with ``bias_norm`` the layer norm
+    with a bias; ``with_mlp=False`` stops after the attention (the
+    reference passes a tree without ``mlp``).  Returns (x, (k, v)): the
+    prompt's k/v in prefill, the updated caches in decode."""
+    x, new_kv = _attention(cfg, p, x, positions, kv_cache, pos, bias_norm)
+    if not with_mlp:
+        return x, new_kv
+    h2 = _pre_norm(cfg, x, p.ln2, bias_norm)
     return x + mlp(cfg, p.mlp, h2), new_kv
 
 
@@ -199,27 +260,51 @@ def _serving_block(cfg, p, x, positions, **kw):
 
 
 def ssm_block(cfg, p, x, cache=None, h_out=None):
-    """Pre-norm Mamba-1 block (the reference's ``_ssm_block``).  Returns
-    (x, {"conv", "h"}); the state goes into ``h_out`` when given."""
+    """Pre-norm Mamba-1 (ssm) or Mamba-2 (hybrid) block (the reference's
+    ``_ssm_block``).  Returns (x, {"conv", "h"}); the state goes into
+    ``h_out`` when given."""
     h = norm(cfg, x, p.ln.scale)
-    y, new_cache = mamba1_block(cfg, p.mamba, h, cache, h_out)
+    block = mamba1_block if cfg.family == "ssm" else mamba2_block
+    y, new_cache = block(cfg, p.mamba, h, cache, h_out)
     return x + y, new_cache
+
+
+def _ssm_cache(cfg, B: int, dtype, device) -> dict:
+    """Empty per-layer conv windows and fp32 states of an ssm or hybrid
+    trunk, for prefill to fill."""
+    L, K = cfg.n_layers, cfg.ssm_conv
+    if cfg.family == "ssm":
+        conv, state = cfg.d_inner, (cfg.d_inner, cfg.ssm_state)
+    else:
+        conv = cfg.d_inner + 2 * cfg.ssm_state
+        state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    return {"conv": torch.empty((L, B, K - 1, conv), dtype=dtype,
+                                device=device),
+            "h": torch.empty((L, B, *state), dtype=torch.float32,
+                             device=device)}
 
 
 def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
     """x: (B, S, D) → (hidden, cache); ``cache_len >= S`` (unused by
-    ssm)."""
+    ssm).  The hybrid runs the shared block before every
+    ``shared_attn_every``-th layer, its k/v into that application's slot
+    of ``ak``/``av``."""
     B, S, _ = x.shape
-    if cfg.family == "ssm":
-        L, K, di = cfg.n_layers, cfg.ssm_conv, cfg.d_inner
-        convs = torch.empty((L, B, K - 1, di), dtype=x.dtype,
-                            device=x.device)
-        hs = torch.empty((L, B, di, cfg.ssm_state), dtype=torch.float32,
-                         device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        cache = _ssm_cache(cfg, B, x.dtype, x.device)
+        if cfg.family == "hybrid":
+            shape = (cfg.n_attn_apps, B, cache_len, cfg.n_kv_heads, cfg.hd)
+            cache["ak"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            cache["av"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        every = cfg.shared_attn_every
         for i, p in enumerate(model.layers):
-            x, new = ssm_block(cfg, p, x, h_out=hs[i])
-            convs[i] = new["conv"]
-        return x, {"conv": convs, "h": hs, "pos": S}
+            if cfg.family == "hybrid" and i % every == 0:
+                x, (k, v) = attn_mlp_block(cfg, model.shared, x, positions)
+                cache["ak"][i // every, :, :S] = k
+                cache["av"][i // every, :, :S] = v
+            x, new = ssm_block(cfg, p, x, h_out=cache["h"][i])
+            cache["conv"][i] = new["conv"]
+        return x, {**cache, "pos": S}
     shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -232,17 +317,24 @@ def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
 
 def trunk_decode(cfg, model: LM, x, cache: dict):
     """x: (B, 1, D) → (hidden, cache) with the new row written at
-    ``cache["pos"]`` of every layer (ssm: each layer's conv window and
-    state updated in place)."""
+    ``cache["pos"]`` of every layer (ssm, hybrid: each layer's conv
+    window and state updated in place; the hybrid's shared block writes
+    its row into its application's ``ak``/``av``)."""
     pos = cache["pos"]
-    if cfg.family == "ssm":
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.shared_attn_every
         for i, p in enumerate(model.layers):
+            if cfg.family == "hybrid" and i % every == 0:
+                app = i // every
+                x, _ = attn_mlp_block(
+                    cfg, model.shared, x, positions,
+                    kv_cache=(cache["ak"][app], cache["av"][app]), pos=pos)
             x, new = ssm_block(cfg, p, x, {"conv": cache["conv"][i],
                                            "h": cache["h"][i]},
                                h_out=cache["h"][i])
             cache["conv"][i] = new["conv"]
-        return x, {"conv": cache["conv"], "h": cache["h"], "pos": pos + 1}
-    positions = torch.arange(pos, pos + 1, device=x.device)
+        return x, {**cache, "pos": pos + 1}
     for i, p in enumerate(model.layers):
         x, _ = _serving_block(cfg, p, x, positions,
                               kv_cache=(cache["k"][i], cache["v"][i]),
@@ -259,12 +351,93 @@ def embed_inputs(cfg, model: LM, inputs: dict) -> torch.Tensor:
 
 
 def final_hidden(cfg, model: LM, x):
-    return norm(cfg, x, model.final_norm.scale)
+    fn = model.final_norm
+    if cfg.family == "encdec":
+        return layer_norm(x, fn.scale, fn.bias, cfg.norm_eps)
+    return norm(cfg, x, fn.scale)
 
 
 def _logits(model: LM, x):
     head = model.lm_head.w if model.lm_head is not None else None
     return lm_logits(x, model.embed.table, head)
+
+
+# --------------------------------------------------------------------------- #
+# Whisper enc-dec
+# --------------------------------------------------------------------------- #
+def encode(cfg, model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, F, D), the stub conv frontend's output → the encoder's
+    hidden states: non-causal pre-layer-norm blocks (RoPE on q/k, as in
+    the reference), then ``enc_final_norm``."""
+    x = frames.to(torch.bfloat16 if cfg.dtype == "bfloat16"
+                  else torch.float32)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in model.enc_layers:
+        h = layer_norm(x, p.ln1.scale, p.ln1.bias, cfg.norm_eps)
+        q, k, v = qkv_project(cfg, p.attn, h, positions)
+        x = x + o_project(p.attn, attend_prefill(cfg, q, k, v, causal=False))
+        h2 = layer_norm(x, p.ln2.scale, p.ln2.bias, cfg.norm_eps)
+        x = x + mlp(cfg, p.mlp, h2)
+    fn = model.enc_final_norm
+    return layer_norm(x, fn.scale, fn.bias, cfg.norm_eps)
+
+
+def _cross_attention(cfg, p, x, enc_or_ckv):
+    """A decoder layer's cross-attention (no RoPE): its k/v from the
+    encoder's hidden states, or the cached ``(ck, cv)`` → (x, (ck, cv)).
+    It goes through prefill attention, non-causal, also for the one
+    query row of a decode step, as in the reference."""
+    h = layer_norm(x, p.ln_x.scale, p.ln_x.bias, cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p.xattn.wq)
+    if isinstance(enc_or_ckv, tuple):
+        ck, cv = enc_or_ckv
+    else:
+        ck = torch.einsum("bfd,dhk->bfhk", enc_or_ckv, p.xattn.wk)
+        cv = torch.einsum("bfd,dhk->bfhk", enc_or_ckv, p.xattn.wv)
+    o = attend_prefill(cfg, q, ck, cv, causal=False)
+    return x + o_project(p.xattn, o), (ck, cv)
+
+
+def dec_layer(cfg, p, x, enc_or_ckv, positions, kv_cache=None, pos=None):
+    """The reference's ``_dec_layer``: causal self-attention, cross-
+    attention, the MLP, each behind its layer norm → (x, (k, v), (ck,
+    cv))."""
+    x, new_kv = attn_mlp_block(cfg, p, x, positions, kv_cache=kv_cache,
+                               pos=pos, bias_norm=True, with_mlp=False)
+    x, ckv = _cross_attention(cfg, p, x, enc_or_ckv)
+    h2 = layer_norm(x, p.ln2.scale, p.ln2.bias, cfg.norm_eps)
+    return x + mlp(cfg, p.mlp, h2), new_kv, ckv
+
+
+def decoder_prefill(cfg, model: LM, tokens, enc, cache_len: int):
+    """tokens: (B, S); enc: (B, F, D) → (hidden before the final norm,
+    cache); the cross k/v of every layer are cached once, here."""
+    B, S = tokens.shape
+    x = embed_lookup(model.embed.table, tokens)
+    positions = torch.arange(S, device=x.device)
+    L, F, KV, hd = cfg.n_layers, enc.shape[1], cfg.n_kv_heads, cfg.hd
+    ks = torch.zeros((L, B, cache_len, KV, hd), dtype=x.dtype,
+                     device=x.device)
+    vs = torch.zeros_like(ks)
+    cks = torch.empty((L, B, F, KV, hd), dtype=x.dtype, device=x.device)
+    cvs = torch.empty_like(cks)
+    for i, p in enumerate(model.dec_layers):
+        x, (k, v), (ck, cv) = dec_layer(cfg, p, x, enc, positions)
+        ks[i, :, :S], vs[i, :, :S], cks[i], cvs[i] = k, v, ck, cv
+    return x, {"k": ks, "v": vs, "ck": cks, "cv": cvs, "pos": S}
+
+
+def decoder_decode(cfg, model: LM, token, cache: dict):
+    """token: (B, 1) → (hidden before the final norm, cache) with the
+    step's self-attention k/v written in place at ``cache["pos"]``."""
+    x = embed_lookup(model.embed.table, token)
+    pos = cache["pos"]
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    for i, p in enumerate(model.dec_layers):
+        x, _, _ = dec_layer(cfg, p, x, (cache["ck"][i], cache["cv"][i]),
+                            positions,
+                            kv_cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    return x, {**cache, "pos": pos + 1}
 
 
 # --------------------------------------------------------------------------- #
@@ -275,10 +448,16 @@ def forward_prefill(cfg, model: LM, inputs: dict,
                     cache_len: int | None = None):
     """→ (last-token logits fp32 (B, 1, V), cache)."""
     _check_family(cfg)
-    x = embed_inputs(cfg, model, inputs)
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)
-    x, cache = trunk_prefill(cfg, model, x, positions, cache_len or S)
+    if cfg.family == "encdec":
+        tokens = inputs["tokens"]
+        enc = encode(cfg, model, inputs["frames"])
+        x, cache = decoder_prefill(cfg, model, tokens, enc,
+                                   cache_len or tokens.shape[1])
+    else:
+        x = embed_inputs(cfg, model, inputs)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        x, cache = trunk_prefill(cfg, model, x, positions, cache_len or S)
     x = final_hidden(cfg, model, x[:, -1:])
     return _logits(model, x), cache
 
@@ -286,9 +465,12 @@ def forward_prefill(cfg, model: LM, inputs: dict,
 @torch.no_grad()
 def forward_decode(cfg, model: LM, token: torch.Tensor, cache: dict):
     """token: (B, 1) int → (logits fp32 (B, 1, V), cache).  Writes the
-    step's k/v into ``cache``'s tensors in place."""
+    step's k/v (or state) into ``cache``'s tensors in place."""
     _check_family(cfg)
-    x = embed_lookup(model.embed.table, token)
-    x, cache = trunk_decode(cfg, model, x, cache)
+    if cfg.family == "encdec":
+        x, cache = decoder_decode(cfg, model, token, cache)
+    else:
+        x = embed_lookup(model.embed.table, token)
+        x, cache = trunk_decode(cfg, model, x, cache)
     x = final_hidden(cfg, model, x)
     return _logits(model, x), cache

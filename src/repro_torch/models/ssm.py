@@ -1,7 +1,7 @@
-"""Selective state-space blocks: Mamba-1 (falcon-mamba) (counterpart of
-``src/repro/models/ssm.py``).
+"""Selective state-space blocks: Mamba-1 (falcon-mamba) and Mamba-2
+(zamba2) (counterpart of ``src/repro/models/ssm.py``).
 
-``cfg.attn_impl`` picks the route of the recurrence, as it does for
+``cfg.attn_impl`` picks the route of Mamba-1's recurrence, as it does for
 attention and RMSNorm: ``"pallas"`` runs every chunk, and the decode
 step, through ``ops.mamba1_scan_chunk`` (the CUDA kernel on the card, its
 plain version on the CPU), which also takes the dt softplus, the D-skip
@@ -12,13 +12,16 @@ is the reference's one-step formula), with those steps as separate
 tensor ops.  (The reference declares the switch but always takes the
 latter.)
 
+Mamba-2's SSD (``_ssd_chunk``) is the reference's chunked matrix form in
+plain tensor ops on both routes, as the reference computes it in plain
+jnp and has no kernel for it; its decode step is the reference's
+one-step formula.  Under ``"pallas"`` only its gated RMSNorm changes
+route (``common.norm``, the fused kernel).
+
 Chunking is the reference's: ``L = min(cfg.ssm_chunk, S)``, and ``L =
 S`` when ``S`` is not a multiple of it.  Dtypes follow the reference
 along the block: projections and the conv in the working dtype, ``dt``
 and the state in fp32, the gate rounded back to the working dtype.
-
-Mamba-2 (the hybrid family, zamba2) is not ported yet (ROADMAP queue 1,
-item 10).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import silu, softplus
+from .common import norm, silu, softplus
 
 
 # --------------------------------------------------------------------------- #
@@ -178,20 +181,123 @@ def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
 
 
 # --------------------------------------------------------------------------- #
-# Mamba-2 (SSD): not ported yet
+# Mamba-2 (SSD)
 # --------------------------------------------------------------------------- #
-def _mamba2_not_ported():
-    raise NotImplementedError("Mamba-2 (the hybrid family) is not ported "
-                              "yet (ROADMAP queue 1, item 10)")
-
-
 def mamba2_params(cfg, leaf) -> dict:
-    _mamba2_not_ported()
+    """``leaf``: a ``common.Init``.  The reference's leaves, shapes,
+    scales and dtypes: ``in_proj`` projects to ``z | x B C | dt``, the
+    conv runs over the ``di + 2N`` channels of ``x B C``; ``A_log``
+    (``log(linspace(1, 16, H))``), ``D`` and ``dt_bias`` are per head and
+    fp32 in any model; ``norm`` scales the gated RMSNorm."""
+    D, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    H = cfg.ssm_heads
+    d_xbc = di + 2 * N
+
+    def a_init(shape, dtype, device):
+        a = torch.linspace(1.0, 16.0, H, dtype=torch.float32, device=device)
+        return torch.log(a).to(dtype)
+
+    f32 = torch.float32
+    return {"in_proj": leaf((D, 2 * di + 2 * N + H)),
+            "conv_w": leaf((d_xbc, K)),
+            "conv_b": leaf((d_xbc,), "zeros"),
+            "A_log": leaf((H,), a_init, dtype=f32),
+            "D": leaf((H,), "ones", dtype=f32),
+            "dt_bias": leaf((H,), "zeros", dtype=f32),
+            "norm": leaf((di,), "ones"),
+            "out_proj": leaf((di, D))}
 
 
-def _ssd_chunk(cfg, dt, zlog, x, B_, C_, h0):
-    _mamba2_not_ported()
+def _ssd_decay(Scum: torch.Tensor, C_c: torch.Tensor, B_c: torch.Tensor,
+               tri: torch.Tensor) -> torch.Tensor:
+    """A chunk's intra-chunk weights ``att[b,t,s,h] = exp(S_t - S_s) ·
+    (C_t · B_s)`` for ``s <= t``, 0 above the diagonal.  The mask goes in
+    before the exp, as in the reference (an upper-triangle exponent is
+    positive and would overflow)."""
+    f32 = torch.float32
+    cb = torch.einsum("btn,bsn->bts", C_c.to(f32), B_c.to(f32))
+    dec = Scum[:, :, None, :] - Scum[:, None, :, :]          # (B,t,s,H)
+    w = torch.exp(torch.where(tri, dec, float("-inf")))
+    return cb[..., None] * w
 
 
-def mamba2_block(cfg, p, x, cache=None):
-    _mamba2_not_ported()
+def _ssd_carry(h: torch.Tensor, Scum: torch.Tensor, C_c: torch.Tensor,
+               B_c: torch.Tensor, dtx: torch.Tensor):
+    """The state's share of a chunk: the carry-in term ``exp(S_t) · (C_t
+    · h)`` of every step's y, and the new carry ``exp(S_L) · h + Σ_s
+    exp(S_L - S_s) B_s ⊗ dtx_s`` → (y_in (B,L,H,P), h (B,H,P,N))."""
+    f32 = torch.float32
+    y_in = torch.einsum("btn,bhpn->bthp", C_c.to(f32), h) \
+        * torch.exp(Scum)[..., None]
+    wL = torch.exp(Scum[:, -1:, :] - Scum)                    # (B,L,H)
+    h_new = h * torch.exp(Scum[:, -1])[..., None, None] + torch.einsum(
+        "bsn,bshp,bsh->bhpn", B_c.to(f32), dtx, wL)
+    return y_in, h_new
+
+
+def _ssd_chunk(cfg, dt: torch.Tensor, zlog: torch.Tensor, x: torch.Tensor,
+               B_: torch.Tensor, C_: torch.Tensor, h0: torch.Tensor):
+    """Chunked SSD (the reference's ``_ssd_chunk``).  dt: (B,S,H) fp32
+    input scale; zlog = dt·A <= 0, the decay exponent; x: (B,S,H,P);
+    B_, C_: (B,S,N); h0: (B,H,P,N) → (y (B,S,H,P) fp32, h (B,H,P,N)
+    fp32).  Within a chunk the recurrence is the matrix form: weights
+    from the cumulative decay ``Scum`` (fp32) times ``dt·x``; across
+    chunks the state carries."""
+    Bb, S, H, P = x.shape
+    L = min(cfg.ssm_chunk, S)
+    if S % L != 0:
+        L = S
+    tri = torch.ones((L, L), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    h = h0.to(torch.float32)
+    ys = []
+    for c0 in range(0, S, L):
+        c = slice(c0, c0 + L)
+        C_c, B_c = C_[:, c], B_[:, c]
+        Scum = torch.cumsum(zlog[:, c], dim=1)                # (B,L,H)
+        att = _ssd_decay(Scum, C_c, B_c, tri)
+        dtx = dt[:, c, :, None] * x[:, c].to(torch.float32)   # (B,L,H,P)
+        y_in, h = _ssd_carry(h, Scum, C_c, B_c, dtx)
+        ys.append(torch.einsum("btsh,bshp->bthp", att, dtx) + y_in)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
+                 h_out: torch.Tensor | None = None):
+    """x: (B, S, D).  ``cache``: None (prefill from scratch) or
+    ``{"conv": (B,K-1,di+2N), "h": (B,H,P,N)}`` for a one-token decode
+    step.  → (out (B, S, D), {"conv", "h"}); the state goes into
+    ``h_out`` when one is given.  The SSD is the same plain code on both
+    routes (the reference has no kernel for it); under ``"pallas"`` the
+    gated RMSNorm runs the fused kernel."""
+    B, S, _ = x.shape
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    f32 = torch.float32
+    zxbcdt = torch.einsum("bsd,de->bse", x, p.in_proj)
+    z, xBC, dt_raw = zxbcdt.split([di, di + 2 * N, H], dim=-1)
+    conv_in = cache["conv"] if cache is not None else None
+    xBC, conv_out = causal_conv(xBC, p.conv_w, p.conv_b, conv_in)
+    xBC = silu(xBC)
+    xr, B_, C_ = xBC.split([di, N, N], dim=-1)
+    xh = xr.reshape(B, S, H, P)
+    A = -torch.exp(p.A_log.to(f32))                           # (H,)
+    dt = softplus(dt_raw.to(f32) + p.dt_bias)                 # (B,S,H)
+    zlog = dt * A                                             # decay exponent
+    h0 = cache["h"] if cache is not None else torch.zeros(
+        (B, H, P, N), dtype=f32, device=x.device)
+    if S == 1 and cache is not None:
+        # decode: one recurrence step
+        dA = torch.exp(zlog[:, 0])                            # (B,H)
+        dtx = dt[:, 0, :, None] * xh[:, 0].to(f32)            # (B,H,P)
+        h = h0 * dA[..., None, None] + torch.einsum(
+            "bn,bhp->bhpn", B_[:, 0].to(f32), dtx)
+        y = torch.einsum("bn,bhpn->bhp", C_[:, 0].to(f32), h)[:, None]
+    else:
+        y, h = _ssd_chunk(cfg, dt, zlog, xh, B_, C_, h0)
+    if h_out is not None:
+        h = h_out.copy_(h)
+    y = (y + xh.to(f32) * p.D[:, None]).reshape(B, S, di)
+    # y·silu(z) is rounded to the working dtype before the norm
+    y = norm(cfg, (y * silu(z).to(f32)).to(x.dtype), p.norm)
+    out = torch.einsum("bsc,cd->bsd", y, p.out_proj)
+    return out, {"conv": conv_out, "h": h}

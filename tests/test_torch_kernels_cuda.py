@@ -203,6 +203,8 @@ def _randn(shape, dtype, cuda, seed):
     (1, 256, 256, 48, 1, 128, True),     # granite-20b's MQA group, G = 48
     (2, 333, 333, 4, 2, 64, False),      # S not a multiple of 128
     (1, 77, 300, 4, 2, 128, True),       # causal, S < T, ragged
+    (8, 1, 1500, 12, 12, 64, False),     # whisper's cross-attention decode
+    (8, 1024, 1024, 32, 32, 112, True),  # zamba2's shared block, prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, S, T, H, KV, hd, causal,
@@ -224,6 +226,7 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, KV, hd, causal,
     (8, 16, 8, 128, 1056, 1055),
     (2, 8, 1, 128, 256, 100),            # MQA, G = 8
     (2, 4, 4, 96, 77, 76),               # ragged Smax, full cache
+    (8, 32, 32, 112, 1056, 1055),        # zamba2's shared block, decode
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(B, H, KV, hd, Smax, pos,

@@ -150,11 +150,15 @@ def test_init_draws_the_reference_scales(name):
                        getattr(model.layers[1], ffn).w_up)
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "whisper-small"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        lm.init(configs.reduced(name), torch.Generator().manual_seed(0),
-                "cpu")
+def test_unknown_family_raises():
+    cfg = configs.reduced("qwen3-1.7b").replace(family="rnn")
+    with pytest.raises(NotImplementedError, match="unknown family 'rnn'"):
+        lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = lm.init(configs.reduced("qwen3-1.7b"),
+                    torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        lm.forward_prefill(cfg, model, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)})
 
 
 def test_configs_are_the_reference_configs():

@@ -534,8 +534,3 @@ def test_serve_main_runs_falcon_mamba_on_the_cpu(capsys):
     assert res["device"] == "cpu"
     assert sum(ops.launch_counts().values()) == 0
     assert "prefill latency:" in capsys.readouterr().out
-
-
-def test_mamba2_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        ssm.mamba2_block(configs.reduced("zamba2-7b"), None, None)
