@@ -248,10 +248,51 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              block and RMSNorm; whisper's with the encoder, the decoder's
              self-attention and the cross-attention (decode also runs
              flash for its one-row cross-attention; no RMSNorm); busy time
-             and idle share beside each.
+             and idle share beside each;
+24. train parity — the port's training step (``runtime.steps``: the
+             chunked CE, AdamW with clipping and the cosine schedule) on
+             the card held to the same step on the CPU from the same
+             weights (drawn on the CPU, then copied) and batch: qwen3-1.7b
+             at full width, 2 layers, fp32, batch 2, seq 256 (the loss and
+             metrics within 1e-5, every gradient leaf within 1e-4 of its
+             largest magnitude, every parameter within 1e-2 of the
+             learning rate but for at most 1e-3 of a leaf's elements,
+             none beyond 2 lr), then every family's reduced config, held
+             alike; no kernel launches; a train step of a config with
+             ``attn_impl="pallas"`` must raise on the card before anything
+             launches; bf16 at 2 layers against fp32, the loss within
+             5e-2; the bf16 head's backward at those 2 layers against the
+             reference's fp32 transpose (each gradient the fp32 product
+             rounded to bf16 but for 1e-3 of its elements, all within one
+             ulp);
+25. train slice — qwen3-1.7b at full width and depth through the
+             launcher's own ``setup`` and numerics (``launch.train``:
+             from phase 24 on, torch's deterministic algorithms, with
+             cuBLAS's workspace set at the top of the script), bf16, remat on,
+             batch 8, seq 2048 (two CE chunks of 1024), one warm-up and
+             six timed steps on one batch: every loss finite and the last
+             below the first, no kernel launched; step ms (median),
+             tokens/s, model FLOPs a step and their share of 989 TFLOP/s,
+             peak allocated memory and the optimizer's share of the step
+             printed (the batch halves if the warm-up passes 75 GiB);
+26. resume drill — ``python -m repro_torch.launch.train --reduced
+             --device cuda`` as three processes: uninterrupted, crashed
+             at step 10 (exit 42), resumed from step 8: the resumed
+             losses must be the uninterrupted run's bit for bit; then a
+             bf16 checkpoint of qwen3-1.7b at full width and 2 layers,
+             after one step, restores every leaf ``torch.equal``;
+27. train profile — one full-depth train step under ``torch.profiler``:
+             device busy against wall time, the idle share, the device ms
+             in matrix products and elementwise kernels, in the forward,
+             the backward and the remat recompute inside it, and by span
+             in the optimizer, the CE chunks and the blocks; the CE alone
+             timed with CUDA events (full table in
+             ``chiprun_out/train_profile.txt``).
 
 The kernel table's LM rows count the launches of every LM serving path
-(phases 7, 11, 15, 19 and 21).  The rows for the two scan entries carry their
+(phases 7, 11, 15, 19 and 21); every row's ``train_launches`` counts
+those of the training slice (phase 25), 0 for each: training runs the
+plain route.  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
 last three lines of
 standard output are the kernel table (JSON), the
@@ -274,6 +315,10 @@ import time
 import types
 from concurrent.futures import ThreadPoolExecutor
 
+# the training launcher's cuBLAS workspace (``launch.train.CUBLAS_WORKSPACE``),
+# without which torch's deterministic algorithms refuse cuBLAS; cuBLAS
+# reads it when CUDA starts, so it is set before anything touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -343,6 +388,40 @@ HYB_LAYERS = 8
 ENC_B, ENC_S, ENC_NEW = 8, 416, 32
 ENC_ARGS = ["--arch", "whisper-small", "--batch", str(ENC_B), "--prompt-len",
             str(ENC_S), "--new-tokens", str(ENC_NEW), "--seed", "0"]
+# the training phases: qwen3-1.7b, the LM slice's model, trained on the
+# plain route (the kernels have no backward) with AdamW, clipping and the
+# cosine schedule at a peak learning rate of 3e-4
+TRAIN_ARCH, TRAIN_LR = "qwen3-1.7b", 3e-4
+# phase 24: the card's train step held to the CPU's at full width, 2
+# layers, fp32, batch 2, seq 256 (the CPU side takes seconds), and at
+# every family's reduced size; a gradient leaf within 1e-4 of its largest
+# magnitude (fp32 sums in other orders: over the 151936-word vocabulary
+# and d_model 2048 at full width, through the SSD's exponentials of
+# cumulative sums in the hybrid); bf16 at 2 layers against fp32, the loss
+# (about 12.4) within 5e-2
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 2, 256
+TRAIN_GRAD_FRAC, TRAIN_BF16_TOL = 1e-4, 5e-2
+# the bf16 head's backward: each gradient the reference's fp32 product
+# rounded to bf16 in all but this share of its elements
+TRAIN_PRODUCT_SHARE = 1e-3
+TRAIN_FAMILIES = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
+                  "moe": "qwen3-moe-30b-a3b", "ssm": "falcon-mamba-7b",
+                  "hybrid": "zamba2-7b", "encdec": "whisper-small"}
+# phase 25: full width and depth, bf16, remat on, batch 8, seq 2048 (two
+# CE chunks of 1024: at 1024 the CE would take the dense (8, 1024,
+# 151936) fp32 logits), one warm-up and six timed steps on one batch; the
+# batch halves if the warm-up's peak passes 75 GiB
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 8, 2048, 1, 6
+TRAIN_PEAK_GIB = 75
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_S), "--lr",
+              str(TRAIN_LR), "--warmup", "1", "--seed", "0",
+              "--device", "cuda"]
+# phase 26: the launcher's crash drill on the card (reduced qwen3-1.7b,
+# compression on), killed at step 10 of 12 and resumed from step 8
+DRILL_STEPS, DRILL_FAIL = 12, 10
+DRILL_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
+              "--steps", str(DRILL_STEPS), "--batch", "4", "--seq", "64",
+              "--ckpt-every", "4", "--log-every", "1", "--compress-grads"]
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -2537,6 +2616,463 @@ def hybrid_encdec_phases(torch, ops, ref, serve, lm, dev):
     return new_err, hyb_launches, enc_launches
 
 
+# --------------------------------------------------------------------------- #
+# Phases 24-27: training
+# --------------------------------------------------------------------------- #
+def train_pair(torch, steps, cfg, model_cpu, batch_cpu, dev, opt) -> list:
+    """The same weights and batch on the CPU and on the card: loss_fn's
+    loss and gradients, then one ``make_train_step`` from fresh copies →
+    [CPU, card], each {"loss", "grads", "metrics", "params"} on the host.
+    The kernels' launch counts must not move on either device."""
+    from repro_torch.kernels import ops
+    out = []
+    for d in (torch.device("cpu"), dev):
+        batch = {k: v.to(d) for k, v in batch_cpu.items()}
+        model = copy.deepcopy(model_cpu).to(d).requires_grad_(True)
+        names, params = zip(*model.named_parameters())
+        ops.reset_launch_counts()
+        loss, _ = steps.loss_fn(cfg, model, batch)
+        grads = torch.autograd.grad(loss, params)
+        res = {"loss": loss.item(),
+               "grads": {n: g.detach().cpu() for n, g in zip(names, grads)}}
+        del grads, loss
+        state, m = steps.make_train_step(cfg, opt)(
+            steps.train_state(model), batch)
+        res["metrics"] = {k: v.item() for k, v in m.items()}
+        res["params"] = {n: p.detach().cpu()
+                         for n, p in state["model"].named_parameters()}
+        moved = {k: n for k, n in ops.launch_counts().items() if n}
+        if moved:
+            raise AssertionError(f"a training step on {d} launched kernels: "
+                                 f"{moved}")
+        out.append(res)
+        del state, model
+    return out
+
+
+def held_pair(torch, what, cpu, card, lr, grad_frac, loss_rtol) -> None:
+    """The card's step against the CPU's: the loss and the metrics within
+    ``loss_rtol``; every gradient leaf within ``grad_frac`` of its
+    largest magnitude; every parameter within 1e-2 of the learning rate
+    but for at most 1e-3 of a leaf's elements (an element whose gradient
+    is near Adam's eps moves by lr times its gradient's relative error),
+    and none further than 2 lr."""
+    worst = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])}
+    for k, v in cpu["metrics"].items():
+        worst[k] = abs(card["metrics"][k] - v) / max(abs(v), 1e-30)
+    g_err, p_share, p_max = 0.0, 0.0, 0.0
+    for n, g in cpu["grads"].items():
+        top = float(g.abs().max())
+        g_err = max(g_err, float((card["grads"][n] - g).abs().max())
+                    / max(top, 1e-30))
+    for n, p in cpu["params"].items():
+        diff = (card["params"][n].float() - p.float()).abs()
+        p_share = max(p_share, float((diff > 1e-2 * lr).float().mean()))
+        p_max = max(p_max, float(diff.max()))
+    rel = {k: float(f"{v:.3e}") for k, v in worst.items()}
+    log(f"  {what}: loss {card['loss']:.7f} (CPU {cpu['loss']:.7f}); "
+        f"relative errors {json.dumps(rel)}; "
+        f"gradients max |card - CPU| / max |g| {g_err:.3e} over "
+        f"{len(cpu['grads'])} leaves; params: share beyond 1e-2 lr "
+        f"{p_share:.2e}, max |card - CPU| {p_max:.3e} (lr {lr:.1e})")
+    bad = {k: v for k, v in worst.items() if v > loss_rtol}
+    if bad or g_err > grad_frac or p_share > 1e-3 or p_max > 2 * lr:
+        raise AssertionError(f"{what}: the card's train step is not the "
+                             f"CPU's ({bad}, gradients {g_err:.3e}, params "
+                             f"{p_share:.2e} / {p_max:.3e})")
+
+
+def train_parity(torch, dev) -> None:
+    """Phase 24: the card's train step held to the CPU's, qwen3-1.7b at
+    full width and 2 layers in fp32 and every family's reduced config;
+    then bf16 against fp32 at 2 layers."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, cosine_schedule
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    opt = OptConfig(lr=cosine_schedule(TRAIN_LR, 1, 10))
+    cases = [(TRAIN_ARCH, configs.get(TRAIN_ARCH).replace(
+        n_layers=TRAIN_PARITY_LAYERS, dtype="float32"), TRAIN_PARITY_B,
+        TRAIN_PARITY_S)]
+    cases += [(name, configs.reduced(name), 2, 32)
+              for name in TRAIN_FAMILIES.values()]
+    for i, (name, cfg, B, S) in enumerate(cases):
+        cfg = cfg.replace(attn_impl="xla")
+        model = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = SyntheticLM(cfg, DataConfig(B, S, 0), device="cpu").batch_at(0)
+        cpu, card = train_pair(torch, steps, cfg, model, batch, dev, opt)
+        held_pair(torch, f"{cfg.name} ({cfg.family}, {cfg.n_layers} layers, "
+                  f"fp32, batch {B}, seq {S})", cpu, card, TRAIN_LR,
+                  TRAIN_GRAD_FRAC, 1e-5)
+        if i == 0:                     # the full-width case
+            full_model, full_batch = model, batch
+            fp32_loss = card["loss"]
+        del cpu, card
+    # a train step of a config that asks for the kernels raises on the
+    # card before anything launches: the kernels have no backward
+    from repro_torch.kernels import ops
+    cfg = configs.reduced(TRAIN_ARCH).replace(attn_impl="pallas")
+    state = steps.init_train_state(cfg, torch.Generator(device=dev)
+                                   .manual_seed(0), device=dev)
+    batch = SyntheticLM(cfg, DataConfig(2, 32, 0), device=dev).batch_at(0)
+    ops.reset_launch_counts()
+    try:
+        steps.make_train_step(cfg, opt)(state, batch)
+    except RuntimeError as e:
+        log(f"  {cfg.name} with attn_impl='pallas' on the card raised: {e}")
+    else:
+        raise AssertionError("a train step on the kernel route ran")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the refused step launched: "
+                             f"{ops.launch_counts()}")
+    del state
+    # bf16 at 2 layers, the same weights rounded, against the fp32 loss
+    cfg = cases[0][1].replace(dtype="bfloat16", attn_impl="xla")
+    model = copy.deepcopy(full_model).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        bf16_loss = steps.loss_fn(
+            cfg, model, {k: v.to(dev) for k, v in full_batch.items()})[0].item()
+    log(f"  {cfg.name} bf16 (2 layers): loss {bf16_loss:.7f} against fp32 "
+        f"{fp32_loss:.7f}: |diff| {abs(bf16_loss - fp32_loss):.3e} (within "
+        f"{TRAIN_BF16_TOL})")
+    if not abs(bf16_loss - fp32_loss) <= TRAIN_BF16_TOL:
+        raise AssertionError("bf16 train loss too far from fp32")
+    fp32_product_check(torch, cfg, model, full_batch, dev)
+    del model, full_model
+    log(f"train parity (phase 24) took {time.perf_counter() - t0:.1f} s")
+
+
+def fp32_product_check(torch, cfg, model, batch_cpu, dev) -> None:
+    """The bf16 head's backward on the card (``common._Fp32Product``)
+    against the reference's transpose computed here in fp32: the logits'
+    fp32 cotangent times each operand upcast.  At the 2-layer model's
+    final hidden states and its tied table, each gradient must be that
+    fp32 product rounded to bf16 in all but ``TRAIN_PRODUCT_SHARE`` of
+    its elements (cuBLAS may sum in another order) and within one bf16
+    ulp everywhere.  A cotangent rounded to bf16 first, printed beside,
+    would round about a third of them the other way."""
+    from repro_torch.models import common, lm
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    with torch.no_grad():
+        x2 = lm.hidden_train(cfg, model, batch)[0]
+        x2 = x2.reshape(-1, x2.shape[-1])
+    w = model.embed.table.detach().t()
+    labels = batch["targets"].reshape(-1)
+    # the fp32 cotangent of the logits, from the upcast product
+    logits = (x2.float() @ w.float()).requires_grad_(True)
+    g, = torch.autograd.grad(common._lse_minus_label(logits, labels).sum(),
+                             logits)
+    want = {"x": g @ w.t().float(), "table": (x2.t().float() @ g).t()}
+    xg, wg = x2.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    common._Fp32Product.apply(xg, wg).backward(g)
+    got = {"x": xg.grad, "table": wg.grad.t()}
+    g16 = g.to(torch.bfloat16)
+    rounded = {"x": g16 @ w.t(), "table": (x2.t() @ g16).t()}
+    for k, r in want.items():
+        share = float((got[k] != r.to(torch.bfloat16)).float().mean())
+        ulp = (r.abs() * 2.0 ** -7).clamp_min(float(r.abs().max()) * 2e-13)
+        ulps = float(((got[k].float() - r).abs() / ulp).max())
+        old = float((rounded[k] != r.to(torch.bfloat16)).float().mean())
+        log(f"  bf16 head backward, d{k} {tuple(r.shape)}: {got[k].dtype}, "
+            f"share not the fp32 product rounded {share:.3e} (a bf16 "
+            f"cotangent: {old:.3e}), max {ulps:.3f} ulp")
+        if got[k].dtype != torch.bfloat16 or share > TRAIN_PRODUCT_SHARE \
+                or ulps > 1.0:
+            raise AssertionError(f"the bf16 head's backward (d{k}) is not "
+                                 "the reference's fp32 transpose")
+
+
+def model_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model FLOPs of one train step, without the recompute: 6 N T for
+    the weights (the tied table counted once, as the head) plus the
+    causal attention's products, 3 x 2 x 2 B S^2/2 H hd a layer."""
+    attn = 6 * cfg.n_layers * B * S * S * cfg.n_heads * cfg.hd
+    return 6.0 * n_params * B * S + attn
+
+
+def train_slice(torch, dev, smi) -> dict[str, int]:
+    """Phase 25: qwen3-1.7b at full width and depth through the launcher's
+    own setup, bf16, remat on, batch 8, seq 2048 (two CE chunks), one
+    warm-up and ``TRAIN_STEPS`` timed steps on one batch → the kernels'
+    launch counts over the run (all 0: training runs the plain
+    route)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.runtime import steps as steps_mod
+    n_steps = TRAIN_WARM + TRAIN_STEPS
+    B = TRAIN_B
+    while True:
+        args = train.parse_args(TRAIN_ARGS + ["--batch", str(B), "--steps",
+                                              str(n_steps)])
+        cfg, state, step_fn, data = train.setup(args)
+        n_params = state["model"].param_count()
+        batch = data.batch_at(0)
+        opt_ms = []
+        apply = steps_mod.apply_gradients
+
+        def timed_opt(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = apply(*a, **kw)
+            ev[1].record()
+            opt_ms.append(ev)
+            return out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, step_ms = [], []
+        steps_mod.apply_gradients = timed_opt
+        try:
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                losses.append(m["loss"].item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and torch.cuda.max_memory_allocated() \
+                        > TRAIN_PEAK_GIB * 2**30 and B > 1:
+                    break
+        finally:
+            steps_mod.apply_gradients = apply
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if len(losses) == n_steps:
+            break
+        log(f"train slice: the warm-up step's peak {peak / 2**30:.2f} GiB "
+            f"passed {TRAIN_PEAK_GIB} GiB at batch {B}: halving the batch")
+        del state, step_fn, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        B //= 2
+    launches = ops.launch_counts()
+    timed = sorted(step_ms[TRAIN_WARM:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else \
+        (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    opt_t = sorted(a.elapsed_time(b) for a, b in opt_ms[TRAIN_WARM:])
+    opt_med = opt_t[len(opt_t) // 2]
+    S = args.seq
+    flops = model_flops(cfg, n_params, B, S)
+    log(f"train slice (phase 25): {cfg.name} full width and depth "
+        f"({cfg.n_layers} layers, {n_params} parameters), {cfg.dtype}, "
+        f"remat {cfg.remat}, batch {B}, seq {S}, ce_chunk {cfg.ce_chunk}, "
+        f"on {smi}")
+    log(f"  losses {json.dumps([float(f'{l:.6f}') for l in losses])}")
+    log(f"  step ms (each) {json.dumps([round(t, 2) for t in step_ms])}; "
+        f"median of the {TRAIN_STEPS} timed {med:.2f} ms, "
+        f"{B * S / med * 1e3:.0f} tokens/s")
+    log(f"  model FLOPs a step {flops:.4e} (6 N T {6.0 * n_params * B * S:.4e}"
+        f" + causal attention; without the recompute): "
+        f"{flops / (med / 1e3) / 1e12:.1f} TFLOP/s, "
+        f"{flops / (med / 1e3) / BF16_FLOP_PER_S:.4f} of 989 TFLOP/s "
+        f"(bound {flops / BF16_FLOP_PER_S * 1e3:.1f} ms)")
+    log(f"  peak allocated {peak / 2**30:.3f} GiB ({peak} B); optimizer "
+        f"{opt_med:.2f} ms a step (device, median), {opt_med / med:.4f} of "
+        f"the step")
+    log(f"  launches over the run {json.dumps(launches)}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train slice: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train slice: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train slice launched kernels: {launches}")
+    del state, step_fn, batch
+    return launches
+
+
+def resume_drill(torch, dev) -> None:
+    """Phase 26: the launcher as a user runs it, three processes:
+    uninterrupted, crashed at a step (exit 42), resumed; the resumed
+    losses must be the uninterrupted run's, bit for bit.  Then a bf16
+    checkpoint of qwen3-1.7b at full width and 2 layers, after one step,
+    must restore every leaf ``torch.equal``."""
+    import re
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(ckpt, *extra):
+        cp = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *DRILL_ARGS,
+             "--ckpt-dir", ckpt, *extra], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        return cp, {int(m[1]): m[2] for m in re.finditer(
+            r"^step +(\d+) loss (\S+)", cp.stdout, re.M)}
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".train_drill_") as d:
+        whole, ref = run(os.path.join(d, "a"))
+        crashed, _ = run(os.path.join(d, "b"), "--fail-at-step",
+                         str(DRILL_FAIL))
+        resumed, mine = run(os.path.join(d, "b"))
+        for cp, rc in ((whole, 0), (crashed, 42), (resumed, 0)):
+            if cp.returncode != rc:
+                raise AssertionError(f"train drill: exit {cp.returncode}, "
+                                     f"not {rc}:\n{cp.stdout}\n{cp.stderr}")
+        start = re.search(r"^\[resume\] step (\d+)", resumed.stdout, re.M)
+        want = {s: ref[s] for s in mine}
+        log(f"resume drill (phase 26): crashed at step {DRILL_FAIL}, "
+            f"resumed from step {start and start[1]}; uninterrupted "
+            f"{json.dumps({s: ref[s] for s in sorted(ref)[-4:]})}, resumed "
+            f"{json.dumps({s: mine[s] for s in sorted(mine)[-4:]})}")
+        if not start or not mine or mine != want or \
+                sorted(mine) != list(range(int(start[1]), DRILL_STEPS)):
+            raise AssertionError(f"train drill: resumed losses {mine} are "
+                                 f"not the uninterrupted run's {want}")
+
+        cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_PARITY_LAYERS,
+                                              attn_impl="xla")
+        state = steps.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+        batch = SyntheticLM(cfg, DataConfig(TRAIN_PARITY_B, TRAIN_PARITY_S,
+                                            1), device=dev).batch_at(0)
+        state, _ = steps.make_train_step(cfg, OptConfig())(state, batch)
+        tw = time.perf_counter()
+        path = save_checkpoint(os.path.join(d, "bf16"),
+                               steps.reference_state(state), 1)
+        tw = time.perf_counter() - tw
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        tr = time.perf_counter()
+        tree, manifest = load_checkpoint(path)
+        back = steps.state_from_reference(cfg, tree, dev)
+        tr = time.perf_counter() - tr
+        n_eq = 0
+        for name, p in state["model"].named_parameters():
+            q = dict(back["model"].named_parameters())[name]
+            if p.dtype != q.dtype or not torch.equal(p, q):
+                raise AssertionError(f"bf16 checkpoint: {name} differs")
+            n_eq += 1
+        for k in ("m", "v"):
+            for name, t in state["opt"][k].items():
+                if not torch.equal(t, back["opt"][k][name]):
+                    raise AssertionError(f"bf16 checkpoint: {k} {name}")
+                n_eq += 1
+        for k in ("count",):
+            n_eq += bool(torch.equal(state["opt"][k], back["opt"][k]))
+        if not torch.equal(state["step"], back["step"]):
+            raise AssertionError("bf16 checkpoint: step differs")
+        dtypes = sorted({v["dtype"] for v in manifest["leaves"].values()})
+        log(f"  bf16 checkpoint ({cfg.name}, {cfg.n_layers} layers, full "
+            f"width): {len(manifest['leaves'])} reference leaves, dtypes "
+            f"{dtypes}, {size / 2**30:.3f} GiB written in {tw:.1f} s, "
+            f"restored in {tr:.1f} s; {n_eq} port tensors torch.equal")
+        del state, back, tree
+    log(f"resume drill (phase 26) took {time.perf_counter() - t0:.1f} s")
+
+
+def train_profile(torch, dev) -> None:
+    """Phase 27: one full-depth train step under torch.profiler: device
+    busy against wall time and the idle share; device ms in matrix
+    products and in elementwise kernels; by span, the optimizer, the
+    CE's chunks (forward and recompute) and the blocks; the forward (the
+    kernels before the first CE chunk's recompute), the backward (the
+    rest but the optimizer) and the remat recompute inside it (the
+    blocks that run a second time).  The CE's whole cost (its forward, recompute and
+    backward) is timed apart with CUDA events.  The full kernel table
+    goes to ``chiprun_out/train_profile.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.runtime import steps as steps_mod
+    args = train.parse_args(TRAIN_ARGS + ["--batch", str(TRAIN_B),
+                                          "--steps", "2"])
+    cfg, state, step_fn, data = train.setup(args)
+    batch = data.batch_at(0)
+    state, _ = step_fn(state, batch)                     # warm-up
+    torch.cuda.synchronize()
+    spans = [(steps_mod, "apply_gradients", "train: optimizer"),
+             (lm_mod, "attn_mlp_block", "train: block"),
+             (common, "_chunk_ce_sum", "train: ce chunk")]
+    labels = {lab for _, _, lab in spans}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            spans_on(torch, spans):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA
+            and r.self_device_time_total and r.key not in labels]
+    if not rows:
+        raise AssertionError("train profile: the profiler saw no device "
+                             "time")
+    busy = sum(r.self_device_time_total for r in rows) / 1e3
+    gemm = sum(r.self_device_time_total for r in rows
+               if any(p in r.key for p in GEMM_PARTS)) / 1e3
+    elem = [r for r in rows if "elementwise" in r.key]
+    elem_ms = sum(r.self_device_time_total for r in elem) / 1e3
+    span_ms = span_times(prof, labels)
+    # the blocks and CE chunks run once in the forward, then once more
+    # each in the backward (the remat recompute), which begins with the
+    # first CE chunk's recompute: the forward is every kernel before it
+    # (an outer span's GPU-side range is not reliable: one run read 684
+    # ms for the forward, the next 35)
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in dev_ev
+                     if e.name not in labels)
+
+    def ranges(label):
+        return sorted((e.time_range.start, e.time_range.end) for e in dev_ev
+                      if e.name == label)
+    blocks, chunks = ranges("train: block"), ranges("train: ce chunk")
+    n_chunks = args.seq // cfg.ce_chunk
+    bwd_start = chunks[n_chunks][0]
+    recompute = sum(t1 - t0 for r0, r1 in blocks[cfg.n_layers:]
+                    for t0, t1 in kernels if t0 >= r0 and t1 <= r1) / 1e3
+    forward = sum(t1 - t0 for t0, t1 in kernels if t0 < bwd_start) / 1e3
+    backward = busy - forward - span_ms["train: optimizer"][0]
+    log(f"train profile (phase 27): one step of {cfg.name} (batch "
+        f"{TRAIN_B}, seq {args.seq}): wall {wall:.2f} ms under the "
+        f"profiler, device busy {busy:.3f} ms (idle share "
+        f"{1 - busy / wall:.4f}); matrix products {gemm:.3f} ms, "
+        f"elementwise kernels {elem_ms:.3f} ms in "
+        f"{sum(r.count for r in elem)} launches, the rest "
+        f"{busy - gemm - elem_ms:.3f} ms")
+    log("  device ms by span (all kernels / matrix products): "
+        + ", ".join(f"{lab} {t[0]:.3f} / {t[1]:.3f}"
+                    for lab, t in span_ms.items())
+        + f"; the forward {forward:.3f}, the backward {backward:.3f}, of "
+          f"it the remat recompute ({len(blocks) - cfg.n_layers} blocks "
+          f"run again) {recompute:.3f}")
+    for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:12]:
+        log(f"  {r.self_device_time_total / 1e3:9.3f} ms  x{r.count:<6d} "
+            f"{r.key[:90]}")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=200))
+    # the CE alone on the step's final hidden states: forward, the
+    # chunks' recompute and backward
+    model = state["model"]
+    with torch.no_grad():
+        x = lm_mod.final_hidden(cfg, model, lm_mod.trunk_train(
+            cfg, model, lm_mod.embed_inputs(cfg, model, batch),
+            torch.arange(args.seq, device=dev))[0])
+    x.requires_grad_(True)
+    table = model.embed.table
+
+    def ce():
+        loss = common.chunked_cross_entropy(x, table, None, batch["targets"],
+                                            cfg.ce_chunk)
+        torch.autograd.grad(loss, (x, table))
+    ce_ms = device_ms(torch, "chunked CE", ce, 3)
+    log(f"  chunked CE alone (forward, recompute, backward; "
+        f"{args.seq // cfg.ce_chunk} chunks of ({TRAIN_B}, {cfg.ce_chunk}, "
+        f"{cfg.vocab}) fp32 logits): {ce_ms:.3f} ms, {ce_ms / wall:.4f} "
+        f"of the profiled step")
+    del state, model, x, table
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2956,6 +3492,27 @@ def main() -> int:
     new_err, hyb_launches, enc_launches = hybrid_encdec_phases(
         torch, ops, ref, serve, lm, dev)
 
+    # ------------------------------------------------------------ training
+    t_train = time.perf_counter()
+    # the launcher's numerics from here on (TF32 off, cuDNN deterministic,
+    # torch's deterministic algorithms), so the phases time the step that
+    # ``python -m repro_torch.launch.train`` runs
+    from repro_torch.launch import train
+    if os.environ["CUBLAS_WORKSPACE_CONFIG"] != train.CUBLAS_WORKSPACE:
+        raise AssertionError("CUBLAS_WORKSPACE_CONFIG is not the launcher's")
+    train.set_numerics()
+    log(f"training numerics: deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}, "
+        f"CUBLAS_WORKSPACE_CONFIG {os.environ['CUBLAS_WORKSPACE_CONFIG']}")
+    for phase in (train_parity, train_slice, resume_drill, train_profile):
+        gc.collect()                   # the previous phase's models
+        torch.cuda.empty_cache()
+        if phase is train_slice:
+            train_launches = phase(torch, dev, smi)
+        else:
+            phase(torch, dev)
+    log(f"training phases 24-27 took {time.perf_counter() - t_train:.1f} s")
+
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
@@ -2966,6 +3523,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})
@@ -2974,6 +3532,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": LM_SOURCE,
             "replaces": LM_REPLACES[name],
             "launches": sum(path[name] for path in lm_paths),
+            "train_launches": train_launches[name],
             "max_abs_err": max(e[name] for e in (lm_err, moe_err, new_err)),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2983,6 +3542,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": SSM_SOURCE,
             "replaces": SSM_REPLACES, "launches": ssm_launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": ssm_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})

@@ -1,0 +1,5 @@
+"""Checkpoints in the reference's layout (counterpart of
+``src/repro/checkpoint``)."""
+from .store import CheckpointManager, load_checkpoint, save_checkpoint
+
+__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint"]

@@ -6,7 +6,9 @@ seeded from both draws it.  The keys, shapes, dtypes and the next-token
 target shift are the reference's; the numbers are not, because
 ``torch.Generator`` and ``jax.random`` give different bits from the
 same seed.  A test that
-feeds both packages makes its inputs with numpy instead.  Batches are
+feeds both packages makes its inputs with numpy instead.  The iterator's
+checkpointable state is the step alone (``state_dict``), so a resumed
+run reads the same stream.  Batches are
 drawn on the host and moved to ``device`` (``cuda`` unless the caller
 names another).
 """
@@ -49,6 +51,14 @@ class SyntheticLM:
         self.cfg, self.data = cfg, data
         self.device = resolve_device(device)
         self.step = 0
+
+    # -- checkpointable state: one integer, as batches are pure functions
+    # of (seed, step)
+    def state_dict(self) -> dict:
+        return {"step": self.step, "seed": self.data.seed}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.step = int(d["step"])
 
     def batch_at(self, step: int) -> dict:
         g = torch.Generator().manual_seed(

@@ -9,6 +9,14 @@ Any other tensor goes to the CUDA kernel in ``codec_pack``,
 wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, so a run can show that its main path went
 through the kernels.
+
+The LM wrappers (attention, RMSNorm, the two scans) raise when autograd
+would record them: their kernels have no backward (nor have the
+reference's Pallas kernels), and a ``ctypes`` launch returns a tensor
+without a ``grad_fn``, which would cut the graph and leave every weight
+upstream without its gradient.  The guard fires on the CPU path too, so
+the CPU tests see what the card would do.  Training runs the plain
+route (``attn_impl="xla"``), as the reference's always does.
 """
 from __future__ import annotations
 
@@ -33,6 +41,16 @@ def _counted(fn):
 def _launched(fn) -> None:
     with _count_lock:
         fn.launches += 1
+
+
+def _no_autograd(fn, *tensors) -> None:
+    """Raise if autograd is on and any of ``tensors`` requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"ops.{fn.__name__} has no backward: its kernel would cut the "
+            "autograd graph.  Train through the plain route "
+            "(cfg.attn_impl='xla'), or call it under torch.no_grad()")
 
 
 @_counted
@@ -90,6 +108,7 @@ def topk_select(x: torch.Tensor, *, k: int
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,T,KV,hd) → (B,S,H,hd); GQA, online softmax."""
+    _no_autograd(flash_attention, q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     out = _flash.flash_attention(q, k, v, causal=causal)
@@ -102,6 +121,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int) -> torch.Tensor:
     """q (B,H,hd), caches (B,Smax,KV,hd), int pos → (B,H,hd) over the
     cache positions ``<= pos``."""
+    _no_autograd(decode_attention, q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, pos)
     out = _decode.decode_attention(q, k_cache, v_cache, pos)
@@ -113,6 +133,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-6) -> torch.Tensor:
     """x (..., d), scale (d,) → ``x * rsqrt(mean(x²) + eps) * scale``."""
+    _no_autograd(fused_rmsnorm, x, scale)
     if x.device.type == "cpu":
         return ref.fused_rmsnorm_ref(x, scale, eps=eps)
     out = _rms.fused_rmsnorm(x, scale, eps=eps)
@@ -130,6 +151,7 @@ def ssm_scan_chunk(dt: torch.Tensor, x: torch.Tensor, Bc: torch.Tensor,
     (B,L,N); A (di,N); h0 (B,di,N) → (y (B,L,di) fp32, h (B,di,N) fp32).
     ``y``/``h_out``, when given, receive the results (``h_out`` may be
     ``h0``)."""
+    _no_autograd(ssm_scan_chunk, dt, x, Bc, Cc, A, h0)
     if dt.device.type == "cpu":
         out = ref.ssm_scan_chunk_ref(dt, x, Bc, Cc, A, h0)
         return tuple(res if dst is None else dst.copy_(res)
@@ -152,6 +174,7 @@ def mamba1_scan_chunk(dt: torch.Tensor, dt_bias: torch.Tensor,
     (y (B,L,di) in x's dtype, h (B,di,N) fp32), with dt =
     softplus(dt + dt_bias) and y = (scan + x·D)·silu(z).  ``y``/``h_out``,
     when given, receive the results (``h_out`` may be ``h0``)."""
+    _no_autograd(mamba1_scan_chunk, dt, dt_bias, x, z, Bc, Cc, A, D, h0)
     if dt.device.type == "cpu":
         out = ref.mamba1_scan_chunk_ref(dt, dt_bias, x, z, Bc, Cc, A, D, h0)
         return tuple(res if dst is None else dst.copy_(res)

@@ -11,6 +11,13 @@ the same seed: parity loads the reference's weights
 (``lm.from_reference``) instead.  The tree itself keeps the reference's
 keys and leaf shapes (``Leaves``).
 
+Host arrays: numpy has no bfloat16 without ``ml_dtypes``, which the
+port does not import, so ``host_array`` hands a bf16 tensor over as its
+raw 16-bit patterns in a ``|V2`` void array, the bytes the reference's
+``np.savez`` writes for a bf16 leaf and ``np.load`` gives back;
+``from_host`` reads such an array (or an ``ml_dtypes`` bfloat16 one)
+back exactly.
+
 Numerics mirror the reference: norms and RoPE compute in fp32 and cast
 back; SiLU rounds the fp32 sigmoid to the working dtype before the
 product; GELU is the tanh approximation (``jax.nn.gelu``'s default);
@@ -22,8 +29,10 @@ from __future__ import annotations
 import math
 from collections.abc import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import ops
@@ -71,8 +80,11 @@ class Init:
 
 class Leaves(nn.Module):
     """One node of the reference's parameter tree: every tensor of
-    ``tree`` becomes a frozen ``Parameter`` under its key, every dict a
-    child node, so ``node.attn.wq`` reads ``params["attn"]["wq"]``."""
+    ``tree`` becomes a ``Parameter`` under its key, every dict a child
+    node, so ``node.attn.wq`` reads ``params["attn"]["wq"]``.  The
+    parameters start frozen, as serving wants them; ``requires_grad_()``
+    (``nn.Module``'s) makes a tree trainable, as
+    ``runtime.steps.init_train_state`` does."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -82,6 +94,37 @@ class Leaves(nn.Module):
             else:
                 self.register_parameter(
                     name, nn.Parameter(value, requires_grad=False))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as a host numpy array (a view of a CPU tensor
+    would change under a later in-place step); bf16 as its bits in
+    ``|V2``."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_host(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array (numpy, or a tensor) as a tensor on ``device``.  A
+    ``|V2`` array, or an ``ml_dtypes`` bfloat16 one, is bf16; ``dtype``,
+    when given, must be what the array holds (a checkpoint's manifest
+    names it)."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        a = np.asarray(a)
+        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+            if a.dtype.itemsize != 2:
+                raise TypeError(f"a {a.dtype} host array is not bfloat16")
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"host array holds {t.dtype}, expected {dtype}")
+    return t.to(device)
 
 
 # --------------------------------------------------------------------------- #
@@ -149,7 +192,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# Embedding / head
+# Embedding / head / loss
 # --------------------------------------------------------------------------- #
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, table)
@@ -167,9 +210,79 @@ def lm_logits(x: torch.Tensor, table: torch.Tensor,
     if x.dtype == torch.float32:
         out = x2 @ w
     elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _Fp32Product.apply(x2, w)
     else:
         # products of two bf16/fp16 values are exact in fp32, so an fp32
         # product of the upcast operands is the same function
         out = x2.to(torch.float32) @ w.to(torch.float32)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _Fp32Product(torch.autograd.Function):
+    """``x2 @ w`` of two bf16/fp16 matrices with fp32 accumulation and
+    output (cuBLAS through ``torch.mm``'s ``out_dtype``, which has no
+    derivative of its own).  The backward is the reference's transpose:
+    the fp32 cotangent times the other operand upcast to fp32 (exact),
+    each product fp32 and rounded to its operand's dtype only at the
+    end, the gradient of the CPU branch's upcast product."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        return ((g @ w.t().to(torch.float32)).to(x2.dtype),
+                (x2.t().to(torch.float32) @ g).to(w.dtype))
+
+
+def _lse_minus_label(logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp - logit[label]`` of (..., V) fp32 logits,
+    the reference's max-shifted form."""
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - lab
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits: (B, S, V) fp32; labels: (B, S) → the mean loss (over the
+    tokens ``mask`` keeps, when given)."""
+    nll = _lse_minus_label(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _chunk_ce_sum(x: torch.Tensor, table: torch.Tensor,
+                  head: torch.Tensor | None,
+                  labels: torch.Tensor) -> torch.Tensor:
+    return _lse_minus_label(lm_logits(x, table, head), labels).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          head: torch.Tensor | None, targets: torch.Tensor,
+                          chunk: int) -> torch.Tensor:
+    """The mean CE of ``x`` (B, S, D), the final hidden states, against
+    ``targets`` (B, S) without holding the (B, S, V) fp32 logits: chunks
+    of ``chunk`` tokens along S, each rematerialised in the backward
+    pass (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so the peak holds one (B, chunk, V) block.  The
+    dense logits are taken where the reference takes them: ``chunk <=
+    0``, ``S <= chunk`` or S not a multiple of ``chunk``."""
+    B, S, _ = x.shape
+    if chunk <= 0 or S <= chunk or S % chunk:
+        return cross_entropy(lm_logits(x, table, head), targets)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        c = slice(c0, c0 + chunk)
+        total = total + torch.utils.checkpoint.checkpoint(
+            _chunk_ce_sum, x[:, c], table, head, targets[:, c],
+            use_reentrant=False, preserve_rng_state=False)
+    return total / (B * S)

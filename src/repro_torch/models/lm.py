@@ -1,5 +1,5 @@
-"""LM for serving: the dense, vlm, moe, ssm (Mamba-1), hybrid (Mamba-2
-with a shared attention block) and encdec (whisper) families
+"""LM, served and trained: the dense, vlm, moe, ssm (Mamba-1), hybrid
+(Mamba-2 with a shared attention block) and encdec (whisper) families
 (counterpart of ``src/repro/models/lm.py``).
 
 The reference stacks per-layer params on a leading ``layers`` axis and
@@ -35,18 +35,27 @@ reference has no kernel for either.  A moe block's MLP is
 ``mlp.moe_mlp`` (``cfg.moe_impl="sort"``) or ``mlp.moe_mlp_gshard``
 (``"gshard"``) on either route; serving discards its load-balance term,
 as the reference's prefill and decode do.
+
+Training (``forward_train``, ``trunk_train``, ``decoder_train``) needs
+``cfg.attn_impl="xla"``, the plain route, which is all the reference's
+``value_and_grad`` ever differentiates: the kernels have no backward,
+so under ``"pallas"`` ``kernels.ops`` raises where autograd would
+record one (``launch.train`` sets ``"xla"``).  Under ``cfg.remat`` (and only while autograd records) each
+layer's body goes through ``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body.  ``to_reference`` gives the
+reference's stacked tree back, for checkpoints and tests.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .attention import (attend_decode, attend_prefill, attn_params,
                         cache_update, o_project, qkv_project)
 from .cnn.zoo import resolve_device
-from .common import (DTYPES, Init, Leaves, embed_lookup, layer_norm,
-                     lm_logits, norm)
+from .common import (DTYPES, Init, Leaves, embed_lookup, from_host,
+                     host_array, layer_norm, lm_logits, norm)
 from .mlp import mlp, mlp_params, moe_mlp, moe_mlp_gshard, moe_params
 from .ssm import mamba1_block, mamba1_params, mamba2_block, mamba2_params
 
@@ -166,39 +175,87 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
 
 
 def from_reference(cfg, params_np: dict, device=None) -> LM:
-    """The reference's params (``jax.tree.map(np.asarray, params)``) as a
-    port ``LM`` on ``device``: each stacked tree's layer axis is split
-    into per-block nodes (a moe block's expert stacks included); the
+    """The reference's params (``jax.tree.map(np.asarray, params)``, or
+    ``to_reference``'s tree, or a checkpoint's tensors) as a port ``LM``
+    on ``device``: each stacked tree's layer axis is split into
+    per-block nodes (a moe block's expert stacks included); the
     hybrid's ``shared`` block, which has none, converts whole.  Every
     leaf keeps its shape and dtype (a moe router stays fp32 in a bf16
-    tree).  bf16 leaves arrive as numpy's ``bfloat16`` extension type
-    and are widened to fp32 on the host, then narrowed back on the
-    device (exact both ways)."""
+    tree); a bf16 leaf may arrive as numpy's ``bfloat16`` extension type
+    or as its bits in a ``|V2`` array (``common.from_host``)."""
     dev = resolve_device(device)
-
-    def tensor(a) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                dev, torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(dev)
 
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
-        return tensor(node)
+        return from_host(node, dev)
 
     def layer(node, i):
         if isinstance(node, dict):
             return {k: layer(v, i) for k, v in node.items()}
-        return tensor(np.asarray(node)[i])
+        return from_host(node[i], dev)
 
     tree = {k: convert(v) for k, v in params_np.items() if k not in STACKS}
     for name, depth in STACKS.items():
         if name in params_np:
             tree[name] = [layer(params_np[name], i)
                           for i in range(getattr(cfg, depth))]
-    return LM(cfg, tree)
+    # register the leaves in ``build_params``' order, as ``init`` does, so
+    # that a restored model lists its parameters as a fresh one does
+    return LM(cfg, _in_order(tree, build_params(cfg, lambda *a, **k: None)))
+
+
+def _in_order(tree, template):
+    if isinstance(template, dict):
+        if set(tree) != set(template):
+            raise ValueError(f"parameter keys {sorted(tree)} are not the "
+                             f"model's {sorted(template)}")
+        return {k: _in_order(tree[k], v) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_in_order(t, v) for t, v in zip(tree, template)]
+    return tree
+
+
+def to_reference(model: LM) -> dict:
+    """The inverse of ``from_reference``: the model's parameters as the
+    reference's tree of host numpy arrays (bf16 as ``|V2`` bits), each
+    stacked tree's blocks stacked back on its leading layer axis."""
+    return reference_tree(dict(model.named_parameters()))
+
+
+def reference_tree(named: dict) -> dict:
+    """Tensors keyed by the port's parameter names (``layers.3.attn.wq``;
+    the model's own, or an optimizer moment of each) → the reference's
+    nested tree of host arrays, the blocks of ``layers``/``enc_layers``/
+    ``dec_layers`` stacked in layer order (on the host, so the device
+    holds no second copy)."""
+    tree: dict = {}
+    stacked: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        top, _, rest = name.partition(".")
+        if top in STACKS:
+            i, _, rest = rest.partition(".")
+            stacked.setdefault((top, rest), {})[int(i)] = t.detach().cpu()
+            continue
+        _put(tree, name.split("."), host_array(t))
+    for (top, rest), layers in stacked.items():
+        leaf = torch.stack([layers[i] for i in range(len(layers))])
+        _put(tree, [top, *rest.split(".")], host_array(leaf))
+    return tree
+
+
+def _put(tree: dict, path: list[str], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def named_from_reference(cfg, tree: dict, device=None) -> dict:
+    """A tree of the params' shape in the reference's layout (an
+    optimizer moment, the compression error state) → tensors on
+    ``device`` keyed by the port's parameter names."""
+    return {name: p.detach() for name, p in
+            from_reference(cfg, tree, device).named_parameters()}
 
 
 # --------------------------------------------------------------------------- #
@@ -342,6 +399,53 @@ def trunk_decode(cfg, model: LM, x, cache: dict):
     return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
+def _maybe_remat(fn, cfg):
+    """``fn`` through ``torch.utils.checkpoint`` under ``cfg.remat`` while
+    autograd records (the reference's ``jax.checkpoint`` of a scan
+    body): its activations are recomputed in the backward pass instead
+    of kept.  Serving (no autograd) calls ``fn`` itself."""
+    if not cfg.remat:
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return remat
+
+
+def trunk_train(cfg, model: LM, x, positions):
+    """x: (B, S, D) → (hidden, aux) with autograd: every layer's block
+    (remat'd under ``cfg.remat``), no cache.  The moe family's aux is
+    the Switch load-balance term summed over the layers and divided by
+    their number; the hybrid applies its one ``shared`` block before
+    every ``shared_attn_every``-th layer, inside that layer's body (the
+    reference's ``lax.cond``), so its gradient sums over the
+    applications."""
+    fam = cfg.family
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    every = cfg.shared_attn_every
+
+    def body(p, i, x):
+        if fam == "moe":
+            y, _, a = moe_block(cfg, p, x, positions)
+            return y, a
+        if fam in ("ssm", "hybrid"):
+            if fam == "hybrid" and i % every == 0:
+                x, _ = attn_mlp_block(cfg, model.shared, x, positions)
+            return ssm_block(cfg, p, x)[0], None
+        return attn_mlp_block(cfg, p, x, positions)[0], None
+
+    for i, p in enumerate(model.layers):
+        x, a = _maybe_remat(lambda x, p=p, i=i: body(p, i, x), cfg)(x)
+        if a is not None:
+            aux = aux + a
+    if fam == "moe":
+        aux = aux / cfg.n_layers
+    return x, aux
+
+
 def embed_inputs(cfg, model: LM, inputs: dict) -> torch.Tensor:
     tok = embed_lookup(model.embed.table, inputs["tokens"])
     if cfg.family == "vlm":
@@ -368,16 +472,21 @@ def _logits(model: LM, x):
 def encode(cfg, model: LM, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, F, D), the stub conv frontend's output → the encoder's
     hidden states: non-causal pre-layer-norm blocks (RoPE on q/k, as in
-    the reference), then ``enc_final_norm``."""
+    the reference; remat'd under ``cfg.remat`` in training), then
+    ``enc_final_norm``."""
     x = frames.to(torch.bfloat16 if cfg.dtype == "bfloat16"
                   else torch.float32)
     positions = torch.arange(x.shape[1], device=x.device)
-    for p in model.enc_layers:
+
+    def body(p, x):
         h = layer_norm(x, p.ln1.scale, p.ln1.bias, cfg.norm_eps)
         q, k, v = qkv_project(cfg, p.attn, h, positions)
         x = x + o_project(p.attn, attend_prefill(cfg, q, k, v, causal=False))
         h2 = layer_norm(x, p.ln2.scale, p.ln2.bias, cfg.norm_eps)
-        x = x + mlp(cfg, p.mlp, h2)
+        return x + mlp(cfg, p.mlp, h2)
+
+    for p in model.enc_layers:
+        x = _maybe_remat(lambda x, p=p: body(p, x), cfg)(x)
     fn = model.enc_final_norm
     return layer_norm(x, fn.scale, fn.bias, cfg.norm_eps)
 
@@ -407,6 +516,18 @@ def dec_layer(cfg, p, x, enc_or_ckv, positions, kv_cache=None, pos=None):
     x, ckv = _cross_attention(cfg, p, x, enc_or_ckv)
     h2 = layer_norm(x, p.ln2.scale, p.ln2.bias, cfg.norm_eps)
     return x + mlp(cfg, p.mlp, h2), new_kv, ckv
+
+
+def decoder_train(cfg, model: LM, tokens, enc):
+    """tokens: (B, S); enc: (B, F, D) → the decoder's final hidden
+    states (after the final norm), every layer remat'd under
+    ``cfg.remat``."""
+    x = embed_lookup(model.embed.table, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for p in model.dec_layers:
+        x = _maybe_remat(
+            lambda x, p=p: dec_layer(cfg, p, x, enc, positions)[0], cfg)(x)
+    return final_hidden(cfg, model, x)
 
 
 def decoder_prefill(cfg, model: LM, tokens, enc, cache_len: int):
@@ -441,8 +562,31 @@ def decoder_decode(cfg, model: LM, token, cache: dict):
 
 
 # --------------------------------------------------------------------------- #
-# Serving entry points
+# Entry points
 # --------------------------------------------------------------------------- #
+def hidden_train(cfg, model: LM, inputs: dict):
+    """→ (the final hidden states (B, S, D), after the final norm, and
+    aux), differentiable: the one family dispatch of ``forward_train``
+    and ``runtime.steps.loss_fn``."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        enc = encode(cfg, model, inputs["frames"])
+        x = decoder_train(cfg, model, inputs["tokens"], enc)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x = embed_inputs(cfg, model, inputs)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = trunk_train(cfg, model, x, positions)
+    return final_hidden(cfg, model, x), aux
+
+
+def forward_train(cfg, model: LM, inputs: dict):
+    """→ (logits fp32 (B, S, V), aux), differentiable: the full
+    sequence's logits (``runtime.steps.loss_fn`` takes the chunked CE
+    from the hidden states instead)."""
+    x, aux = hidden_train(cfg, model, inputs)
+    return _logits(model, x), aux
+
+
 @torch.no_grad()
 def forward_prefill(cfg, model: LM, inputs: dict,
                     cache_len: int | None = None):

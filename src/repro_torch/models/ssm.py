@@ -47,11 +47,15 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         carry = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
     xp = torch.cat([carry, x], dim=1)                     # (B, S+K-1, C)
     y = F.conv1d(xp.transpose(1, 2), w[:, None, :], groups=C)
-    # the bias lands in a (B, S, C) buffer with C contiguous, the layout
-    # the projections and the scan read
-    out = torch.add(y.transpose(1, 2), b,
-                    out=torch.empty((B, S, C), dtype=y.dtype,
-                                    device=y.device))
+    if torch.is_grad_enabled() and (y.requires_grad or b.requires_grad):
+        # autograd records no op with out=
+        out = y.transpose(1, 2) + b
+    else:
+        # the bias lands in a (B, S, C) buffer with C contiguous, the
+        # layout the projections and the scan read
+        out = torch.add(y.transpose(1, 2), b,
+                        out=torch.empty((B, S, C), dtype=y.dtype,
+                                        device=y.device))
     new_carry = xp[:, -(K - 1):] if K > 1 else carry
     return out, new_carry
 
