@@ -288,11 +288,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              in the optimizer, the CE chunks and the blocks; the CE alone
              timed with CUDA events (full table in
              ``chiprun_out/train_profile.txt``).
+28. pipeline serve — the pod pipeline (``runtime.pipeline``; every
+             stage on the one card) through ``launch.serve --pods``:
+             qwen3-1.7b at 2 stages (the ParetoPipe cuts for serving,
+             (1,)) and 4 (even), zamba2-7b at 2 (cuts (9,)), each beside
+             its unpipelined serve in the same run: the kernels' launches
+             equal, every token ``torch.equal``, and every step's logits
+             of a greedy run ``torch.equal``; prefill ms, decode ms/token
+             and peak printed beside the unpipelined ones.
+29. pipeline train parity — the pipelined loss and gradients (GPipe
+             over the microbatches) held to the plain step's over the
+             same microbatches, averaged: qwen3-1.7b at full width, 2
+             layers, fp32, cut (1,), 4 microbatches, and every family's
+             reduced config at 2 stages and 2 microbatches; the CE within
+             1e-5 (relative), every gradient leaf within 1e-4 of its
+             largest; no kernel launched.
+30. pipeline train — phase 25's run through ``launch.train --pods 2
+             --microbatches 4 --auto-partition``: the cuts must be (7,);
+             step ms, tokens/s and peak printed beside phase 25's; the
+             warm-up loss within 1e-2 of phase 25's on the same batch.
 
 The kernel table's LM rows count the launches of every LM serving path
-(phases 7, 11, 15, 19 and 21); every row's ``train_launches`` counts
-those of the training slice (phase 25), 0 for each: training runs the
-plain route.  The rows for the two scan entries carry their
+(phases 7, 11, 15, 19 and 21, and the pipelined serves of phase 28);
+every row's ``train_launches`` counts those of the training slices
+(phases 25 and 30), 0 for each: training runs the plain route.  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
 last three lines of
 standard output are the kernel table (JSON), the
@@ -422,6 +441,26 @@ DRILL_STEPS, DRILL_FAIL = 12, 10
 DRILL_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
               "--steps", str(DRILL_STEPS), "--batch", "4", "--seq", "64",
               "--ckpt-every", "4", "--log-every", "1", "--compress-grads"]
+# phase 28: the pod pipeline served, each path's pipelined variants
+# (launcher flags) beside its unpipelined serve; the ParetoPipe cuts for
+# serving qwen3-1.7b and zamba2-7b at prompt 1024 on 2 pods
+PIPE_SERVE = (("lm", LM_ARGS, (["--pods", "2", "--auto-partition"],
+                               ["--pods", "4"])),
+              ("hybrid", HYB_ARGS, (["--pods", "2", "--auto-partition"],)))
+PIPE_SERVE_CUTS = {("lm", 2): (1,), ("lm", 4): (7, 14, 21),
+                   ("hybrid", 2): (9,)}
+# phase 29: the pipelined train step held to the card's plain step:
+# qwen3-1.7b at full width, 2 layers, fp32, batch 4 (four microbatches),
+# seq 256, cut after layer 1; every family's reduced config at 2 stages
+# and 2 microbatches, batch 2, seq 32; the loss within 1e-5 (relative),
+# a gradient leaf within 1e-4 of its largest magnitude (phase 24's gates)
+PIPE_PARITY_B, PIPE_PARITY_M = 4, 4
+# phase 30: phase 25's run through the pod pipeline (2 stages, 4
+# microbatches of 2, the ParetoPipe cuts for training at seq 2048: (7,));
+# the warm-up step's bf16 loss within 1e-2 of phase 25's on the same
+# batch (the microbatches' sums round in another order)
+PIPE_TRAIN_FLAGS = ["--pods", "2", "--microbatches", "4", "--auto-partition"]
+PIPE_TRAIN_CUTS, PIPE_TRAIN_LOSS_TOL = (7,), 1e-2
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -2792,25 +2831,31 @@ def model_flops(cfg, n_params: int, B: int, S: int) -> float:
     return 6.0 * n_params * B * S + attn
 
 
-def train_slice(torch, dev, smi) -> dict[str, int]:
+def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
+                ) -> tuple[dict[str, int], dict]:
     """Phase 25: qwen3-1.7b at full width and depth through the launcher's
     own setup, bf16, remat on, batch 8, seq 2048 (two CE chunks), one
-    warm-up and ``TRAIN_STEPS`` timed steps on one batch → the kernels'
-    launch counts over the run (all 0: training runs the plain
-    route)."""
+    warm-up and ``TRAIN_STEPS`` timed steps on one batch; with ``extra``
+    launcher flags (phase 30: the pod pipeline) the same → the kernels'
+    launch counts over the run (all 0: training runs the plain route)
+    and the run's numbers (losses, median step ms, tokens/s, peak
+    bytes)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.runtime import pipeline as pipeline_mod
     from repro_torch.runtime import steps as steps_mod
     n_steps = TRAIN_WARM + TRAIN_STEPS
     B = TRAIN_B
     while True:
-        args = train.parse_args(TRAIN_ARGS + ["--batch", str(B), "--steps",
-                                              str(n_steps)])
-        cfg, state, step_fn, data = train.setup(args)
+        args = train.parse_args(TRAIN_ARGS + list(extra) + [
+            "--batch", str(B), "--steps", str(n_steps)])
+        cfg, state, step_fn, data, pipe = train.setup(args)
         n_params = state["model"].param_count()
         batch = data.batch_at(0)
         opt_ms = []
-        apply = steps_mod.apply_gradients
+        # the module whose step calls the optimizer
+        step_mod = steps_mod if pipe is None else pipeline_mod
+        apply = step_mod.apply_gradients
 
         def timed_opt(*a, **kw):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2820,26 +2865,26 @@ def train_slice(torch, dev, smi) -> dict[str, int]:
             opt_ms.append(ev)
             return out
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peaks(torch)
         ops.reset_launch_counts()
         losses, step_ms = [], []
-        steps_mod.apply_gradients = timed_opt
+        step_mod.apply_gradients = timed_opt
         try:
             for i in range(n_steps):
                 t0 = time.perf_counter()
                 state, m = step_fn(state, batch)
                 losses.append(m["loss"].item())
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                if i == 0 and torch.cuda.max_memory_allocated() \
+                if i == 0 and peak_bytes(torch) \
                         > TRAIN_PEAK_GIB * 2**30 and B > 1:
                     break
         finally:
-            steps_mod.apply_gradients = apply
+            step_mod.apply_gradients = apply
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_bytes(torch)
         if len(losses) == n_steps:
             break
-        log(f"train slice: the warm-up step's peak {peak / 2**30:.2f} GiB "
+        log(f"{label}: the warm-up step's peak {peak / 2**30:.2f} GiB "
             f"passed {TRAIN_PEAK_GIB} GiB at batch {B}: halving the batch")
         del state, step_fn, batch
         gc.collect()
@@ -2853,10 +2898,14 @@ def train_slice(torch, dev, smi) -> dict[str, int]:
     opt_med = opt_t[len(opt_t) // 2]
     S = args.seq
     flops = model_flops(cfg, n_params, B, S)
-    log(f"train slice (phase 25): {cfg.name} full width and depth "
+    piped = "" if pipe is None else (
+        f", {pipe[0].n_stages} stages at cuts {pipe[0].cuts} on "
+        f"{[str(d) for d in pipe[1].devices]}, {pipe[0].microbatches} "
+        f"microbatches")
+    log(f"{label}: {cfg.name} full width and depth "
         f"({cfg.n_layers} layers, {n_params} parameters), {cfg.dtype}, "
-        f"remat {cfg.remat}, batch {B}, seq {S}, ce_chunk {cfg.ce_chunk}, "
-        f"on {smi}")
+        f"remat {cfg.remat}, batch {B}, seq {S}, ce_chunk {cfg.ce_chunk}"
+        f"{piped}, on {smi}")
     log(f"  losses {json.dumps([float(f'{l:.6f}') for l in losses])}")
     log(f"  step ms (each) {json.dumps([round(t, 2) for t in step_ms])}; "
         f"median of the {TRAIN_STEPS} timed {med:.2f} ms, "
@@ -2871,13 +2920,15 @@ def train_slice(torch, dev, smi) -> dict[str, int]:
         f"the step")
     log(f"  launches over the run {json.dumps(launches)}")
     if not all(math.isfinite(l) for l in losses):
-        raise AssertionError(f"train slice: a loss is not finite: {losses}")
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train slice: the loss did not fall: {losses}")
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
     if any(launches.values()):
-        raise AssertionError(f"train slice launched kernels: {launches}")
+        raise AssertionError(f"{label} launched kernels: {launches}")
     del state, step_fn, batch
-    return launches
+    return launches, {"losses": losses, "step_ms": med, "batch": B,
+                      "tokens_s": B * S / med * 1e3, "peak": peak,
+                      "cuts": None if pipe is None else pipe[0].cuts}
 
 
 def resume_drill(torch, dev) -> None:
@@ -2984,7 +3035,7 @@ def train_profile(torch, dev) -> None:
     from repro_torch.runtime import steps as steps_mod
     args = train.parse_args(TRAIN_ARGS + ["--batch", str(TRAIN_B),
                                           "--steps", "2"])
-    cfg, state, step_fn, data = train.setup(args)
+    cfg, state, step_fn, data, _ = train.setup(args)
     batch = data.batch_at(0)
     state, _ = step_fn(state, batch)                     # warm-up
     torch.cuda.synchronize()
@@ -3071,6 +3122,223 @@ def train_profile(torch, dev) -> None:
         f"{cfg.vocab}) fp32 logits): {ce_ms:.3f} ms, {ce_ms / wall:.4f} "
         f"of the profiled step")
     del state, model, x, table
+
+
+def reset_peaks(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        # a card's allocator starts with its first allocation, and its
+        # statistics cannot be reset before
+        torch.empty(1, device=torch.device("cuda", i))
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def peak_bytes(torch) -> int:
+    """The largest peak allocated on any card (the pipeline's stages may
+    sit on several)."""
+    return max(torch.cuda.max_memory_allocated(i)
+               for i in range(torch.cuda.device_count()))
+
+
+def served(torch, ops, serve, argv) -> tuple[dict, dict[str, int], int]:
+    """One serve through the launcher's ``main``, the counters reset just
+    before → (its result, the launches, the peak allocated bytes)."""
+    torch.cuda.empty_cache()
+    reset_peaks(torch)
+    ops.reset_launch_counts()
+    res = serve.main(argv)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return res, ops.launch_counts(), peak_bytes(torch)
+
+
+def greedy_logits(lm, pl, cfg, model, inputs, cache_len, n, pipe=None):
+    """Every step's logits of a prefill and ``n - 1`` greedy decode steps,
+    unpipelined or, with ``pipe`` = (PipelineConfig, mesh), through the
+    stages (the comparison's launches are not counted)."""
+    if pipe is None:
+        logits, cache = lm.forward_prefill(cfg, model, inputs, cache_len)
+    else:
+        logits, cache = pl.forward_prefill(cfg, *pipe, model, inputs,
+                                           cache_len)
+    out = [logits]
+    for _ in range(n - 1):
+        tok = logits.argmax(-1)
+        if pipe is None:
+            logits, cache = lm.forward_decode(cfg, model, tok, cache)
+        else:
+            logits, cache = pl.forward_decode(cfg, *pipe, model, tok, cache)
+        out.append(logits)
+    return out
+
+
+def pipeline_serve(torch, ops, serve, lm, dev, smi) -> dict[str, int]:
+    """Phase 28: qwen3-1.7b (2 stages at the ParetoPipe cuts, 4 at even
+    ones) and zamba2-7b (2 stages, the planner's cuts) served through
+    ``launch.serve --pods``, each beside its unpipelined serve in this
+    run: the kernels' launches equal, every token and every step's
+    logits ``torch.equal`` → the pipelined runs' launches, summed."""
+    from repro_torch.launch.mesh import plan_pipeline
+    from repro_torch.runtime import pipeline as pl
+    total: dict[str, int] = {}
+    for name, argv, variants in PIPE_SERVE:
+        plain, plain_n, plain_peak = served(torch, ops, serve, argv)
+        log(f"pipeline serve (phase 28) {name}, unpipelined: prefill "
+            f"{plain['prefill_ms']:.2f} ms, decode "
+            f"{plain['decode_ms_per_token']:.3f} ms/token, peak "
+            f"{plain_peak / 2**30:.3f} GiB, launches {json.dumps(plain_n)}; "
+            f"on {smi}")
+        runs = []
+        for extra in variants:
+            res, n, peak = served(torch, ops, serve, argv + extra)
+            pods = int(extra[1])
+            if res["cuts"] != PIPE_SERVE_CUTS[name, pods]:
+                raise AssertionError(f"{name} at {pods} stages: cuts "
+                                     f"{res['cuts']}")
+            log(f"  {pods} stages at cuts {res['cuts']}: prefill "
+                f"{res['prefill_ms']:.2f} ms, decode "
+                f"{res['decode_ms_per_token']:.3f} ms/token, peak "
+                f"{peak / 2**30:.3f} GiB ({peak} B), launches "
+                f"{json.dumps(n)}")
+            if n != plain_n:
+                raise AssertionError(f"{name} at {pods} stages launched "
+                                     f"{n}, unpipelined {plain_n}")
+            if not torch.equal(res["tokens"].to(dev), plain["tokens"]):
+                raise AssertionError(f"{name} at {pods} stages: tokens "
+                                     "differ from the unpipelined serve")
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            runs.append(extra)
+        # every step's logits, on one copy of the weights: unpipelined
+        # first, then placed (on one card the placement moves nothing)
+        args = serve.parse_args(argv)
+        cfg, model, inputs, cache_len = serve.setup(args)
+        want = greedy_logits(lm, pl, cfg, model, inputs, cache_len,
+                             args.new_tokens)
+        for extra in runs:
+            pargs = serve.parse_args(argv + extra)
+            pipe = plan_pipeline(cfg, model, pargs.pods, 1,
+                                 seq=pargs.prompt_len, batch=pargs.batch,
+                                 auto_partition=pargs.auto_partition,
+                                 train=False)
+            got = greedy_logits(lm, pl, cfg, model, inputs, cache_len,
+                                args.new_tokens, pipe)
+            same = [torch.equal(a.to(b.device), b) for a, b in zip(got, want)]
+            log(f"  {pargs.pods} stages: logits of {sum(same)} of "
+                f"{len(same)} steps torch.equal to the unpipelined serve's")
+            if not all(same):
+                raise AssertionError(f"{name} at {pargs.pods} stages: "
+                                     "logits differ")
+            del got
+        del model, want, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def pipeline_train_parity(torch, dev) -> None:
+    """Phase 29: the pipelined train loss and gradients on the card held
+    to the card's plain ones over the same microbatches, averaged (the
+    CE, without the moe aux term, as the pipelined step drops it; a moe
+    routes each microbatch on its own in both): qwen3-1.7b at full width
+    and 2 layers in fp32 cut after layer 1 with 4 microbatches, and
+    every family's reduced config at 2 stages, 2 microbatches; then one
+    pipelined train step of each; no kernel launched."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, cosine_schedule
+    from repro_torch.runtime import pipeline as pl
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    cases = [(configs.get(TRAIN_ARCH).replace(
+        n_layers=TRAIN_PARITY_LAYERS, dtype="float32"), PIPE_PARITY_B,
+        TRAIN_PARITY_S, pl.PipelineConfig(2, PIPE_PARITY_M, (1,)))]
+    cases += [(c, 2, 32, pl.PipelineConfig.even(c.n_layers, 2, 2))
+              for c in map(configs.reduced, TRAIN_FAMILIES.values())]
+    mesh = make_host_mesh(2, device=dev)
+    opt = OptConfig(lr=cosine_schedule(TRAIN_LR, 1, 10))
+    for cfg, B, S, pcfg in cases:
+        cfg = cfg.replace(attn_impl="xla")
+        base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {k: v.to(dev) for k, v in SyntheticLM(
+            cfg, DataConfig(B, S, 0), device="cpu").batch_at(0).items()}
+        ops.reset_launch_counts()
+        res = []
+        for piped in (False, True):
+            model = copy.deepcopy(base).to(dev).requires_grad_(True)
+            names, params = zip(*model.named_parameters())
+            if piped:
+                pl.place_stages(cfg, model, pcfg, mesh)
+                ce = pl.pipeline_loss(cfg, pcfg, mesh, model, batch)
+                grads = torch.autograd.grad(ce, params)
+            else:
+                # the plain step over the same microbatches, one at a time
+                # (a moe group never spans two), averaged
+                M = pcfg.microbatches
+                ce, grads = 0.0, [0.0] * len(params)
+                for i in range(M):
+                    mb = {k: v.chunk(M)[i] for k, v in batch.items()}
+                    ce_i = steps.loss_fn(cfg, model, mb)[1]["ce"] / M
+                    grads = [a + b for a, b in zip(
+                        grads, torch.autograd.grad(ce_i, params))]
+                    ce = ce + ce_i.detach()
+            res.append((ce.item(), dict(zip(names, grads))))
+            if piped:
+                _, m = pl.make_pipeline_train_step(cfg, pcfg, opt, mesh)(
+                    steps.train_state(model), batch)
+                if not math.isclose(m["loss"].item(), ce.item(),
+                                    rel_tol=1e-6):
+                    raise AssertionError(f"{cfg.name}: the pipelined step's "
+                                         f"loss {m['loss'].item()} is not "
+                                         f"its CE {ce.item()}")
+            del model, grads
+        (plain_ce, plain_g), (ce, g) = res
+        worst = max(float((g[n].to(dev) - plain_g[n]).abs().max())
+                    / max(float(plain_g[n].abs().max()), 1e-30)
+                    for n in plain_g)
+        loss_err = abs(ce - plain_ce) / abs(plain_ce)
+        log(f"  pipelined train (phase 29) {cfg.name} ({cfg.family}, "
+            f"{cfg.n_layers} layers, fp32, batch {B}, seq {S}, cuts "
+            f"{pcfg.cuts}, {pcfg.microbatches} microbatches): CE {ce:.7f} "
+            f"against the plain {plain_ce:.7f} (rel {loss_err:.3e}); worst "
+            f"gradient leaf {worst:.3e} of its largest")
+        if loss_err > 1e-5 or worst > TRAIN_GRAD_FRAC:
+            raise AssertionError(f"{cfg.name}: the pipelined step is not the "
+                                 "plain one")
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"pipelined training launched kernels: "
+                                 f"{ops.launch_counts()}")
+        del res, plain_g, g, base
+    log(f"pipelined train parity (phase 29) took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def pipeline_train(torch, dev, smi, plain: dict) -> dict[str, int]:
+    """Phase 30: phase 25's run through ``launch.train --pods 2
+    --microbatches 4 --auto-partition``: the ParetoPipe cuts (7,), the
+    step ms, tokens/s and peak beside phase 25's, its warm-up loss
+    within ``PIPE_TRAIN_LOSS_TOL`` of phase 25's on the same batch → its
+    launches (all 0)."""
+    launches, st = train_slice(torch, dev, smi, PIPE_TRAIN_FLAGS,
+                               "pipelined train (phase 30)")
+    if st["cuts"] != PIPE_TRAIN_CUTS:
+        raise AssertionError(f"pipelined train: cuts {st['cuts']}, the "
+                             f"planner's are {PIPE_TRAIN_CUTS}")
+    diff = abs(st["losses"][0] - plain["losses"][0])
+    log(f"  beside phase 25 (unpipelined, batch {plain['batch']}): step "
+        f"{st['step_ms']:.2f} against {plain['step_ms']:.2f} ms "
+        f"({st['step_ms'] / plain['step_ms']:.4f}x), {st['tokens_s']:.0f} "
+        f"against {plain['tokens_s']:.0f} tokens/s, peak "
+        f"{st['peak'] / 2**30:.3f} against {plain['peak'] / 2**30:.3f} GiB; "
+        f"warm-up loss {st['losses'][0]:.6f} against "
+        f"{plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
+        f"{PIPE_TRAIN_LOSS_TOL})")
+    if st["batch"] != plain["batch"] or not diff <= PIPE_TRAIN_LOSS_TOL:
+        raise AssertionError("pipelined train: the first loss is not the "
+                             "unpipelined one")
+    return launches
 
 
 def main() -> int:
@@ -3508,15 +3776,29 @@ def main() -> int:
         gc.collect()                   # the previous phase's models
         torch.cuda.empty_cache()
         if phase is train_slice:
-            train_launches = phase(torch, dev, smi)
+            train_launches, plain_train = phase(torch, dev, smi)
         else:
             phase(torch, dev)
     log(f"training phases 24-27 took {time.perf_counter() - t_train:.1f} s")
 
+    # --------------------------------------------------------- pod pipeline
+    t_pipe = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe_launches = pipeline_serve(torch, ops, serve, lm, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_train_parity(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in pipeline_train(torch, dev, smi, plain_train).items():
+        train_launches[k] += n
+    log(f"pod pipeline phases 28-30 took {time.perf_counter() - t_pipe:.1f} s")
+
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
-                enc_launches)
+                enc_launches, pipe_launches)
     rows = []
     for name in REPLACES:
         t = timings[name]

@@ -23,7 +23,7 @@ writer at a time that snapshots to the host before it returns (training
 then overwrites the tensors in place while the write goes on), and the
 rule that a torn ``step_*.tmp`` is never restored and is collected.
 Placing a restored tree on a mesh (the reference's ``reshard_tree``)
-waits for sharding (ROADMAP queue 1, item 12).
+waits for sharding (ROADMAP queue 1, item 12b).
 """
 from __future__ import annotations
 

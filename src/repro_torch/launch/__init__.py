@@ -1,1 +1,3 @@
-"""Launchers of the port (``serve``: LM serving on one card)."""
+"""Launchers of the port (``serve``, ``train``) and what they plan with
+(``analytic``, the cost model; ``mesh``, the pipeline's stage
+placement)."""

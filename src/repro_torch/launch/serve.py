@@ -14,7 +14,11 @@ states and one k/v cache per application of its shared attention
 block; an encdec arch (whisper) encodes the synthetic batch's stub
 frames once per prefill and caches its cross-attention k/v.
 ``cache_len`` is prompt + new tokens (+ the image patches of a vlm),
-as in the reference, and unused by the ssm family.
+as in the reference, and unused by the ssm family.  ``--pods K`` (K > 1)
+serves through the pod pipeline (``runtime.pipeline``, stage k on
+``cuda:{k % cards}``), with even cuts or, with ``--auto-partition``,
+the ParetoPipe cuts for serving (``choose_pipeline_cuts(...,
+train=False)``); its tokens equal the unpipelined serve's.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
@@ -36,6 +40,8 @@ as in the reference, and unused by the ssm family.
       --device cpu
   python -m repro_torch.launch.serve --arch whisper-small \\
       --batch 8 --prompt-len 416 --new-tokens 32         # on the card
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
+      --device cpu --pods 2 --auto-partition             # pipelined
 
 ``main`` prints the reference's lines and returns the numbers.
 """
@@ -50,7 +56,10 @@ from .. import configs
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..models import lm
 from ..models.cnn.zoo import resolve_device
+from ..runtime.pipeline import (make_pipeline_decode_step,
+                                make_pipeline_prefill_step)
 from ..runtime.steps import make_decode_step, make_prefill_step
+from .mesh import plan_pipeline
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -62,9 +71,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="serve through a pipeline of this many stages")
+    ap.add_argument("--auto-partition", action="store_true",
+                    help="ParetoPipe chooses the pipeline cuts")
     args = ap.parse_args(argv)
     if args.new_tokens < 2:
         ap.error("--new-tokens must be at least 2 (one warm-up decode step)")
+    if args.auto_partition and args.pods <= 1:
+        ap.error("--auto-partition without --pods > 1: the ParetoPipe cuts "
+                 "split the pod pipeline")
     return args
 
 
@@ -86,19 +102,24 @@ def setup(args: argparse.Namespace):
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work of every card (a pipeline's stages may sit on
+    several)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
-def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int) -> dict:
+def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int,
+          steps: tuple | None = None) -> dict:
     """The reference's schedule: one warm-up prefill, a timed prefill,
-    one warm-up decode step, then ``new_tokens - 1`` timed decode steps.
+    one warm-up decode step, then ``new_tokens - 1`` timed decode steps,
+    through ``steps`` (prefill, decode; the unpipelined ones by default).
     → seconds, the step count and the tokens (B, new_tokens): the
     prefill's and the timed steps' (the warm-up step's token is fed on
     but not kept, as in the reference)."""
     dev = model.device
-    prefill = make_prefill_step(cfg, cache_len)
-    decode = make_decode_step(cfg)
+    prefill, decode = steps or (make_prefill_step(cfg, cache_len),
+                                make_decode_step(cfg))
 
     tok, cache = prefill(model, inputs)                 # warm-up
     _sync(dev)
@@ -124,7 +145,15 @@ def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int) -> dict:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg, model, inputs, cache_len = setup(args)
-    res = serve(cfg, model, inputs, cache_len, args.new_tokens)
+    pcfg, steps = None, None
+    if args.pods > 1:
+        pcfg, mesh = plan_pipeline(cfg, model, args.pods, 1,
+                                   seq=args.prompt_len, batch=args.batch,
+                                   auto_partition=args.auto_partition,
+                                   train=False)
+        steps = (make_pipeline_prefill_step(cfg, pcfg, mesh, cache_len),
+                 make_pipeline_decode_step(cfg, pcfg, mesh))
+    res = serve(cfg, model, inputs, cache_len, args.new_tokens, steps)
     B, S = args.batch, args.prompt_len
     n_dec = res["decode_steps"]
     prefill_tok_s = B * S / res["prefill_s"]
@@ -132,13 +161,15 @@ def main(argv=None) -> dict:
     decode_tok_s = B * n_dec / res["decode_s"]
     out = res["tokens"]
     finite = bool((out >= 0).all() and (out < cfg.vocab).all())
-    print(f"arch={cfg.name} batch={B} prompt={S} device={model.device}")
+    print(f"arch={cfg.name} batch={B} prompt={S} device={model.device}"
+          + ("" if pcfg is None else f" pods={args.pods} cuts={pcfg.cuts}"))
     print(f"prefill latency: {res['prefill_s'] * 1e3:.1f} ms "
           f"({prefill_tok_s:.0f} tok/s)")
     print(f"decode: {ms_per_token:.2f} ms/token "
           f"({decode_tok_s:.0f} tok/s aggregate)")
     print(f"generated shape {tuple(out.shape)}, finite={finite}")
     return {"arch": cfg.name, "device": str(model.device),
+            "cuts": None if pcfg is None else pcfg.cuts,
             "prefill_ms": res["prefill_s"] * 1e3,
             "prefill_tok_s": prefill_tok_s,
             "decode_ms_per_token": ms_per_token,

@@ -1,6 +1,6 @@
-"""Training launcher: one device, checkpoint/restart, deterministic data
-resume, gradient compression and a crash drill (counterpart of
-``src/repro/launch/train.py``).
+"""Training launcher: one device or a pod pipeline, checkpoint/restart,
+deterministic data resume, gradient compression and a crash drill
+(counterpart of ``src/repro/launch/train.py``).
 
 Trains any registered architecture (``--arch``, full or ``--reduced``)
 from random weights drawn with ``--seed``, with AdamW, clipping and the
@@ -19,12 +19,22 @@ apart, so equal lines are equal bits.
   # from the checkpoint of step 5:
   python -m repro_torch.launch.train ... --fail-at-step 9
   python -m repro_torch.launch.train ...
+  # the pod pipeline: GPipe over 2 stages with ParetoPipe's cuts, 2
+  # microbatches (stage k on cuda:{k % cards}; every stage on the CPU
+  # with --device cpu):
+  python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
+      --device cpu --pods 2 --microbatches 2 --auto-partition \
+      --steps 16 --batch 2 --seq 32
 
-Training over several devices (``--pods``, ``--data-par``,
-``--model-par``, ``--microbatches``, ``--auto-partition``) waits for the port of the
-pipeline runtime and sharding (ROADMAP queue 1, item 12; the automatic
-cuts also for item 10.5's ``blocks_adapter``): asking for it is an
-error, never ignored.
+``--pods K`` (K > 1) trains through ``runtime.pipeline`` with
+``--microbatches`` (4 by default) and even cuts, or with
+``--auto-partition`` the cuts ``models.blocks_adapter`` picks, printed as
+the reference prints them; its checkpoints hold the reference's
+pipeline layout.  The data and model axes (``--data-par``,
+``--model-par``) wait for the port of sharding (ROADMAP queue 1, item
+12b), and the pipelined step takes no gradient compression: asking for
+either is an error, never ignored (the reference ignores
+``--compress-grads`` under ``--pods``).
 """
 from __future__ import annotations
 
@@ -37,11 +47,14 @@ import torch
 from .. import configs
 from ..checkpoint import CheckpointManager
 from ..data.pipeline import DataConfig, SyntheticLM
+from ..models import lm
 from ..models.cnn.zoo import resolve_device
 from ..optim import CompressionConfig, OptConfig, cosine_schedule
 from ..runtime.edge import apply_numerics
-from ..runtime.steps import (init_train_state, make_train_step,
-                             reference_state, state_from_reference)
+from ..runtime.pipeline import make_pipeline_train_step
+from ..runtime.steps import (make_train_step, reference_state,
+                             state_from_reference, train_state)
+from .mesh import plan_pipeline
 
 # cuBLAS's workspace setting for deterministic results; read when CUDA
 # starts, so it is set before the first CUDA call
@@ -70,25 +83,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--data-par", type=int, default=1)
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=None,
-                    help="pipeline microbatches (with --pods > 1)")
+                    help="pipeline microbatches (with --pods > 1; 4 by "
+                         "default)")
     ap.add_argument("--auto-partition", action="store_true",
                     help="ParetoPipe chooses the pipeline cuts")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.pods > 1 or args.data_par * args.model_par > 1:
-        ap.error(f"--pods {args.pods} --data-par {args.data_par} "
-                 f"--model-par {args.model_par}: training over several "
-                 "devices waits for the port of runtime/pipeline.py and "
-                 "sharding (ROADMAP queue 1, item 12)")
-    if args.microbatches is not None:
-        ap.error(f"--microbatches {args.microbatches}: pipeline microbatches "
-                 "wait for the port of runtime/pipeline.py (ROADMAP queue 1, "
-                 "item 12)")
-    if args.auto_partition:
-        ap.error("--auto-partition: pipeline cuts wait for the port of "
-                 "models/blocks_adapter.py (ROADMAP queue 1, item 10.5) and "
-                 "of runtime/pipeline.py (item 12)")
+    if args.data_par * args.model_par > 1:
+        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
+                 "the data and model axes wait for the port of "
+                 "sharding/api.py (ROADMAP queue 1, item 12b)")
+    if args.pods > 1 and args.compress_grads:
+        ap.error(f"--compress-grads with --pods {args.pods}: the pipelined "
+                 "step takes no gradient compression, as the reference's "
+                 "(which ignores the flag; ROADMAP queue 3); compression "
+                 "belongs with the data axis (ROADMAP queue 1, item 12b)")
+    if args.pods <= 1 and args.microbatches is not None:
+        ap.error(f"--microbatches {args.microbatches} without --pods > 1: "
+                 "microbatches are the pod pipeline's (runtime/pipeline.py, "
+                 "ROADMAP queue 1, item 12a)")
+    if args.pods <= 1 and args.auto_partition:
+        ap.error("--auto-partition without --pods > 1: the ParetoPipe cuts "
+                 "(models/blocks_adapter.py, ROADMAP queue 1, item 10.5) "
+                 "split the pod pipeline")
+    if args.pods > 1 and args.microbatches is None:
+        args.microbatches = 4
     return args
 
 
@@ -103,10 +123,12 @@ def set_numerics() -> None:
 
 
 def setup(args: argparse.Namespace):
-    """→ (cfg, state, step_fn, data) for ``args``: the config (the plain
-    route), a fresh state from ``--seed``, the train step (AdamW,
-    clipping, the cosine schedule, compression when asked) and the
-    data stream, all on ``--device``."""
+    """→ (cfg, state, step_fn, data, pipe) for ``args``: the config (the
+    plain route), a fresh state from ``--seed``, the train step (AdamW,
+    clipping, the cosine schedule, compression when asked) and the data
+    stream, all on ``--device``; under ``--pods`` the weights (the same
+    draws) placed on the stages, the pipelined step, and ``pipe`` =
+    (PipelineConfig, mesh), else None."""
     dev = resolve_device(args.device)
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
     over = {}
@@ -117,11 +139,18 @@ def setup(args: argparse.Namespace):
     cfg = cfg.replace(attn_impl="xla", **over)
     opt = OptConfig(lr=cosine_schedule(args.lr, args.warmup, args.steps))
     comp = CompressionConfig(enabled=args.compress_grads)
-    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), comp, device=dev)
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                    dev)
     data = SyntheticLM(cfg, DataConfig(args.batch, args.seq, args.seed),
                        device=dev)
-    return cfg, state, make_train_step(cfg, opt, comp), data
+    if args.pods <= 1:
+        return (cfg, train_state(model, comp), make_train_step(cfg, opt, comp),
+                data, None)
+    pcfg, mesh = plan_pipeline(cfg, model, args.pods, args.microbatches,
+                               seq=args.seq, batch=args.batch,
+                               auto_partition=args.auto_partition, train=True)
+    return (cfg, train_state(model), make_pipeline_train_step(
+        cfg, pcfg, opt, mesh), data, (pcfg, mesh))
 
 
 def main(argv=None) -> dict:
@@ -129,7 +158,8 @@ def main(argv=None) -> dict:
     "losses": {step: loss} of the logged steps, "final_loss"}."""
     args = parse_args(argv)
     set_numerics()
-    cfg, state, step_fn, data = setup(args)
+    cfg, state, step_fn, data, pipe = setup(args)
+    pcfg = None if pipe is None else pipe[0]
     mgr = None
     start = 0
     if args.ckpt_dir:
@@ -137,7 +167,7 @@ def main(argv=None) -> dict:
         restored, manifest = mgr.restore()
         if restored is not None:
             state = state_from_reference(cfg, restored,
-                                         state["model"].device)
+                                         state["model"].device, *pipe or ())
             start = int(manifest["step"])
             data.load_state_dict(manifest["extra"]["data"])
             print(f"[resume] step {start}")
@@ -164,10 +194,10 @@ def main(argv=None) -> dict:
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.1f}s)", flush=True)
         if mgr is not None and mgr.should_save(step + 1):
-            mgr.save(reference_state(state), step + 1,
+            mgr.save(reference_state(state, pcfg), step + 1,
                      extra={"data": data.state_dict()}, block=False)
     if mgr is not None:
-        mgr.save(reference_state(state), args.steps,
+        mgr.save(reference_state(state, pcfg), args.steps,
                  extra={"data": data.state_dict()})
     final = None if metrics is None else float(metrics["loss"])
     print(f"[done] {args.steps} steps, final loss "

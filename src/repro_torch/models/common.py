@@ -6,7 +6,7 @@ abstract shapes with shardings, partition specs).  The port needs only
 real tensors on one card, so ``Init`` draws each leaf directly from a
 ``torch.Generator`` with the reference builder's shapes and scales; the
 abstract and spec builders wait for sharding (ROADMAP queue 1, item
-12).  A ``torch.Generator`` gives other numbers than ``jax.random`` from
+12b).  A ``torch.Generator`` gives other numbers than ``jax.random`` from
 the same seed: parity loads the reference's weights
 (``lm.from_reference``) instead.  The tree itself keeps the reference's
 keys and leaf shapes (``Leaves``).

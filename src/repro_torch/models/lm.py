@@ -44,6 +44,14 @@ record one (``launch.train`` sets ``"xla"``).  Under ``cfg.remat`` (and only whi
 layer's body goes through ``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of its scan body.  ``to_reference`` gives the
 reference's stacked tree back, for checkpoints and tests.
+
+The trunks (``trunk_prefill``, ``trunk_decode``, ``trunk_train`` and the
+decoder's) take a ``layers`` range, the whole stack by default: a
+pipeline stage (``runtime.pipeline``) runs its own range through the
+same per-layer functions, its caches holding only its layers (the
+hybrid's ``ak``/``av`` its applications, at slot ``i // every - start //
+every``, the reference's), and passes the hybrid's ``shared`` block as it
+lives on the stage's device.
 """
 from __future__ import annotations
 
@@ -326,10 +334,10 @@ def ssm_block(cfg, p, x, cache=None, h_out=None):
     return x + y, new_cache
 
 
-def _ssm_cache(cfg, B: int, dtype, device) -> dict:
-    """Empty per-layer conv windows and fp32 states of an ssm or hybrid
-    trunk, for prefill to fill."""
-    L, K = cfg.n_layers, cfg.ssm_conv
+def _ssm_cache(cfg, L: int, B: int, dtype, device) -> dict:
+    """Empty conv windows and fp32 states of ``L`` layers of an ssm or
+    hybrid trunk, for prefill to fill."""
+    K = cfg.ssm_conv
     if cfg.family == "ssm":
         conv, state = cfg.d_inner, (cfg.d_inner, cfg.ssm_state)
     else:
@@ -341,60 +349,82 @@ def _ssm_cache(cfg, B: int, dtype, device) -> dict:
                              device=device)}
 
 
-def trunk_prefill(cfg, model: LM, x, positions, cache_len: int):
-    """x: (B, S, D) → (hidden, cache); ``cache_len >= S`` (unused by
-    ssm).  The hybrid runs the shared block before every
-    ``shared_attn_every``-th layer, its k/v into that application's slot
-    of ``ak``/``av``."""
+def n_apps(cfg, layers: range) -> int:
+    """The hybrid's ``ak``/``av`` slots for a range of layers: slot ``i //
+    every - start // every`` for each layer ``i`` the shared block
+    precedes (the reference's ``_stage_prefill_hybrid`` indexing), so
+    ``cfg.n_attn_apps`` for the whole stack."""
+    every = cfg.shared_attn_every
+    if not layers:
+        return 0
+    return layers[-1] // every - layers.start // every + 1
+
+
+def trunk_prefill(cfg, model: LM, x, positions, cache_len: int,
+                  layers: range | None = None, shared=None):
+    """x: (B, S, D) → (hidden, cache) over ``layers`` (all by default),
+    the cache holding those layers in order; ``cache_len >= S`` (unused
+    by ssm).  The hybrid runs ``shared`` (the model's shared block by
+    default) before every ``shared_attn_every``-th layer, its k/v into
+    that application's slot of ``ak``/``av``."""
     B, S, _ = x.shape
+    layers = range(cfg.n_layers) if layers is None else layers
     if cfg.family in ("ssm", "hybrid"):
-        cache = _ssm_cache(cfg, B, x.dtype, x.device)
+        cache = _ssm_cache(cfg, len(layers), B, x.dtype, x.device)
+        every = cfg.shared_attn_every
         if cfg.family == "hybrid":
-            shape = (cfg.n_attn_apps, B, cache_len, cfg.n_kv_heads, cfg.hd)
+            shared = model.shared if shared is None else shared
+            shape = (n_apps(cfg, layers), B, cache_len, cfg.n_kv_heads,
+                     cfg.hd)
             cache["ak"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
             cache["av"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        every = cfg.shared_attn_every
-        for i, p in enumerate(model.layers):
+        for li, i in enumerate(layers):
             if cfg.family == "hybrid" and i % every == 0:
-                x, (k, v) = attn_mlp_block(cfg, model.shared, x, positions)
-                cache["ak"][i // every, :, :S] = k
-                cache["av"][i // every, :, :S] = v
-            x, new = ssm_block(cfg, p, x, h_out=cache["h"][i])
-            cache["conv"][i] = new["conv"]
+                x, (k, v) = attn_mlp_block(cfg, shared, x, positions)
+                slot = i // every - layers.start // every
+                cache["ak"][slot, :, :S] = k
+                cache["av"][slot, :, :S] = v
+            x, new = ssm_block(cfg, model.layers[i], x, h_out=cache["h"][li])
+            cache["conv"][li] = new["conv"]
         return x, {**cache, "pos": S}
-    shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.hd)
+    shape = (len(layers), B, cache_len, cfg.n_kv_heads, cfg.hd)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, p in enumerate(model.layers):
-        x, (k, v) = _serving_block(cfg, p, x, positions)
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
+    for li, i in enumerate(layers):
+        x, (k, v) = _serving_block(cfg, model.layers[i], x, positions)
+        ks[li, :, :S] = k
+        vs[li, :, :S] = v
     return x, {"k": ks, "v": vs, "pos": S}
 
 
-def trunk_decode(cfg, model: LM, x, cache: dict):
-    """x: (B, 1, D) → (hidden, cache) with the new row written at
-    ``cache["pos"]`` of every layer (ssm, hybrid: each layer's conv
-    window and state updated in place; the hybrid's shared block writes
-    its row into its application's ``ak``/``av``)."""
+def trunk_decode(cfg, model: LM, x, cache: dict,
+                 layers: range | None = None, shared=None):
+    """x: (B, 1, D) → (hidden, cache) over ``layers`` (all by default;
+    ``cache`` holds those layers, as ``trunk_prefill`` made it) with the
+    new row written at ``cache["pos"]`` of every layer (ssm, hybrid: each
+    layer's conv window and state updated in place; the hybrid's shared
+    block writes its row into its application's ``ak``/``av``)."""
     pos = cache["pos"]
     positions = torch.arange(pos, pos + 1, device=x.device)
+    layers = range(cfg.n_layers) if layers is None else layers
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.shared_attn_every
-        for i, p in enumerate(model.layers):
+        shared = model.shared if shared is None else shared
+        for li, i in enumerate(layers):
             if cfg.family == "hybrid" and i % every == 0:
-                app = i // every
+                slot = i // every - layers.start // every
                 x, _ = attn_mlp_block(
-                    cfg, model.shared, x, positions,
-                    kv_cache=(cache["ak"][app], cache["av"][app]), pos=pos)
-            x, new = ssm_block(cfg, p, x, {"conv": cache["conv"][i],
-                                           "h": cache["h"][i]},
-                               h_out=cache["h"][i])
-            cache["conv"][i] = new["conv"]
+                    cfg, shared, x, positions,
+                    kv_cache=(cache["ak"][slot], cache["av"][slot]), pos=pos)
+            x, new = ssm_block(cfg, model.layers[i], x,
+                               {"conv": cache["conv"][li],
+                                "h": cache["h"][li]},
+                               h_out=cache["h"][li])
+            cache["conv"][li] = new["conv"]
         return x, {**cache, "pos": pos + 1}
-    for i, p in enumerate(model.layers):
-        x, _ = _serving_block(cfg, p, x, positions,
-                              kv_cache=(cache["k"][i], cache["v"][i]),
+    for li, i in enumerate(layers):
+        x, _ = _serving_block(cfg, model.layers[i], x, positions,
+                              kv_cache=(cache["k"][li], cache["v"][li]),
                               pos=pos)
     return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
@@ -415,17 +445,21 @@ def _maybe_remat(fn, cfg):
     return remat
 
 
-def trunk_train(cfg, model: LM, x, positions):
-    """x: (B, S, D) → (hidden, aux) with autograd: every layer's block
-    (remat'd under ``cfg.remat``), no cache.  The moe family's aux is
-    the Switch load-balance term summed over the layers and divided by
-    their number; the hybrid applies its one ``shared`` block before
+def trunk_train(cfg, model: LM, x, positions, layers: range | None = None,
+                shared=None):
+    """x: (B, S, D) → (hidden, aux) with autograd: the block of every
+    layer of ``layers`` (all by default; remat'd under ``cfg.remat``),
+    no cache.  The moe family's aux is the Switch load-balance term
+    summed over the layers and divided by ``cfg.n_layers``; the hybrid
+    applies ``shared`` (the model's shared block by default) before
     every ``shared_attn_every``-th layer, inside that layer's body (the
     reference's ``lax.cond``), so its gradient sums over the
     applications."""
     fam = cfg.family
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = cfg.shared_attn_every
+    layers = range(cfg.n_layers) if layers is None else layers
+    shared = model.shared if shared is None else shared
 
     def body(p, i, x):
         if fam == "moe":
@@ -433,11 +467,12 @@ def trunk_train(cfg, model: LM, x, positions):
             return y, a
         if fam in ("ssm", "hybrid"):
             if fam == "hybrid" and i % every == 0:
-                x, _ = attn_mlp_block(cfg, model.shared, x, positions)
+                x, _ = attn_mlp_block(cfg, shared, x, positions)
             return ssm_block(cfg, p, x)[0], None
         return attn_mlp_block(cfg, p, x, positions)[0], None
 
-    for i, p in enumerate(model.layers):
+    for i in layers:
+        p = model.layers[i]
         x, a = _maybe_remat(lambda x, p=p, i=i: body(p, i, x), cfg)(x)
         if a is not None:
             aux = aux + a
@@ -518,46 +553,52 @@ def dec_layer(cfg, p, x, enc_or_ckv, positions, kv_cache=None, pos=None):
     return x + mlp(cfg, p.mlp, h2), new_kv, ckv
 
 
-def decoder_train(cfg, model: LM, tokens, enc):
-    """tokens: (B, S); enc: (B, F, D) → the decoder's final hidden
-    states (after the final norm), every layer remat'd under
-    ``cfg.remat``."""
-    x = embed_lookup(model.embed.table, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    for p in model.dec_layers:
+def decoder_train(cfg, model: LM, x, enc, positions,
+                  layers: range | None = None):
+    """x: (B, S, D), the embedded tokens; enc: (B, F, D) → the hidden
+    states after ``layers`` (all by default), before the final norm,
+    every layer remat'd under ``cfg.remat``."""
+    layers = range(cfg.n_layers) if layers is None else layers
+    for i in layers:
+        p = model.dec_layers[i]
         x = _maybe_remat(
             lambda x, p=p: dec_layer(cfg, p, x, enc, positions)[0], cfg)(x)
-    return final_hidden(cfg, model, x)
+    return x
 
 
-def decoder_prefill(cfg, model: LM, tokens, enc, cache_len: int):
-    """tokens: (B, S); enc: (B, F, D) → (hidden before the final norm,
-    cache); the cross k/v of every layer are cached once, here."""
-    B, S = tokens.shape
-    x = embed_lookup(model.embed.table, tokens)
-    positions = torch.arange(S, device=x.device)
-    L, F, KV, hd = cfg.n_layers, enc.shape[1], cfg.n_kv_heads, cfg.hd
+def decoder_prefill(cfg, model: LM, x, enc, positions, cache_len: int,
+                    layers: range | None = None):
+    """x: (B, S, D), the embedded tokens; enc: (B, F, D) → (hidden before
+    the final norm, cache) over ``layers`` (all by default); the cross
+    k/v of every layer are cached once, here."""
+    B, S, _ = x.shape
+    layers = range(cfg.n_layers) if layers is None else layers
+    L, F, KV, hd = len(layers), enc.shape[1], cfg.n_kv_heads, cfg.hd
     ks = torch.zeros((L, B, cache_len, KV, hd), dtype=x.dtype,
                      device=x.device)
     vs = torch.zeros_like(ks)
     cks = torch.empty((L, B, F, KV, hd), dtype=x.dtype, device=x.device)
     cvs = torch.empty_like(cks)
-    for i, p in enumerate(model.dec_layers):
-        x, (k, v), (ck, cv) = dec_layer(cfg, p, x, enc, positions)
-        ks[i, :, :S], vs[i, :, :S], cks[i], cvs[i] = k, v, ck, cv
+    for li, i in enumerate(layers):
+        x, (k, v), (ck, cv) = dec_layer(cfg, model.dec_layers[i], x, enc,
+                                        positions)
+        ks[li, :, :S], vs[li, :, :S], cks[li], cvs[li] = k, v, ck, cv
     return x, {"k": ks, "v": vs, "ck": cks, "cv": cvs, "pos": S}
 
 
-def decoder_decode(cfg, model: LM, token, cache: dict):
-    """token: (B, 1) → (hidden before the final norm, cache) with the
-    step's self-attention k/v written in place at ``cache["pos"]``."""
-    x = embed_lookup(model.embed.table, token)
+def decoder_decode(cfg, model: LM, x, cache: dict,
+                   layers: range | None = None):
+    """x: (B, 1, D), the embedded token → (hidden before the final norm,
+    cache) over ``layers`` (all by default) with the step's
+    self-attention k/v written in place at ``cache["pos"]``."""
     pos = cache["pos"]
     positions = torch.arange(pos, pos + 1, device=x.device)
-    for i, p in enumerate(model.dec_layers):
-        x, _, _ = dec_layer(cfg, p, x, (cache["ck"][i], cache["cv"][i]),
-                            positions,
-                            kv_cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    layers = range(cfg.n_layers) if layers is None else layers
+    for li, i in enumerate(layers):
+        x, _, _ = dec_layer(cfg, model.dec_layers[i], x,
+                            (cache["ck"][li], cache["cv"][li]), positions,
+                            kv_cache=(cache["k"][li], cache["v"][li]),
+                            pos=pos)
     return x, {**cache, "pos": pos + 1}
 
 
@@ -569,12 +610,13 @@ def hidden_train(cfg, model: LM, inputs: dict):
     aux), differentiable: the one family dispatch of ``forward_train``
     and ``runtime.steps.loss_fn``."""
     _check_family(cfg)
-    if cfg.family == "encdec":
-        enc = encode(cfg, model, inputs["frames"])
-        x = decoder_train(cfg, model, inputs["tokens"], enc)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     x = embed_inputs(cfg, model, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "encdec":
+        enc = encode(cfg, model, inputs["frames"])
+        x = decoder_train(cfg, model, x, enc, positions)
+        return (final_hidden(cfg, model, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     x, aux = trunk_train(cfg, model, x, positions)
     return final_hidden(cfg, model, x), aux
 
@@ -592,15 +634,14 @@ def forward_prefill(cfg, model: LM, inputs: dict,
                     cache_len: int | None = None):
     """→ (last-token logits fp32 (B, 1, V), cache)."""
     _check_family(cfg)
+    x = embed_inputs(cfg, model, inputs)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
     if cfg.family == "encdec":
-        tokens = inputs["tokens"]
         enc = encode(cfg, model, inputs["frames"])
-        x, cache = decoder_prefill(cfg, model, tokens, enc,
-                                   cache_len or tokens.shape[1])
+        x, cache = decoder_prefill(cfg, model, x, enc, positions,
+                                   cache_len or S)
     else:
-        x = embed_inputs(cfg, model, inputs)
-        S = x.shape[1]
-        positions = torch.arange(S, device=x.device)
         x, cache = trunk_prefill(cfg, model, x, positions, cache_len or S)
     x = final_hidden(cfg, model, x[:, -1:])
     return _logits(model, x), cache
@@ -611,10 +652,10 @@ def forward_decode(cfg, model: LM, token: torch.Tensor, cache: dict):
     """token: (B, 1) int → (logits fp32 (B, 1, V), cache).  Writes the
     step's k/v (or state) into ``cache``'s tensors in place."""
     _check_family(cfg)
+    x = embed_lookup(model.embed.table, token)
     if cfg.family == "encdec":
-        x, cache = decoder_decode(cfg, model, token, cache)
+        x, cache = decoder_decode(cfg, model, x, cache)
     else:
-        x = embed_lookup(model.embed.table, token)
         x, cache = trunk_decode(cfg, model, x, cache)
     x = final_hidden(cfg, model, x)
     return _logits(model, x), cache

@@ -15,7 +15,10 @@ dtype and decays the parameter before the step.  The parameters and
 the moments are updated in place (the reference returns new ones, which
 at full size would hold a second copy of both moments); the count is
 new.  The step count, the learning rate and the gradient norm stay
-device tensors: nothing here waits on the device.
+device tensors: nothing here waits on the device.  The parameters may
+lie on several devices (the stages of ``runtime.pipeline``): the norm is
+summed on the first one's, and each step's scalars are copied to each
+parameter's device.
 """
 from __future__ import annotations
 
@@ -65,8 +68,10 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every tensor's fp32 squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
+    """sqrt of the sum of every tensor's fp32 squares, on the first
+    tensor's device."""
+    dev = next(iter(tree.values())).device
+    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))).to(dev)
                           for t in tree.values()))
 
 
@@ -102,14 +107,19 @@ def apply_gradients(params: Mapping[str, torch.Tensor],
     lr = cfg.lr_at(count)
     bc1 = 1.0 - torch.pow(cfg.b1, count.to(torch.float32))
     bc2 = 1.0 - torch.pow(cfg.b2, count.to(torch.float32))
+    scalars = {}                       # (scale, lr, bc1, bc2) by device
     for name, p in params.items():
-        g = grads[name].to(torch.float32) * scale
+        if p.device not in scalars:
+            scalars[p.device] = [t.to(p.device) if isinstance(t, torch.Tensor)
+                                 else t for t in (scale, lr, bc1, bc2)]
+        scale_d, lr_d, bc1_d, bc2_d = scalars[p.device]
+        g = grads[name].to(torch.float32) * scale_d
         # b1·m + (1 - b1)·g, each product rounded before the sum
         m = state["m"][name].mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v = state["v"][name].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        step = (m / bc1_d) / (torch.sqrt(v / bc2_d) + cfg.eps)
         if cfg.weight_decay > 0 and _reference_ndim(name, p) >= 2:
             step = step + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * step)
+        p.copy_(p.to(torch.float32) - lr_d * step)
     return ({"m": state["m"], "v": state["v"], "count": count},
             {"grad_norm": gnorm, "lr": lr})

@@ -13,7 +13,7 @@ the host only when logging, as the reference's loop does.  Training runs
 the plain route (``cfg.attn_impl="xla"``), as the reference's always
 does: the kernels have no backward, and ``kernels.ops`` raises if
 autograd would record one.  The ZeRO-1 sharding of the gradient
-accumulator waits for sharding (ROADMAP queue 1, item 12); with one
+accumulator waits for sharding (ROADMAP queue 1, item 12b); with one
 device it is the identity, as in the reference without a mesh.
 """
 from __future__ import annotations
@@ -24,6 +24,8 @@ from ..models import lm
 from ..models.common import chunked_cross_entropy
 from ..optim import (CompressionConfig, OptConfig, apply_gradients,
                      compress_gradients, init_error_state, init_opt_state)
+from .pipeline import (PipelineConfig, place_stages, repack_params,
+                       unpack_params)
 
 
 def loss_fn(cfg, model: lm.LM, batch: dict):
@@ -123,32 +125,69 @@ def train_state(model: lm.LM, comp: CompressionConfig | None = None) -> dict:
     return state
 
 
-def reference_state(state: dict) -> dict:
+def _relaid(tree: dict, fn) -> dict:
+    """``tree`` with ``fn`` applied to its pipelined stack (``layers``, or
+    the enc-dec family's ``dec_layers``)."""
+    key = "dec_layers" if "dec_layers" in tree else "layers"
+    return {**tree, key: fn(tree[key])}
+
+
+def reference_state(state: dict, pcfg: PipelineConfig | None = None) -> dict:
     """The state as the reference's tree of host arrays (``params``,
     ``opt``, ``step``, ``err``), each stacked tree's blocks stacked on
-    the layer axis: what a checkpoint holds."""
-    tree = {"params": lm.to_reference(state["model"]),
-            "opt": {"m": lm.reference_tree(state["opt"]["m"]),
-                    "v": lm.reference_tree(state["opt"]["v"]),
+    the layer axis: what a checkpoint holds.  A pipelined state
+    (``pcfg``) has its layers, and their moments, in the reference's
+    pipeline layout (K, l_max, ...), zero pads included."""
+    def tree_of(named):
+        tree = lm.reference_tree(named)
+        if pcfg is None:
+            return tree
+        return _relaid(tree, lambda t: repack_params(
+            t, pcfg, next(_leaves(t)).shape[0]))
+    tree = {"params": tree_of(dict(state["model"].named_parameters())),
+            "opt": {"m": tree_of(state["opt"]["m"]),
+                    "v": tree_of(state["opt"]["v"]),
                     "count": state["opt"]["count"]},
             "step": state["step"]}
     if "err" in state:
-        tree["err"] = lm.reference_tree(state["err"])
+        tree["err"] = tree_of(state["err"])
     return tree
 
 
-def state_from_reference(cfg, tree: dict, device=None) -> dict:
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def state_from_reference(cfg, tree: dict, device=None,
+                         pcfg: PipelineConfig | None = None,
+                         mesh=None) -> dict:
     """The inverse of ``reference_state``: a reference-layout state (a
     checkpoint's, of either package) as a port state on ``device``, its
-    model trainable."""
-    model = lm.from_reference(cfg, tree["params"], device).requires_grad_(True)
+    model trainable; a pipelined one (``pcfg``, its layers in the
+    reference's pipeline layout) with its stages placed on ``mesh``."""
+    def named(t):
+        if pcfg is not None:
+            t = _relaid(t, lambda s: unpack_params(s, pcfg, cfg.n_layers))
+        return t
+    model = lm.from_reference(cfg, named(tree["params"]), device)
+    model.requires_grad_(True)
     dev = model.device
     opt = tree["opt"]
     state = {"model": model,
-             "opt": {"m": lm.named_from_reference(cfg, opt["m"], dev),
-                     "v": lm.named_from_reference(cfg, opt["v"], dev),
+             "opt": {"m": lm.named_from_reference(cfg, named(opt["m"]), dev),
+                     "v": lm.named_from_reference(cfg, named(opt["v"]), dev),
                      "count": torch.as_tensor(opt["count"]).to(dev)},
              "step": torch.as_tensor(tree["step"]).to(dev)}
     if "err" in tree:
-        state["err"] = lm.named_from_reference(cfg, tree["err"], dev)
+        state["err"] = lm.named_from_reference(cfg, named(tree["err"]), dev)
+    if pcfg is not None:
+        place_stages(cfg, model, pcfg, mesh)
+        params = dict(model.named_parameters())
+        for key in ("m", "v"):
+            state["opt"][key] = {n: t.to(params[n].device)
+                                 for n, t in state["opt"][key].items()}
     return state
