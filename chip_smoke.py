@@ -307,11 +307,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              --microbatches 4 --auto-partition``: the cuts must be (7,);
              step ms, tokens/s and peak printed beside phase 25's; the
              warm-up loss within 1e-2 of phase 25's on the same batch.
+31. sharded parity — the data and model axes (``sharding.api``:
+             DTensor on a ``(data, model)`` mesh of NCCL ranks, one card
+             a rank, spawned from this script by
+             ``launch.mesh.spawn_ranks`` with the training numerics on in
+             each): on the largest mesh the cards allow ((2, 2) with four
+             or more, (1, 2) with two or three, the world-1 mesh (1, 1)
+             with one) one sharded train step against the one-card plain
+             step on the same weights and batch, in rank 0: qwen3-1.7b
+             at full width, 2 layers, fp32, batch 8, seq 512 (the loss
+             within 1e-5 relative, every gradient leaf, recovered from the
+             gathered first moment, within 1e-4 of its largest, both
+             moments within 1e-5 of theirs; each rank's moment bytes
+             printed beside 1/(data x model) of the one-card bytes), then
+             every family's reduced config at batch 4, seq 32 (the loss
+             and gradients alike, the moments within the gradients' 1e-4
+             and 2e-4); whether the world-1 step was ``torch.equal``; no
+             kernel launched;
+32. sharded train — qwen3-1.7b at full width and depth through
+             ``launch.train``'s ``setup`` in each rank with
+             ``--data-par D --model-par M``, phase 25's flags (bf16, remat,
+             batch 8, seq 2048): one warm-up and six timed steps, the
+             median step ms, tokens/s and each card's peak printed beside
+             phase 25's, the warm-up loss within 1e-2 of phase 25's on the
+             same batch; at (2, 2) and (4, 1) with four or more cards,
+             (1, 2) and (2, 1) with two or three; with one card no mesh
+             (phase 25 is that step): one line names the card count and
+             the meshes not run.
 
 The kernel table's LM rows count the launches of every LM serving path
 (phases 7, 11, 15, 19 and 21, and the pipelined serves of phase 28);
 every row's ``train_launches`` counts those of the training slices
-(phases 25 and 30), 0 for each: training runs the plain route.  The rows for the two scan entries carry their
+(phases 25, 30 and 32), 0 for each: training runs the plain route.  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
 last three lines of
 standard output are the kernel table (JSON), the
@@ -461,6 +488,20 @@ PIPE_PARITY_B, PIPE_PARITY_M = 4, 4
 # batch (the microbatches' sums round in another order)
 PIPE_TRAIN_FLAGS = ["--pods", "2", "--microbatches", "4", "--auto-partition"]
 PIPE_TRAIN_CUTS, PIPE_TRAIN_LOSS_TOL = (7,), 1e-2
+# phase 31: the sharded step held to the one-card step (phase 24's
+# gates; the moments of the full-width case within 1e-5 of their largest,
+# those of the reduced families within the gradients' 1e-4, and 2e-4 for
+# the second, the gradient's square: the hybrid's SSD brings its A_log
+# gradient to about 5e-5); its cases: (label, arch, full width, batch,
+# seq)
+SHARD_PARITY_CASES = [("full", TRAIN_ARCH, True, 8, 512)] + [
+    (fam, arch, False, 4, 32) for fam, arch in TRAIN_FAMILIES.items()]
+SHARD_MOMENT_FRAC = 1e-5
+# phase 32: phase 25's run on the ranks, each mesh (data, model) the cards
+# allow; the warm-up loss within 1e-2 of phase 25's, as phase 30's
+SHARD_TRAIN_LOSS_TOL = 1e-2
+# a spawn of ranks that runs past this fails its phase (every rank killed)
+SHARD_TIMEOUT_S = 420
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -3341,6 +3382,275 @@ def pipeline_train(torch, dev, smi, plain: dict) -> dict[str, int]:
     return launches
 
 
+def shard_meshes(cards: int) -> tuple[tuple, tuple]:
+    """The meshes (data, model) the cards allow → (phase 31's, phase
+    32's)."""
+    if cards >= 4:
+        return (2, 2), ((2, 2), (4, 1))
+    if cards >= 2:
+        return (1, 2), ((1, 2), (2, 1))
+    return (1, 1), ()
+
+
+def spawn_phase(phase: str, spec: dict, world: int, timeout_s: float) -> dict:
+    """This script as ``world`` ranks of one NCCL group (``python3
+    chip_smoke.py --rank PHASE SPEC OUT``, one card a rank), each running
+    ``phase`` on ``spec`` → what rank 0 wrote.  A rank's failure, or the
+    ranks running past ``timeout_s``, fails the phase."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        spec_path = os.path.join(tmp, "spec.json")
+        out_path = os.path.join(tmp, "out.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        code = spawn_ranks([sys.executable, os.path.abspath(__file__),
+                            "--rank", phase, spec_path, out_path], world,
+                           timeout_s=timeout_s)
+        if code:
+            raise AssertionError(f"phase {phase}: the ranks exited {code}")
+        with open(out_path) as f:
+            return json.load(f)
+
+
+def _moment_trees(tree: dict):
+    """(m, v) of a ``reference_state`` tree as {path: float64 array}."""
+    import numpy as np
+
+    def flat(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v, np.float64)
+    return (dict(flat(tree["opt"]["m"])), dict(flat(tree["opt"]["v"])))
+
+
+def sharded_parity_rank(spec: dict, out_path: str) -> None:
+    """Phase 31 in one rank: each case's sharded step on the spec's mesh,
+    and in rank 0 the one-card plain step first; rank 0 writes the
+    comparisons."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.api import local, use_mesh_context
+    train.set_numerics()
+    mesh = make_host_mesh(1, *spec["mesh"], "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    opt = OptConfig(lr=TRAIN_LR)
+    ops.reset_launch_counts()
+    rows = []
+    for label, arch, full, B, S in spec["cases"]:
+        t0 = time.perf_counter()
+        cfg = (configs.get(arch).replace(n_layers=TRAIN_PARITY_LAYERS,
+                                         dtype="float32") if full
+               else configs.reduced(arch)).replace(attn_impl="xla")
+        model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = SyntheticLM(cfg, DataConfig(B, S, 0), device=dev).batch_at(0)
+        if rank == 0:
+            st, met = steps.make_train_step(cfg, opt)(
+                steps.train_state(copy.deepcopy(model)), batch)
+            plain_m = {k: v.item() for k, v in met.items()}
+            plain = _moment_trees(steps.reference_state(st))
+            one_bytes = sum(t.numel() * 4 for t in st["opt"]["m"].values())
+            del st, met
+            gc.collect()
+            torch.cuda.empty_cache()
+        with use_mesh_context(mesh):
+            state = steps.train_state(model)
+            step = steps.make_train_step(cfg, opt)
+        state, met = step(state, batch)
+        # every rank gathers, rank 0 alone keeps the trees
+        mine = steps.reference_state(state, keep=rank == 0)
+        held = sum(local(t).numel() * 4 for t in state["opt"]["m"].values())
+        every = [None] * world
+        dist.all_gather_object(every, held)
+        sharded_m = {k: v.item() for k, v in met.items()}
+        del state, step, model, met
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank != 0:
+            continue
+        mine = _moment_trees(mine)
+
+        def grads(m, gn):
+            s = min(1.0, opt.clip_norm / (gn + 1e-9)) * (1 - opt.b1)
+            return {k: v / s for k, v in m.items()}
+        g0 = grads(plain[0], plain_m["grad_norm"])
+        g1 = grads(mine[0], sharded_m["grad_norm"])
+
+        def worst(a, b):
+            return max(float(np.abs(b[k] - a[k]).max())
+                       / max(float(np.abs(a[k]).max()), 1e-30) for k in a)
+        rows.append({
+            "label": label, "name": cfg.name, "family": cfg.family,
+            "layers": cfg.n_layers, "batch": B, "seq": S,
+            "loss": sharded_m["loss"], "plain_loss": plain_m["loss"],
+            "loss_rel": abs(sharded_m["loss"] - plain_m["loss"])
+            / abs(plain_m["loss"]),
+            "grad": worst(g0, g1), "m": worst(plain[0], mine[0]),
+            "v": worst(plain[1], mine[1]),
+            "equal": bool(sharded_m["loss"] == plain_m["loss"] and all(
+                np.array_equal(p[k], q[k]) for p, q in zip(plain, mine)
+                for k in p)),
+            "bytes": every, "one_bytes": one_bytes,
+            "s": time.perf_counter() - t0})
+    launches = [None] * world
+    dist.all_gather_object(launches, ops.launch_counts())
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"cases": rows, "launches": launches}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_parity(torch, smi) -> None:
+    """Phase 31: the sharded step held to the one-card step on the mesh
+    the cards allow (``shard_meshes``)."""
+    t0 = time.perf_counter()
+    mesh = shard_meshes(torch.cuda.device_count())[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = spawn_phase("31", {"mesh": list(mesh),
+                             "cases": SHARD_PARITY_CASES},
+                      mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+    bad = []
+    for r in res["cases"]:
+        full = r["label"] == "full"
+        m_frac = SHARD_MOMENT_FRAC if full else TRAIN_GRAD_FRAC
+        v_frac = m_frac if full else 2 * m_frac
+        log(f"  sharded parity (phase 31) {r['name']} ({r['family']}, "
+            f"{r['layers']} layers, fp32, batch {r['batch']}, seq "
+            f"{r['seq']}) at (data, model) {mesh}: loss {r['loss']:.7f} "
+            f"against the one-card {r['plain_loss']:.7f} (rel "
+            f"{r['loss_rel']:.3e}); worst gradient leaf {r['grad']:.3e}, m "
+            f"{r['m']:.3e}, v {r['v']:.3e} of its largest; torch.equal "
+            f"{r['equal']}; moment bytes a rank {r['bytes']} against "
+            f"1/{mesh[0] * mesh[1]} of the one-card "
+            f"{r['one_bytes'] / (mesh[0] * mesh[1]):.0f}; {r['s']:.1f} s")
+        if r["loss_rel"] > 1e-5 or r["grad"] > TRAIN_GRAD_FRAC \
+                or r["m"] > m_frac or r["v"] > v_frac:
+            bad.append(r["name"])
+    moved = [{k: n for k, n in c.items() if n} for c in res["launches"]]
+    log(f"sharded parity (phase 31) on {smi}: {len(res['cases'])} cases at "
+        f"{mesh}, launches a rank {moved}; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"phase 31: the sharded step is not the "
+                             f"one-card step for {bad}")
+    if any(moved):
+        raise AssertionError(f"phase 31: sharded training launched kernels "
+                             f"{moved}")
+
+
+def sharded_train_rank(spec: dict, out_path: str) -> None:
+    """Phase 32 in one rank: phase 25's run through ``launch.train``'s
+    ``setup`` on the spec's mesh; rank 0 writes every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    d, m = spec["mesh"]
+    args = train.parse_args(TRAIN_ARGS + [
+        "--batch", str(spec["batch"]), "--steps", str(TRAIN_WARM
+                                                      + TRAIN_STEPS),
+        "--data-par", str(d), "--model-par", str(m)])
+    train.set_numerics()
+    t0 = time.perf_counter()
+    cfg, state, step_fn, data, _ = train.setup(args)
+    setup_s = time.perf_counter() - t0
+    batch = data.batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_WARM + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(met["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    mine = {"step_ms": step_ms, "losses": losses, "setup_s": setup_s,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": ops.launch_counts(),
+            "params": state["model"].param_count()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(every, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_train(torch, smi, plain: dict) -> dict[str, int]:
+    """Phase 32: phase 25's run on each mesh the cards allow, beside
+    phase 25 → the ranks' kernel launches (all 0)."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    meshes = shard_meshes(cards)[1]
+    launches: dict[str, int] = {}
+    if not meshes:
+        log(f"sharded train (phase 32): {cards} card, no mesh of ranks to "
+            f"run ((2, 2) and (4, 1) need four, (1, 2) and (2, 1) two); "
+            f"phase 25 ran the one-card step")
+        return launches
+    B, S = plain["batch"], TRAIN_S
+    for mesh in meshes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_phase("32", {"mesh": list(mesh), "batch": B},
+                            mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+        lead = ranks[0]
+        timed = sorted(lead["step_ms"][TRAIN_WARM:])
+        med = (timed[len(timed) // 2] if len(timed) % 2 else
+               (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2)
+        worst = max(sorted(r["step_ms"][TRAIN_WARM:])[len(timed) // 2]
+                    for r in ranks)
+        losses = lead["losses"]
+        diff = abs(losses[0] - plain["losses"][0])
+        log(f"sharded train (phase 32) {TRAIN_ARCH} full width and depth "
+            f"({lead['params']} parameters), bf16, remat, batch {B}, seq "
+            f"{S} at (data, model) {mesh} on {mesh[0] * mesh[1]} of {cards} "
+            f"cards, {smi}: setup {lead['setup_s']:.1f} s")
+        log(f"  losses {json.dumps([float(f'{x:.6f}') for x in losses])}")
+        log(f"  step ms (rank 0, each) "
+            f"{json.dumps([round(t, 2) for t in lead['step_ms']])}; median "
+            f"of the {TRAIN_STEPS} timed {med:.2f} ms (slowest rank's "
+            f"median {worst:.2f}), {B * S / med * 1e3:.0f} tokens/s; peak "
+            f"GiB a card {[round(r['peak'] / 2**30, 3) for r in ranks]}")
+        log(f"  beside phase 25 (one card, batch {B}): step {med:.2f} "
+            f"against {plain['step_ms']:.2f} ms "
+            f"({plain['step_ms'] / med:.4f}x), {B * S / med * 1e3:.0f} "
+            f"against {plain['tokens_s']:.0f} tokens/s, peak "
+            f"{max(r['peak'] for r in ranks) / 2**30:.3f} against "
+            f"{plain['peak'] / 2**30:.3f} GiB; warm-up loss {losses[0]:.6f} "
+            f"against {plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
+            f"{SHARD_TRAIN_LOSS_TOL})")
+        for r in ranks:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 32 at {mesh}: losses {losses}")
+        if not diff <= SHARD_TRAIN_LOSS_TOL:
+            raise AssertionError(f"phase 32 at {mesh}: the warm-up loss is "
+                                 "not the one-card one")
+    if any(launches.values()):
+        raise AssertionError(f"phase 32 launched kernels: {launches}")
+    log(f"sharded train (phase 32) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3795,6 +4105,15 @@ def main() -> int:
         train_launches[k] += n
     log(f"pod pipeline phases 28-30 took {time.perf_counter() - t_pipe:.1f} s")
 
+    # ------------------------------------------------- data and model axes
+    t_shard = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_parity(torch, smi)
+    for k, n in sharded_train(torch, smi, plain_train).items():
+        train_launches[k] += n
+    log(f"sharded phases 31-32 took {time.perf_counter() - t_shard:.1f} s")
+
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
@@ -3837,4 +4156,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+        with open(sys.argv[3]) as spec_file:
+            spec = json.load(spec_file)
+        {"31": sharded_parity_rank, "32": sharded_train_rank}[sys.argv[2]](
+            spec, sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) > 1:
+        sys.exit(f"usage: {sys.argv[0]}")
     sys.exit(main())

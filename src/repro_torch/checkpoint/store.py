@@ -22,8 +22,12 @@ the manifest's dtype, so a bf16 leaf comes back bit for bit without
 writer at a time that snapshots to the host before it returns (training
 then overwrites the tensors in place while the write goes on), and the
 rule that a torn ``step_*.tmp`` is never restored and is collected.
-Placing a restored tree on a mesh (the reference's ``reshard_tree``)
-waits for sharding (ROADMAP queue 1, item 12b).
+Under a mesh every rank gathers the state it saves
+(``runtime.steps.reference_state``) and rank 0 alone writes it, so a
+checkpoint holds whole leaves whatever the mesh; ``reshard_tree`` (and
+``load_checkpoint``/``restore`` with a specs tree) places them on the
+current mesh, each rank keeping its shards: a run resumes on any mesh,
+or on one device.
 """
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from ..models.common import from_host, host_array
+from ..sharding.api import Layout
 
 
 def _flatten(tree, prefix=""):
@@ -124,9 +130,27 @@ def save_checkpoint(path: str | Path, state, step: int,
     return _write(Path(path), _snapshot(state), step, extra)
 
 
-def load_checkpoint(path: str | Path) -> tuple[dict, dict]:
+def reshard_tree(tree: dict, specs_tree: dict) -> dict:
+    """Every leaf of ``tree`` (a whole tensor) that ``specs_tree`` gives a
+    ``Layout`` placed on its mesh in its placements, each rank keeping
+    its shards with no communication (every rank holds the whole leaf);
+    the rest as they are: an elastic restore onto any mesh (the
+    reference's ``device_put`` onto each spec's sharding)."""
+    specs = {k: v for k, v in _flatten(specs_tree).items()
+             if isinstance(v, Layout)}
+    return _unflatten({
+        k: v if k not in specs else distribute_tensor(
+            v.to(specs[k].mesh.device_type), specs[k].mesh,
+            specs[k].placements, src_data_rank=None)
+        for k, v in _flatten(tree).items()})
+
+
+def load_checkpoint(path: str | Path,
+                    specs_tree: dict | None = None) -> tuple[dict, dict]:
     """→ (state as a nested dict of CPU tensors, manifest); every leaf
-    read as the manifest's dtype names it."""
+    read as the manifest's dtype names it.  With ``specs_tree`` (a tree
+    of ``Layout`` leaves) the state is placed on the current mesh
+    (``reshard_tree``)."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     leaves = manifest["leaves"]
@@ -136,7 +160,10 @@ def load_checkpoint(path: str | Path) -> tuple[dict, dict]:
             key = k.replace("|", "/")
             flat[key] = from_host(z[k], "cpu",
                                   getattr(torch, leaves[key]["dtype"]))
-    return _unflatten(flat), manifest
+    state = _unflatten(flat)
+    if specs_tree is not None:
+        state = reshard_tree(state, specs_tree)
+    return state, manifest
 
 
 class CheckpointManager:
@@ -208,8 +235,9 @@ class CheckpointManager:
         ckpts = self._complete()
         return ckpts[-1] if ckpts else None
 
-    def restore(self) -> tuple[dict | None, dict | None]:
+    def restore(self, specs_tree: dict | None = None
+                ) -> tuple[dict | None, dict | None]:
         p = self.latest()
         if p is None:
             return None, None
-        return load_checkpoint(p)
+        return load_checkpoint(p, specs_tree)

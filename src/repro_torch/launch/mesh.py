@@ -1,5 +1,5 @@
-"""Stage placement for the pod pipeline (counterpart of
-``src/repro/launch/mesh.py``).
+"""Meshes: stage placement for the pod pipeline, and the ``(data,
+model)`` mesh of the ranks (counterpart of ``src/repro/launch/mesh.py``).
 
 The reference's pipeline is one single-controller SPMD program: a
 ``shard_map`` manual over the mesh's ``pod`` axis, each pod holding its
@@ -9,17 +9,30 @@ the same schedule from one process: stage ``k`` and its layers live on
 differentiates, so the backward crosses the stages on its own.  One
 process needs no collective, and it works where the ranks could not: on
 a machine with one card every stage shares it (two NCCL ranks on one
-device are refused).  ``torch.distributed`` belongs to the ``data`` and
-``model`` axes, where each rank is a real device (ROADMAP queue 1, item
-12b); until their port, asking for either is an error.  ``plan_pipeline``
-is the launchers' one way to a pipeline: its cuts, its mesh, the model
-placed.
+device are refused).  ``plan_pipeline`` is the launchers' one way to a
+pipeline: its cuts, its mesh, the model placed.
+
+The ``data`` and ``model`` axes are ``torch.distributed`` ranks, each a
+real device: ``spawn_ranks`` starts them as processes of one command
+(or ``torchrun`` does), ``join`` puts a process in their group (gloo on
+the CPU, NCCL on ``cuda:{local rank}``) and ``make_host_mesh`` inside a
+rank gives their ``DeviceMesh``.  The rendezvous is a ``FileStore`` in a
+fresh temporary directory (``REPRO_TORCH_STORE``), or ``torchrun``'s
+``MASTER_ADDR``/``MASTER_PORT``: never a fixed port.  Pods with data or
+model axes (the reference's ``(pod, data, model)`` mesh) are not ported
+(ROADMAP queue 1, item 12c).
 """
 from __future__ import annotations
 
+import os
+import subprocess
+import tempfile
+import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from ..models.blocks_adapter import choose_pipeline_cuts
 from ..models.cnn.zoo import resolve_device
@@ -37,23 +50,109 @@ class PodMesh:
 
 
 def make_host_mesh(n_pods: int = 1, data: int = 1, model: int = 1,
-                   device=None) -> PodMesh:
+                   device=None):
     """``n_pods`` stages on ``device``'s kind (``cuda`` unless the caller
     names another): on the card, stage ``k`` on ``cuda:{k % count}``, so
     that one card holds every stage and four cards one each; on the CPU
-    every stage on the CPU."""
-    if data * model > 1:
+    every stage on the CPU.  For ranks (``data`` x ``model`` > 1, or one
+    pod in a process that is a rank) → the ranks' ``(data, model)``
+    ``DeviceMesh`` instead (``rank_mesh``)."""
+    if n_pods > 1 and data * model > 1:
         raise NotImplementedError(
-            f"data {data} x model {model}: the data and model axes wait for "
-            "the port of sharding/api.py (ROADMAP queue 1, item 12b)")
+            f"pods {n_pods} with data {data} x model {model}: the (pod, "
+            "data, model) mesh is not ported (ROADMAP queue 1, item 12c)")
     if n_pods < 1:
         raise ValueError(f"n_pods {n_pods}")
+    if data * model > 1 or (n_pods == 1 and (in_rank()
+                                             or dist.is_initialized())):
+        return rank_mesh(data, model, device)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return PodMesh((dev,) * n_pods)
     count = torch.cuda.device_count()
     return PodMesh(tuple(torch.device("cuda", k % count)
                          for k in range(n_pods)))
+
+
+def in_rank() -> bool:
+    """Whether this process is one of a group's ranks (``spawn_ranks``'s
+    or ``torchrun``'s environment)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def join(device=None) -> torch.device:
+    """Put this process in its ranks' group, as its environment names it
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; ``REPRO_TORCH_STORE`` or
+    ``MASTER_ADDR``/``MASTER_PORT``): gloo on the CPU, NCCL on
+    ``cuda:{LOCAL_RANK}``, which becomes the current device → this
+    rank's device."""
+    dev = resolve_device(device)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        return dev
+    kw = {"rank": rank, "world_size": world}
+    store = os.environ.get("REPRO_TORCH_STORE")
+    if store:
+        kw["store"] = dist.FileStore(store, world)
+    else:
+        kw["init_method"] = "env://"
+    if dev.type == "cuda":
+        kw["device_id"] = dev
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", **kw)
+    return dev
+
+
+def rank_mesh(data: int, model: int, device=None):
+    """The ranks' ``(data, model)`` ``DeviceMesh``, rank ``r`` at ``(r //
+    model, r % model)``, joining the group first if this process has
+    not."""
+    dev = join(device)
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"data {data} x model {model} is not the "
+                         f"{world} ranks of the group")
+    return init_device_mesh(dev.type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def spawn_ranks(cmd: list[str], world: int, env: dict | None = None,
+                grace_s: float = 30.0, timeout_s: float | None = None) -> int:
+    """Run ``cmd`` as ``world`` ranks of one group (``RANK`` and
+    ``LOCAL_RANK`` ``r``, a fresh ``FileStore``) and wait for them →
+    the group's exit code: of the ranks that ended by themselves, rank
+    0's if it failed, else the first failed rank's; else 0.  Once a rank
+    has failed, the others get ``grace_s`` to end before they are killed
+    (one left in a collective would wait for ever), and after
+    ``timeout_s`` every rank is; none outlives the call."""
+    with tempfile.TemporaryDirectory(prefix="repro_ranks_") as tmp:
+        base = {**os.environ, **(env or {}), "WORLD_SIZE": str(world),
+                "LOCAL_WORLD_SIZE": str(world),
+                "REPRO_TORCH_STORE": os.path.join(tmp, "store")}
+        procs = [subprocess.Popen(cmd, env={**base, "RANK": str(r),
+                                            "LOCAL_RANK": str(r)})
+                 for r in range(world)]
+        failed_at, killed = None, set()
+        t0 = time.monotonic()
+        try:
+            while any(p.poll() is None for p in procs):
+                now = time.monotonic()
+                if failed_at is None and any(p.returncode for p in procs):
+                    failed_at = now
+                if failed_at is not None and now - failed_at > grace_s \
+                        or timeout_s is not None and now - t0 > timeout_s:
+                    break
+                time.sleep(0.05)
+        finally:
+            for r, p in enumerate(procs):
+                if p.poll() is None:
+                    p.kill()
+                    killed.add(r)
+                p.wait()
+    own = [p.returncode for r, p in enumerate(procs) if r not in killed]
+    return next((c for c in own if c), 0) or (-9 if killed else 0)
 
 
 def plan_pipeline(cfg, model, pods: int, microbatches: int, *, seq: int,

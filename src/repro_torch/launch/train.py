@@ -1,6 +1,7 @@
-"""Training launcher: one device or a pod pipeline, checkpoint/restart,
-deterministic data resume, gradient compression and a crash drill
-(counterpart of ``src/repro/launch/train.py``).
+"""Training launcher: one device, the data and model axes, or a pod
+pipeline; checkpoint/restart, deterministic data resume, gradient
+compression and a crash drill (counterpart of
+``src/repro/launch/train.py``).
 
 Trains any registered architecture (``--arch``, full or ``--reduced``)
 from random weights drawn with ``--seed``, with AdamW, clipping and the
@@ -25,24 +26,43 @@ apart, so equal lines are equal bits.
   python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
       --device cpu --pods 2 --microbatches 2 --auto-partition \
       --steps 16 --batch 2 --seq 32
+  # the data and model axes: 4 ranks at (data 2, model 2), gloo ranks
+  # on the CPU, or one card a rank with --device cuda:
+  python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
+      --device cpu --data-par 2 --model-par 2 --steps 16 --batch 4 \
+      --seq 32
+
+``--data-par D --model-par M`` (D x M > 1) trains on a ``(data, model)``
+mesh of D x M ranks (``runtime.steps`` under ``sharding.api``): the batch
+over ``data``, the rules table's tensor-parallel dims over ``model``,
+ZeRO-1 moments, and ``--compress-grads`` on the data axis's gradients.
+The command starts the ranks itself, one process each
+(``launch.mesh.spawn_ranks``), or is one of them when ``torchrun``'s
+environment names its rank.  Each draws the whole weights from
+``--seed`` and keeps its shards, so the run starts from the one-device
+run's weights.  Rank 0 alone prints and writes checkpoints (every rank
+joins the gathers), which hold whole leaves in the reference's layout,
+so a run resumes on another mesh, or on one device.  More ranks than
+cards is an error, never a smaller mesh or the CPU.
 
 ``--pods K`` (K > 1) trains through ``runtime.pipeline`` with
 ``--microbatches`` (4 by default) and even cuts, or with
 ``--auto-partition`` the cuts ``models.blocks_adapter`` picks, printed as
 the reference prints them; its checkpoints hold the reference's
-pipeline layout.  The data and model axes (``--data-par``,
-``--model-par``) wait for the port of sharding (ROADMAP queue 1, item
-12b), and the pipelined step takes no gradient compression: asking for
-either is an error, never ignored (the reference ignores
-``--compress-grads`` under ``--pods``).
+pipeline layout.  Pods with data or model axes are not ported (ROADMAP
+queue 1, item 12c), and the pipelined step takes no gradient
+compression: asking for either is an error, never ignored (the
+reference ignores ``--compress-grads`` under ``--pods``).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import configs
 from ..checkpoint import CheckpointManager
@@ -52,9 +72,11 @@ from ..models.cnn.zoo import resolve_device
 from ..optim import CompressionConfig, OptConfig, cosine_schedule
 from ..runtime.edge import apply_numerics
 from ..runtime.pipeline import make_pipeline_train_step
-from ..runtime.steps import (make_train_step, reference_state,
-                             state_from_reference, train_state)
-from .mesh import plan_pipeline
+from ..runtime.steps import (make_train_step, reference_layouts,
+                             reference_state, state_from_reference,
+                             train_state)
+from ..sharding.api import MeshContext, is_dtensor, use_mesh_context
+from .mesh import in_rank, make_host_mesh, plan_pipeline, spawn_ranks
 
 # cuBLAS's workspace setting for deterministic results; read when CUDA
 # starts, so it is set before the first CUDA call
@@ -90,15 +112,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.data_par * args.model_par > 1:
-        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
-                 "the data and model axes wait for the port of "
-                 "sharding/api.py (ROADMAP queue 1, item 12b)")
+    world = args.data_par * args.model_par
+    if args.pods > 1 and world > 1:
+        ap.error(f"--pods {args.pods} with --data-par {args.data_par} "
+                 f"--model-par {args.model_par}: the (pod, data, model) mesh "
+                 "is not ported (ROADMAP queue 1, item 12c)")
     if args.pods > 1 and args.compress_grads:
         ap.error(f"--compress-grads with --pods {args.pods}: the pipelined "
                  "step takes no gradient compression, as the reference's "
                  "(which ignores the flag; ROADMAP queue 3); compression "
-                 "belongs with the data axis (ROADMAP queue 1, item 12b)")
+                 "runs on the data axis (--data-par; ROADMAP queue 1, item "
+                 "12b)")
+    if world > 1 and torch.device(args.device).type == "cuda" \
+            and not in_rank() and world > torch.cuda.device_count():
+        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
+                 f"{world} ranks need {world} cards, one a rank; this "
+                 f"machine has {torch.cuda.device_count()}")
     if args.pods <= 1 and args.microbatches is not None:
         ap.error(f"--microbatches {args.microbatches} without --pods > 1: "
                  "microbatches are the pod pipeline's (runtime/pipeline.py, "
@@ -128,8 +157,16 @@ def setup(args: argparse.Namespace):
     clipping, the cosine schedule, compression when asked) and the data
     stream, all on ``--device``; under ``--pods`` the weights (the same
     draws) placed on the stages, the pipelined step, and ``pipe`` =
-    (PipelineConfig, mesh), else None."""
-    dev = resolve_device(args.device)
+    (PipelineConfig, mesh), else None.  In a rank of ``--data-par`` x
+    ``--model-par`` the same on the ranks' mesh: this rank's card (or
+    the CPU), the weights' shards, the sharded step."""
+    mesh = None
+    if args.data_par * args.model_par > 1 or in_rank():
+        mesh = make_host_mesh(1, args.data_par, args.model_par, args.device)
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+    else:
+        dev = resolve_device(args.device)
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
     over = {}
     if args.d_model:
@@ -144,8 +181,9 @@ def setup(args: argparse.Namespace):
     data = SyntheticLM(cfg, DataConfig(args.batch, args.seq, args.seed),
                        device=dev)
     if args.pods <= 1:
-        return (cfg, train_state(model, comp), make_train_step(cfg, opt, comp),
-                data, None)
+        with use_mesh_context(mesh):
+            return (cfg, train_state(model, comp),
+                    make_train_step(cfg, opt, comp), data, None)
     pcfg, mesh = plan_pipeline(cfg, model, args.pods, args.microbatches,
                                seq=args.seq, batch=args.batch,
                                auto_partition=args.auto_partition, train=True)
@@ -155,22 +193,42 @@ def setup(args: argparse.Namespace):
 
 def main(argv=None) -> dict:
     """Train as ``argv`` says; prints the reference's lines → {"arch",
-    "losses": {step: loss} of the logged steps, "final_loss"}."""
+    "losses": {step: loss} of the logged steps, "final_loss"}.  With
+    ``--data-par`` x ``--model-par`` > 1, outside a rank: starts the
+    ranks, each this command, and exits with their code (0 → {"arch",
+    "ranks"})."""
     args = parse_args(argv)
+    world = args.data_par * args.model_par
+    if world > 1 and not in_rank():
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               *(sys.argv[1:] if argv is None else argv)]
+        code = spawn_ranks(cmd, world)
+        if code:
+            sys.exit(code)
+        return {"arch": args.arch, "ranks": world}
     set_numerics()
     cfg, state, step_fn, data, pipe = setup(args)
     pcfg = None if pipe is None else pipe[0]
+    table = state["model"].embed.table
+    ranks = table.device_mesh if is_dtensor(table) else None
+    lead = ranks is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     mgr = None
     start = 0
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
-        restored, manifest = mgr.restore()
+        layouts = None if ranks is None else reference_layouts(
+            cfg, MeshContext(ranks), CompressionConfig(
+                enabled=args.compress_grads))
+        restored, manifest = mgr.restore(layouts)
         if restored is not None:
-            state = state_from_reference(cfg, restored,
-                                         state["model"].device, *pipe or ())
+            with use_mesh_context(ranks):
+                state = state_from_reference(cfg, restored,
+                                             state["model"].device,
+                                             *pipe or ())
             start = int(manifest["step"])
             data.load_state_dict(manifest["extra"]["data"])
-            print(f"[resume] step {start}")
+            say(f"[resume] step {start}")
 
     t0 = time.time()
     metrics = None
@@ -183,26 +241,39 @@ def main(argv=None) -> dict:
             # restoring *.tmp dirs
             if mgr is not None:
                 mgr.wait()
-            print(f"[fault-injection] crashing at step {step}", flush=True)
+            if ranks is not None:
+                dist.barrier()          # every rank's checkpoint is out
+            say(f"[fault-injection] crashing at step {step}", flush=True)
             os._exit(42)
         batch = data.batch_at(step)
         data.step = step + 1
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             losses[step] = float(metrics["loss"])
-            print(f"step {step:5d} loss {losses[step]:.9g} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            say(f"step {step:5d} loss {losses[step]:.9g} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"({time.time() - t0:.1f}s)", flush=True)
         if mgr is not None and mgr.should_save(step + 1):
-            mgr.save(reference_state(state, pcfg), step + 1,
-                     extra={"data": data.state_dict()}, block=False)
+            _save(mgr, reference_state(state, pcfg, keep=lead), step + 1,
+                  {"data": data.state_dict()}, block=False)
     if mgr is not None:
-        mgr.save(reference_state(state, pcfg), args.steps,
-                 extra={"data": data.state_dict()})
+        _save(mgr, reference_state(state, pcfg, keep=lead), args.steps,
+              {"data": data.state_dict()})
     final = None if metrics is None else float(metrics["loss"])
-    print(f"[done] {args.steps} steps, final loss "
-          f"{'none' if final is None else format(final, '.9g')}")
+    say(f"[done] {args.steps} steps, final loss "
+        f"{'none' if final is None else format(final, '.9g')}")
+    if ranks is not None:
+        dist.destroy_process_group()
     return {"arch": cfg.name, "losses": losses, "final_loss": final}
+
+
+def _save(mgr, tree: dict | None, step: int, extra: dict,
+          block: bool = True) -> None:
+    """Rank 0 (or the one device) writes ``tree``, which every rank
+    gathered and only rank 0 kept (``reference_state``: None on the
+    others)."""
+    if tree is not None:
+        mgr.save(tree, step, extra=extra, block=block)
 
 
 if __name__ == "__main__":

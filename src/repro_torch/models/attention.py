@@ -21,26 +21,44 @@ import math
 import torch
 
 from ..kernels import ops
+from ..sharding.api import (attn_q_names, get_context, is_dtensor,
+                            on_shards, shard)
 from .common import apply_rope, norm
 
 
 def attn_params(cfg, leaf) -> dict:
-    """``leaf``: a ``common.Init``.  Shapes and scales of the reference's
-    ``attn_params`` (``wo``'s fan-in is its first axis, H, as there)."""
+    """``leaf``: a ``common.Init`` (or ``common.Specs``).  Shapes, scales
+    and logical axes of the reference's ``attn_params`` (``wo``'s fan-in
+    is its first axis, H, as there).  Under a mesh whose ``model`` dim
+    does not divide the heads, the projections shard their contraction
+    dims instead (row-parallel: D for q/k/v, head_dim for o), the
+    reference's build-time choice."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"wq": leaf((D, H, hd)), "wk": leaf((D, KV, hd)),
-         "wv": leaf((D, KV, hd)), "wo": leaf((H, hd, D))}
+    ctx = get_context()
+    tp = ctx.size("model") if ctx is not None else 1
+    row_par = tp > 1 and H % tp != 0
+    qe = "embed_rp" if row_par else "embed"
+    od = "head_dim_rp" if row_par else "head_dim"
+    p = {"wq": leaf((D, H, hd), axes=(qe, "heads", "head_dim")),
+         "wk": leaf((D, KV, hd), axes=(qe, "kv_heads", "head_dim")),
+         "wv": leaf((D, KV, hd), axes=(qe, "kv_heads", "head_dim")),
+         "wo": leaf((H, hd, D), axes=("heads", od, "embed"))}
     if cfg.qk_norm:
-        p["q_norm"] = leaf((hd,), "ones")
-        p["k_norm"] = leaf((hd,), "ones")
+        p["q_norm"] = leaf((hd,), "ones", axes=("head_dim",))
+        p["k_norm"] = leaf((hd,), "ones", axes=("head_dim",))
     return p
 
 
 def qkv_project(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
                 rope: bool = True):
     """x: (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd).  ``p``: the ``attn``
-    node of a block."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    node of a block.  Under a mesh x is gathered whole along the
+    sequence first (it may arrive as the sequence-parallel residual)."""
+    x = shard(x, "batch", "seq", "embed")
+    # q's product in its own layout, whatever attention then takes: its
+    # gradient then reaches the product whole along the sequence
+    q = shard(torch.einsum("bsd,dhk->bshk", x, p.wq),
+              "batch", "seq", "heads", "head_dim")
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
     v = torch.einsum("bsd,dhk->bshk", x, p.wv)
     if cfg.qk_norm:
@@ -49,11 +67,17 @@ def qkv_project(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, *attn_q_names(cfg.n_heads))
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def o_project(p, attn_out: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", attn_out, p.wo)
+    # under a mesh the sequence comes whole (q may have been split on it)
+    attn_out = shard(attn_out, "batch", "seq", "heads", "head_dim")
+    y = torch.einsum("bshk,hkd->bsd", attn_out, p.wo)
+    return shard(y, "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------- #
@@ -79,11 +103,29 @@ def _causal_bias(n_q: int, n_k: int, device) -> torch.Tensor:
     return torch.where(pos_q >= pos_k, zero, float("-inf"))
 
 
+def _attend_on_shards(cfg, q, k, v, causal: bool):
+    """``attend_prefill_chunked`` of DTensors on each rank's shards: the
+    batch over ``data``, the kv heads (and their query heads) over
+    ``model`` where it divides them, the sequence whole (q's is gathered
+    if it came split); the heads whole on every rank where ``model``
+    does not divide the kv heads."""
+    ctx = get_context()
+    heads = "heads" if k.shape[2] % ctx.size("model") == 0 else None
+    kv = "kv_heads" if heads else None
+    qp = ctx.placements(("batch", "seq", heads, "head_dim"), tuple(q.shape))
+    kp = ctx.placements(("batch", "seq", kv, "head_dim"), tuple(k.shape))
+    return on_shards(lambda q, k, v: attend_prefill_chunked(
+        cfg, q, k, v, causal=causal), qp, (q, k, v), (qp, kp, kp))
+
+
 def attend_prefill_chunked(cfg, q, k, v, *, causal: bool = True):
     """The reference's plain prefill (``attention.py:90-150``): queries
     in chunks of ``cfg.attn_chunk``, each against the kv chunks up to
     the diagonal with an online-softmax carry; one full block when the
-    shapes do not divide the chunk.  q: (B,S,H,hd); k,v: (B,T,KV,hd)."""
+    shapes do not divide the chunk.  q: (B,S,H,hd); k,v: (B,T,KV,hd).
+    Under a mesh on each rank's shards (``_attend_on_shards``)."""
+    if is_dtensor(q):
+        return _attend_on_shards(cfg, q, k, v, causal)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV

@@ -2,14 +2,20 @@
 seeded weight init (counterpart of ``src/repro/models/common.py``).
 
 The reference declares every weight through a ``Builder`` (real arrays,
-abstract shapes with shardings, partition specs).  The port needs only
-real tensors on one card, so ``Init`` draws each leaf directly from a
-``torch.Generator`` with the reference builder's shapes and scales; the
-abstract and spec builders wait for sharding (ROADMAP queue 1, item
-12b).  A ``torch.Generator`` gives other numbers than ``jax.random`` from
-the same seed: parity loads the reference's weights
-(``lm.from_reference``) instead.  The tree itself keeps the reference's
-keys and leaf shapes (``Leaves``).
+abstract shapes with shardings, partition specs).  Here a leaf function
+takes the same declaration (shape, init, scale, dtype and the logical
+``axes``): ``Init`` draws each leaf directly from a ``torch.Generator``
+with the reference builder's shapes and scales, and ``Specs`` gives its
+PartitionSpec under a mesh (the reference's ``SpecBuilder``), from
+which ``param_placements`` gives every parameter's DTensor placements.
+Under a mesh ``Init`` still draws every leaf whole, on every rank, and
+``shard_model`` then keeps each rank's shard, so a sharded run starts
+from the one-device run's weights exactly.  (The reference's abstract
+builder, for its dry run, is not ported: ROADMAP queue 1, item 13.)  A
+``torch.Generator`` gives other numbers than ``jax.random`` from the
+same seed: parity loads the reference's weights (``lm.from_reference``)
+instead.  The tree itself keeps the reference's keys and leaf shapes
+(``Leaves``).
 
 Host arrays: numpy has no bfloat16 without ``ml_dtypes``, which the
 port does not import, so ``host_array`` hands a bf16 tensor over as its
@@ -23,6 +29,12 @@ back; SiLU rounds the fp32 sigmoid to the working dtype before the
 product; GELU is the tanh approximation (``jax.nn.gelu``'s default);
 softplus is ``jax.nn.softplus``'s formula; logits are fp32 from
 working-dtype operands.
+
+Under a mesh the embedding, the logits and the CE carry the reference's
+``shard`` points.  The CE over a vocabulary sharded on ``model`` is
+computed on each rank's slice of the logits: the max and the sum of
+the log-sum-exp, and the label's logit, reduce over ``model``
+(``_lse_minus_label``), so no rank holds a whole row of logits.
 """
 from __future__ import annotations
 
@@ -36,6 +48,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.api import (Partial, Replicate, Shard, get_context,
+                            in_context, is_dtensor, on_shards, shard,
+                            use_mesh_context)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -60,7 +75,8 @@ class Init:
     def __call__(self, shape: tuple[int, ...],
                  init: str | Callable = "normal",
                  scale: float | None = None,
-                 dtype: torch.dtype | None = None) -> torch.Tensor:
+                 dtype: torch.dtype | None = None,
+                 axes: tuple = ()) -> torch.Tensor:
         dtype = dtype or self.dtype
         if callable(init):
             return init(shape, dtype, self.device)
@@ -76,6 +92,54 @@ class Init:
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
         return (w * scale).to(dtype)
+
+
+class Specs:
+    """The spec builder (the reference's ``SpecBuilder``): a leaf
+    function that gives each leaf's PartitionSpec under ``ctx``, its
+    logical ``axes`` mapped through the rules table."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def __call__(self, shape, init="normal", scale=None, dtype=None,
+                 axes=()):
+        return self.ctx.spec(tuple(axes), tuple(shape))
+
+
+def param_specs(cfg, ctx) -> dict:
+    """Every parameter's PartitionSpec under ``ctx``, keyed by the port's
+    names (``layers.3.attn.wq``): a block's is its stacked reference
+    leaf's without the leading ``layers`` dim (always replicated).  The
+    builders run under ``ctx``, as attention's row-parallel choice reads
+    it."""
+    from . import lm
+    with use_mesh_context(ctx.mesh):
+        tree = lm.build_params(cfg, Specs(ctx))
+    return dict(_named(tree))
+
+
+def param_shapes(cfg) -> dict:
+    """Every parameter's shape, keyed by the port's names."""
+    from . import lm
+    return dict(_named(lm.build_params(
+        cfg, lambda shape, *a, **k: tuple(shape))))
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def param_placements(cfg, ctx) -> dict:
+    """Every parameter's DTensor placements under ``ctx``."""
+    return {n: ctx.placements_of(s) for n, s in param_specs(cfg, ctx).items()}
 
 
 class Leaves(nn.Module):
@@ -195,7 +259,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Embedding / head / loss
 # --------------------------------------------------------------------------- #
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    return shard(F.embedding(tokens, table), "batch", "seq", "embed")
 
 
 def lm_logits(x: torch.Tensor, table: torch.Tensor,
@@ -205,17 +269,46 @@ def lm_logits(x: torch.Tensor, table: torch.Tensor,
     for both operands and accumulates and returns fp32, as the
     reference's ``preferred_element_type=f32`` does (a bf16 product
     upcast afterwards would round each logit to bf16 first)."""
+    if x.ndim == 3:
+        # under a mesh the rows come whole along the sequence
+        x = shard(x, "batch", "seq", "embed")
     w = (head if head is not None else table.t()).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         out = x2 @ w
     elif x.is_cuda:
-        out = _Fp32Product.apply(x2, w)
+        out = _fp32_product(x2, w)
     else:
         # products of two bf16/fp16 values are exact in fp32, so an fp32
         # product of the upcast operands is the same function
         out = x2.to(torch.float32) @ w.to(torch.float32)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    out = out.reshape(*x.shape[:-1], w.shape[-1])
+    if out.ndim == 3:
+        out = shard(out, "batch", "seq", "vocab")
+    return out
+
+
+def _fp32_product(x2, w):
+    """``_Fp32Product`` of (rows, D) ``x2`` and (D, V) ``w``; under a mesh
+    on the local shards (``torch.mm``'s ``out_dtype`` has no DTensor
+    rule): ``x2``'s rows sharded (on ``data``) or whole, ``w``'s columns
+    sharded (on ``model``) or whole.  Each rank's product is its block
+    of the logits; its gradient of ``x2`` is a share of the sum over the
+    vocabulary's shards, of ``w`` one over the rows'."""
+    if not is_dtensor(x2):
+        return _Fp32Product.apply(x2, w)
+    xp, wp = tuple(x2.placements), tuple(w.placements)
+    out, gx, gw = [], [], []
+    for a, b in zip(xp, wp):
+        rows, cols = a == Shard(0), b == Shard(1)
+        if (not rows and a != Replicate()) or (not cols and b != Replicate()) \
+                or rows and cols:
+            raise ValueError(f"no local product for x {xp} @ w {wp}")
+        out.append(Shard(0) if rows else Shard(1) if cols else Replicate())
+        gx.append(Partial() if cols else a)
+        gw.append(Partial() if rows else b)
+    return on_shards(_Fp32Product.apply, tuple(out), (x2, w), (xp, wp),
+                     (tuple(gx), tuple(gw)))
 
 
 class _Fp32Product(torch.autograd.Function):
@@ -242,11 +335,64 @@ class _Fp32Product(torch.autograd.Function):
 def _lse_minus_label(logits: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
     """Per-token ``logsumexp - logit[label]`` of (..., V) fp32 logits,
-    the reference's max-shifted form."""
+    the reference's max-shifted form; under a mesh on each rank's slice
+    of the vocabulary (``_vocab_parallel``)."""
+    if is_dtensor(logits):
+        ctx = get_context()
+        names = ("batch",) + ("seq",) * (logits.ndim - 2)
+        lp = ctx.placements((*names, "vocab"), tuple(logits.shape))
+        tp = ctx.placements(names, tuple(labels.shape))
+        fn = _lse_minus_label
+        if "model" in ctx.axis_names and ctx.size("model") > 1 \
+                and lp[ctx.axis_names.index("model")] != Replicate():
+            mesh = ctx.mesh
+            fn = _VocabParallel(mesh.get_group("model"),
+                                mesh.get_local_rank("model"))
+        return on_shards(fn, tp, (logits, labels), (lp, tp))
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - lab
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of every rank's tensor over ``group`` (an all-reduce),
+    whose gradient on each rank is the output's: each rank's tensor is a
+    share of a sum that every rank then uses whole."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        torch.distributed.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _VocabParallel:
+    """``_lse_minus_label`` of one rank's (..., V/tp) slice of the logits
+    (the ``model`` dim's ``rank``-th): the max, the exponentials' sum and
+    the label's logit (from the rank that holds it, 0 elsewhere) reduce
+    over ``group``.  The max is a shift that cancels in the value and
+    its gradient; it is taken without one."""
+
+    def __init__(self, group, rank: int):
+        self.group, self.rank = group, rank
+
+    def __call__(self, logits, labels):
+        V = logits.shape[-1]
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=self.group)
+        s = _SumOver.apply(torch.exp(logits - m).sum(dim=-1), self.group)
+        lse = m[..., 0] + torch.log(s)
+        lab = labels.long() - self.rank * V
+        inside = (lab >= 0) & (lab < V)
+        picked = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])
+        picked = torch.where(inside, picked[..., 0], 0.0)
+        return lse - _SumOver.apply(picked, self.group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -279,10 +425,13 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     B, S, _ = x.shape
     if chunk <= 0 or S <= chunk or S % chunk:
         return cross_entropy(lm_logits(x, table, head), targets)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # under a mesh the chunks cut the sequence, so it comes whole
+    x = shard(x, "batch", "seq", "embed")
+    total = None
     for c0 in range(0, S, chunk):
         c = slice(c0, c0 + chunk)
-        total = total + torch.utils.checkpoint.checkpoint(
-            _chunk_ce_sum, x[:, c], table, head, targets[:, c],
+        part = torch.utils.checkpoint.checkpoint(
+            in_context(_chunk_ce_sum), x[:, c], table, head, targets[:, c],
             use_reentrant=False, preserve_rng_state=False)
+        total = part if total is None else total + part
     return total / (B * S)

@@ -58,12 +58,15 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import distribute_tensor
 
 from .attention import (attend_decode, attend_prefill, attn_params,
                         cache_update, o_project, qkv_project)
 from .cnn.zoo import resolve_device
 from .common import (DTYPES, Init, Leaves, embed_lookup, from_host,
-                     host_array, layer_norm, lm_logits, norm)
+                     host_array, layer_norm, lm_logits, norm,
+                     param_placements)
+from ..sharding.api import full, in_context, shard
 from .mlp import mlp, mlp_params, moe_mlp, moe_mlp_gshard, moe_params
 from .ssm import mamba1_block, mamba1_params, mamba2_block, mamba2_params
 
@@ -84,9 +87,9 @@ def _check_family(cfg) -> None:
 # Parameters
 # --------------------------------------------------------------------------- #
 def _norm_params(leaf, d: int, bias: bool = False) -> dict:
-    p = {"scale": leaf((d,), "ones")}
+    p = {"scale": leaf((d,), "ones", axes=("embed",))}
     if bias:
-        p["bias"] = leaf((d,), "zeros")
+        p["bias"] = leaf((d,), "zeros", axes=("embed",))
     return p
 
 
@@ -122,9 +125,11 @@ def build_params(cfg, leaf) -> dict:
     _check_family(cfg)
     encdec = cfg.family == "encdec"
     tree: dict = {"embed": {"table": leaf((cfg.vocab, cfg.d_model),
-                                          scale=0.02)}}
+                                          scale=0.02,
+                                          axes=("vocab", "embed"))}}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = {"w": leaf((cfg.d_model, cfg.vocab))}
+        tree["lm_head"] = {"w": leaf((cfg.d_model, cfg.vocab),
+                                     axes=("embed", "vocab"))}
     tree["final_norm"] = _norm_params(leaf, cfg.d_model, encdec)
     if encdec:
         tree["enc_layers"] = [_attn_block_params(cfg, leaf, True)
@@ -182,6 +187,21 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
     return LM(cfg, build_params(cfg, Init(generator, DTYPES[cfg.dtype], dev)))
 
 
+def shard_params(cfg, model: LM, ctx) -> LM:
+    """``model`` with every parameter replaced, in place, by its DTensor
+    on ``ctx``'s mesh in ``common.param_placements``: each rank keeps its
+    shard of the whole tensor it holds, with no communication (every
+    rank drew, or loaded, the same weights)."""
+    placements = param_placements(cfg, ctx)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner).register_parameter(leaf, nn.Parameter(
+            distribute_tensor(p.detach(), ctx.mesh, placements[name],
+                              src_data_rank=None),
+            requires_grad=p.requires_grad))
+    return model
+
+
 def from_reference(cfg, params_np: dict, device=None) -> LM:
     """The reference's params (``jax.tree.map(np.asarray, params)``, or
     ``to_reference``'s tree, or a checkpoint's tensors) as a port ``LM``
@@ -231,25 +251,30 @@ def to_reference(model: LM) -> dict:
     return reference_tree(dict(model.named_parameters()))
 
 
-def reference_tree(named: dict) -> dict:
+def reference_tree(named: dict, keep: bool = True) -> dict | None:
     """Tensors keyed by the port's parameter names (``layers.3.attn.wq``;
     the model's own, or an optimizer moment of each) → the reference's
     nested tree of host arrays, the blocks of ``layers``/``enc_layers``/
     ``dec_layers`` stacked in layer order (on the host, so the device
-    holds no second copy)."""
+    holds no second copy).  A DTensor is gathered whole first, one at a
+    time: under a mesh every rank calls this, and a rank that does not
+    ``keep`` the tree drops each gathered leaf at once and gets None."""
     tree: dict = {}
     stacked: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
     for name, t in named.items():
+        t = full(t.detach())            # a collective under a mesh
+        if not keep:
+            continue
         top, _, rest = name.partition(".")
         if top in STACKS:
             i, _, rest = rest.partition(".")
-            stacked.setdefault((top, rest), {})[int(i)] = t.detach().cpu()
+            stacked.setdefault((top, rest), {})[int(i)] = t.cpu()
             continue
         _put(tree, name.split("."), host_array(t))
     for (top, rest), layers in stacked.items():
         leaf = torch.stack([layers[i] for i in range(len(layers))])
         _put(tree, [top, *rest.split(".")], host_array(leaf))
-    return tree
+    return tree if keep else None
 
 
 def _put(tree: dict, path: list[str], leaf) -> None:
@@ -310,7 +335,7 @@ def moe_block(cfg, p, x, positions, *, kv_cache=None, pos=None):
     """The reference's ``_moe_block``: attention, then the routed MLP of
     ``cfg.moe_impl``.  Returns (x, (k, v), aux)."""
     x, new_kv = _attention(cfg, p, x, positions, kv_cache, pos)
-    h2 = norm(cfg, x, p.ln2.scale)
+    h2 = shard(norm(cfg, x, p.ln2.scale), "batch", "seq", "embed")
     moe_fn = moe_mlp_gshard if cfg.moe_impl == "gshard" else moe_mlp
     y, aux = moe_fn(cfg, p.moe, h2)
     return x + y, new_kv, aux
@@ -328,7 +353,7 @@ def ssm_block(cfg, p, x, cache=None, h_out=None):
     """Pre-norm Mamba-1 (ssm) or Mamba-2 (hybrid) block (the reference's
     ``_ssm_block``).  Returns (x, {"conv", "h"}); the state goes into
     ``h_out`` when given."""
-    h = norm(cfg, x, p.ln.scale)
+    h = shard(norm(cfg, x, p.ln.scale), "batch", "seq", "embed")
     block = mamba1_block if cfg.family == "ssm" else mamba2_block
     y, new_cache = block(cfg, p.mamba, h, cache, h_out)
     return x + y, new_cache
@@ -433,7 +458,8 @@ def _maybe_remat(fn, cfg):
     """``fn`` through ``torch.utils.checkpoint`` under ``cfg.remat`` while
     autograd records (the reference's ``jax.checkpoint`` of a scan
     body): its activations are recomputed in the backward pass instead
-    of kept.  Serving (no autograd) calls ``fn`` itself."""
+    of kept, under the mesh of the forward (``sharding.api.in_context``).
+    Serving (no autograd) calls ``fn`` itself."""
     if not cfg.remat:
         return fn
 
@@ -441,8 +467,17 @@ def _maybe_remat(fn, cfg):
         if not torch.is_grad_enabled():
             return fn(*args)
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            in_context(fn), *args, use_reentrant=False,
+            preserve_rng_state=False)
     return remat
+
+
+def _shard_residual(x, cfg):
+    """The layer-boundary residual constraint: with ``cfg.seq_parallel``
+    the residual (and so each remat'd layer's saved input) shards its
+    seq dim over ``model`` (Megatron-SP), as in the reference."""
+    return shard(x, "batch", "seq_sp" if cfg.seq_parallel else "seq",
+                 "embed")
 
 
 def trunk_train(cfg, model: LM, x, positions, layers: range | None = None,
@@ -462,14 +497,16 @@ def trunk_train(cfg, model: LM, x, positions, layers: range | None = None,
     shared = model.shared if shared is None else shared
 
     def body(p, i, x):
+        x = _shard_residual(x, cfg)
         if fam == "moe":
             y, _, a = moe_block(cfg, p, x, positions)
-            return y, a
+            return _shard_residual(y, cfg), a
         if fam in ("ssm", "hybrid"):
             if fam == "hybrid" and i % every == 0:
                 x, _ = attn_mlp_block(cfg, shared, x, positions)
-            return ssm_block(cfg, p, x)[0], None
-        return attn_mlp_block(cfg, p, x, positions)[0], None
+            return _shard_residual(ssm_block(cfg, p, x)[0], cfg), None
+        y = attn_mlp_block(cfg, p, x, positions)[0]
+        return _shard_residual(y, cfg), None
 
     for i in layers:
         p = model.layers[i]
@@ -485,6 +522,7 @@ def embed_inputs(cfg, model: LM, inputs: dict) -> torch.Tensor:
     tok = embed_lookup(model.embed.table, inputs["tokens"])
     if cfg.family == "vlm":
         img = inputs["img"].to(tok.dtype)           # (B, P, D) stub
+        img = shard(img, "batch", "patches", "embed")
         tok = torch.cat([img, tok], dim=1)
     return tok
 
@@ -511,14 +549,16 @@ def encode(cfg, model: LM, frames: torch.Tensor) -> torch.Tensor:
     ``enc_final_norm``."""
     x = frames.to(torch.bfloat16 if cfg.dtype == "bfloat16"
                   else torch.float32)
+    x = shard(x, "batch", "frames", "embed")
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(p, x):
+        x = _shard_residual(x, cfg)
         h = layer_norm(x, p.ln1.scale, p.ln1.bias, cfg.norm_eps)
         q, k, v = qkv_project(cfg, p.attn, h, positions)
         x = x + o_project(p.attn, attend_prefill(cfg, q, k, v, causal=False))
         h2 = layer_norm(x, p.ln2.scale, p.ln2.bias, cfg.norm_eps)
-        return x + mlp(cfg, p.mlp, h2)
+        return _shard_residual(x + mlp(cfg, p.mlp, h2), cfg)
 
     for p in model.enc_layers:
         x = _maybe_remat(lambda x, p=p: body(p, x), cfg)(x)
@@ -531,13 +571,15 @@ def _cross_attention(cfg, p, x, enc_or_ckv):
     encoder's hidden states, or the cached ``(ck, cv)`` → (x, (ck, cv)).
     It goes through prefill attention, non-causal, also for the one
     query row of a decode step, as in the reference."""
-    h = layer_norm(x, p.ln_x.scale, p.ln_x.bias, cfg.norm_eps)
+    h = shard(layer_norm(x, p.ln_x.scale, p.ln_x.bias, cfg.norm_eps),
+              "batch", "seq", "embed")
     q = torch.einsum("bsd,dhk->bshk", h, p.xattn.wq)
     if isinstance(enc_or_ckv, tuple):
         ck, cv = enc_or_ckv
     else:
-        ck = torch.einsum("bfd,dhk->bfhk", enc_or_ckv, p.xattn.wk)
-        cv = torch.einsum("bfd,dhk->bfhk", enc_or_ckv, p.xattn.wv)
+        enc = shard(enc_or_ckv, "batch", "frames", "embed")
+        ck = torch.einsum("bfd,dhk->bfhk", enc, p.xattn.wk)
+        cv = torch.einsum("bfd,dhk->bfhk", enc, p.xattn.wv)
     o = attend_prefill(cfg, q, ck, cv, causal=False)
     return x + o_project(p.xattn, o), (ck, cv)
 
@@ -561,8 +603,9 @@ def decoder_train(cfg, model: LM, x, enc, positions,
     layers = range(cfg.n_layers) if layers is None else layers
     for i in layers:
         p = model.dec_layers[i]
-        x = _maybe_remat(
-            lambda x, p=p: dec_layer(cfg, p, x, enc, positions)[0], cfg)(x)
+        x = _maybe_remat(lambda x, p=p: _shard_residual(dec_layer(
+            cfg, p, _shard_residual(x, cfg), enc, positions)[0], cfg),
+            cfg)(x)
     return x
 
 

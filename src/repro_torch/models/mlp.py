@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.api import (Partial, Replicate, Shard, get_context,
+                            is_dtensor, on_shards, shard)
 from .common import gelu, silu
 
 
@@ -35,21 +37,26 @@ def mlp_params(cfg, leaf) -> dict:
     """``leaf``: a ``common.Init`` (or anything that maps a shape to a
     tensor)."""
     D, F_ = cfg.d_model, cfg.d_ff
-    p = {"w_up": leaf((D, F_)), "w_down": leaf((F_, D))}
+    p = {"w_up": leaf((D, F_), axes=("embed", "ff")),
+         "w_down": leaf((F_, D), axes=("ff", "embed"))}
     if cfg.gated_mlp:
-        p["w_gate"] = leaf((D, F_))
+        p["w_gate"] = leaf((D, F_), axes=("embed", "ff"))
     return p
 
 
 def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) → (B, S, D).  ``p``: the ``mlp`` node of a block."""
+    """x: (B, S, D) → (B, S, D).  ``p``: the ``mlp`` node of a block.
+    Under a mesh x is gathered whole along the sequence first."""
+    x = shard(x, "batch", "seq", "embed")
     up = torch.einsum("bsd,df->bsf", x, p.w_up)
+    up = shard(up, "batch", "seq", "ff")
     if cfg.gated_mlp:
         gate = torch.einsum("bsd,df->bsf", x, p.w_gate)
         h = silu(gate) * up
     else:
         h = gelu(up)
-    return torch.einsum("bsf,fd->bsd", h, p.w_down)
+    y = torch.einsum("bsf,fd->bsd", h, p.w_down)
+    return shard(y, "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------- #
@@ -57,9 +64,22 @@ def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def moe_params(cfg, leaf) -> dict:
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": leaf((D, E), dtype=torch.float32),
-            "w_gate": leaf((E, D, F_)), "w_up": leaf((E, D, F_)),
-            "w_down": leaf((E, F_, D))}
+    e_ax, f_ax = _expert_axes(cfg)
+    return {"router": leaf((D, E), dtype=torch.float32,
+                           axes=("embed", None)),
+            "w_gate": leaf((E, D, F_), axes=(e_ax, "embed", f_ax)),
+            "w_up": leaf((E, D, F_), axes=(e_ax, "embed", f_ax)),
+            "w_down": leaf((E, F_, D), axes=(e_ax, f_ax, "embed"))}
+
+
+def _expert_axes(cfg) -> tuple:
+    """The expert weights' (experts, ff) logical axes: expert-TP
+    (``cfg.moe_shard == "etp"``) splits every expert's FFN over
+    ``model`` and keeps the expert axis whole; else the experts shard
+    (expert parallelism)."""
+    if cfg.moe_shard == "etp":
+        return None, "ff"
+    return "experts", "expert_ff"
 
 
 def _capacity(tokens_per_group: int, cfg) -> int:
@@ -99,11 +119,60 @@ def route(cfg, p, xg: torch.Tensor) -> Routing:
     return Routing(logits, top_w, top_e, aux)
 
 
-def _experts(p, buf: torch.Tensor) -> torch.Tensor:
-    """Every expert's SwiGLU on its (G, E, C, D) slots."""
+def _experts(cfg, p, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its (G, E, C, D) slots; under a mesh the
+    experts (or, expert-TP, their FFN) shard over ``model``."""
+    e_ax, f_ax = _expert_axes(cfg)
+    buf = shard(buf, "moe_group", e_ax, "capacity", "embed")
     gate = torch.einsum("gecd,edf->gecf", buf, p.w_gate)
     up = torch.einsum("gecd,edf->gecf", buf, p.w_up)
-    return torch.einsum("gecf,efd->gecd", silu(gate) * up, p.w_down)
+    h = shard(silu(gate) * up, "moe_group", e_ax, "capacity", f_ax)
+    y = torch.einsum("gecf,efd->gecd", h, p.w_down)
+    return shard(y, "moe_group", e_ax, "capacity", "embed")
+
+
+class _Router(NamedTuple):
+    router: torch.Tensor
+
+
+def _grouped_tokens(x: torch.Tensor, group: int):
+    """``groups(x, group)`` with the reference's ``moe_group`` constraint
+    → (the groups, the logical names of x's layout for the way back).
+    Under a mesh the groups shard over ``data``; the batch is gathered
+    first where their count does not divide it."""
+    names = ("batch", "seq", "embed")
+    if is_dtensor(x):
+        B, S, D = x.shape
+        T = B * S
+        if get_context().spec(("moe_group",), (T // min(group, T),))[0] \
+                is None:
+            names = (None, "seq", "embed")
+        x = shard(x, *names)
+    return shard(groups(x, group), "moe_group", "seq", "embed"), names
+
+
+def _routed(cfg, p, xg: torch.Tensor, plan, n_plan: int):
+    """``route`` and ``plan(top_e)`` → (top_w, aux, *plan's ``n_plan``
+    tensors).  Under
+    a mesh every rank routes its own groups (top-k, the one-hot, the
+    sort and ``searchsorted`` have no DTensor rule; each group routes
+    alone): the router's gradient is then a share of the sum over the
+    groups' shards, and aux, the mean over the groups, one of the
+    mean."""
+    G = xg.shape[0]
+
+    def local(xg, router):
+        r = route(cfg, _Router(router), xg)
+        return (r.top_w, r.aux * (xg.shape[0] / G), *plan(r.top_e))
+
+    if not is_dtensor(xg):
+        r = route(cfg, p, xg)
+        return (r.top_w, r.aux, *plan(r.top_e))
+    tok = tuple(xg.placements)
+    split = tuple(Partial() if q == Shard(0) else Replicate() for q in tok)
+    whole = (Replicate(),) * len(tok)
+    return on_shards(local, (tok, split, *(tok,) * n_plan),
+                     (xg, p.router), (tok, whole), (tok, split))
 
 
 class SortSlots(NamedTuple):
@@ -142,24 +211,44 @@ def sort_slots(top_e: torch.Tensor, n_experts: int, C: int) -> SortSlots:
     return SortSlots(tok_src, valid, flat_idx, kept)
 
 
+def _dispatch(xg, tok_src, valid, E: int, C: int):
+    """(G, Tg, D) tokens → (G, E, C, D) buffer rows, unfilled ones 0."""
+    G, _, D = xg.shape
+    buf = torch.gather(xg, 1, tok_src[..., None].expand(G, E * C, D))
+    return buf.reshape(G, E, C, D) * valid[..., None].to(xg.dtype)
+
+
+def _combine(ybuf, flat_idx, kept, w_flat, K: int):
+    """(G, E, C, D) expert outputs → (G, Tg, D): each token's kept
+    choices, weighted, summed over its k."""
+    G, E, C, D = ybuf.shape
+    ybuf = ybuf.reshape(G, E * C, D)
+    TK = flat_idx.shape[1]
+    y_slot = torch.gather(ybuf, 1, flat_idx[..., None].expand(G, TK, D))
+    y_slot = y_slot * kept[..., None].to(ybuf.dtype) * w_flat[..., None]
+    return y_slot.reshape(G, TK // K, K, D).sum(dim=2)
+
+
 def moe_mlp(cfg, p, x: torch.Tensor):
     """x: (B, S, D) → (y (B, S, D), aux): the sort-and-gather formulation
-    over groups of ``cfg.moe_group_size`` tokens."""
+    over groups of ``cfg.moe_group_size`` tokens.  Under a mesh the
+    gathers run on each rank's groups, the combine's with every
+    expert's outputs gathered over ``model``."""
     B, S, D = x.shape
-    xg = groups(x, cfg.moe_group_size)
+    xg, names = _grouped_tokens(x, cfg.moe_group_size)
     G, Tg, _ = xg.shape
-    r = route(cfg, p, xg)
     E, K, C = cfg.n_experts, cfg.top_k, _capacity(Tg, cfg)
-    s = sort_slots(r.top_e, E, C)
-    w_flat = r.top_w.reshape(G, Tg * K).to(x.dtype)
-
-    buf = torch.gather(xg, 1, s.tok_src[..., None].expand(G, E * C, D))
-    buf = buf.reshape(G, E, C, D) * s.valid[..., None].to(x.dtype)
-    ybuf = _experts(p, buf).reshape(G, E * C, D)
-
-    y_slot = torch.gather(ybuf, 1, s.flat_idx[..., None].expand(G, Tg * K, D))
-    y_slot = y_slot * s.kept[..., None].to(x.dtype) * w_flat[..., None]
-    return y_slot.reshape(G, Tg, K, D).sum(dim=2).reshape(B, S, D), r.aux
+    top_w, aux, *s = _routed(cfg, p, xg, lambda e: sort_slots(e, E, C), 4)
+    tok_src, valid, flat_idx, kept = s
+    w_flat = top_w.reshape(G, Tg * K).to(x.dtype)
+    tok = tuple(xg.placements) if is_dtensor(xg) else None
+    buf = on_shards(lambda *a: _dispatch(*a, E, C), tok,
+                    (xg, tok_src, valid), (tok,) * 3)
+    ybuf = _experts(cfg, p, buf)
+    yg = on_shards(lambda *a: _combine(*a, K), tok,
+                   (ybuf, flat_idx, kept, w_flat), (tok,) * 4)
+    yg = shard(yg, "moe_group", "seq", "embed")
+    return shard(yg.reshape(B, S, D), *names), aux
 
 
 def gshard_slots(top_e: torch.Tensor, n_experts: int, C: int):
@@ -182,14 +271,16 @@ def moe_mlp_gshard(cfg, p, x: torch.Tensor):
     """x: (B, S, D) → (y, aux): GShard's one-hot dispatch and combine
     einsums over groups of ``cfg.moe_gshard_group`` tokens."""
     B, S, D = x.shape
-    xg = groups(x, cfg.moe_gshard_group)
+    xg, names = _grouped_tokens(x, cfg.moe_gshard_group)
     Tg = xg.shape[1]
-    r = route(cfg, p, xg)
-    onehots, pos_oh, keep = gshard_slots(r.top_e, cfg.n_experts,
-                                         _capacity(Tg, cfg))
+    C = _capacity(Tg, cfg)
+    top_w, aux, onehots, pos_oh, keep = _routed(
+        cfg, p, xg, lambda e: gshard_slots(e, cfg.n_experts, C), 3)
     disp = torch.einsum("gtke,gtkc->gtec", onehots * keep[..., None], pos_oh)
-    comb = torch.einsum("gtk,gtke,gtkc->gtec", r.top_w * keep, onehots,
+    comb = torch.einsum("gtk,gtke,gtkc->gtec", top_w * keep, onehots,
                         pos_oh)
     buf = torch.einsum("gtec,gtd->gecd", disp.to(x.dtype), xg)
-    yg = torch.einsum("gtec,gecd->gtd", comb.to(x.dtype), _experts(p, buf))
-    return yg.reshape(B, S, D), r.aux
+    yg = torch.einsum("gtec,gecd->gtd", comb.to(x.dtype),
+                      _experts(cfg, p, buf))
+    yg = shard(yg, "moe_group", "seq", "embed")
+    return shard(yg.reshape(B, S, D), *names), aux

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding.api import (Partial, Replicate, Shard, get_context,
+                            is_dtensor, on_shards, shard, shares)
 from .common import norm, silu, softplus
 
 
@@ -40,7 +42,19 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """x: (B, S, C); w: (C, K); → (y (B, S, C), new carry (B, K-1, C)).
     The reference's depthwise cross-correlation of ``concat(carry, x)``
     (no flip); the new carry is the last ``K-1`` inputs, before the
-    conv."""
+    conv.  Under a mesh each rank convolves its own channels (the conv
+    has no DTensor rule for a depthwise weight sharded on them)."""
+    if is_dtensor(x) and carry is None:
+        ctx = get_context()
+        xp = ctx.placements(("batch", "seq", "conv_dim"), tuple(x.shape))
+        wp = ctx.placements(("conv_dim", "kernel"), tuple(w.shape))
+        bp = ctx.placements(("conv_dim",), tuple(b.shape))
+        # each rank's weight gradient sums over its rows of the batch only
+        batch = [q == Shard(0) for q in xp]
+        return on_shards(causal_conv, (xp, xp), (x, w, b), (xp, wp, bp),
+                         (xp, *(tuple(Partial() if s else q
+                                      for s, q in zip(batch, t))
+                                for t in (wp, bp))))
     B, S, C = x.shape
     K = w.shape[1]
     if carry is None:
@@ -75,15 +89,16 @@ def mamba1_params(cfg, leaf) -> dict:
         return torch.log(a).repeat(di, 1).to(dtype)
 
     f32 = torch.float32
-    return {"in_proj": leaf((D, 2 * di)),
-            "conv_w": leaf((di, K)),
-            "conv_b": leaf((di,), "zeros"),
-            "x_proj": leaf((di, R + 2 * N)),
-            "dt_proj": leaf((R, di)),
-            "dt_bias": leaf((di,), "zeros"),
-            "A_log": leaf((di, N), a_init, dtype=f32),
-            "D": leaf((di,), "ones", dtype=f32),
-            "out_proj": leaf((di, D))}
+    return {"in_proj": leaf((D, 2 * di), axes=("embed", "d_inner")),
+            "conv_w": leaf((di, K), axes=("d_inner", "kernel")),
+            "conv_b": leaf((di,), "zeros", axes=("d_inner",)),
+            "x_proj": leaf((di, R + 2 * N), axes=("d_inner", None)),
+            "dt_proj": leaf((R, di), axes=("dt_rank", "d_inner")),
+            "dt_bias": leaf((di,), "zeros", axes=("d_inner",)),
+            "A_log": leaf((di, N), a_init, dtype=f32,
+                          axes=("d_inner", "state")),
+            "D": leaf((di,), "ones", dtype=f32, axes=("d_inner",)),
+            "out_proj": leaf((di, D), axes=("d_inner", "embed"))}
 
 
 def _scan_dt(cfg, p, xc: torch.Tensor):
@@ -118,6 +133,8 @@ def _plain_chunk(dt_c, B_c, C_c, x_c, A, h):
     dA = torch.exp(dt_c[..., None] * A)                   # (B,L,di,N)
     dBx = dt_c[..., None] * B_c[:, :, None, :].to(f32) \
         * x_c[..., None].to(f32)
+    dA = shard(dA, "batch", None, "d_inner", "state")
+    dBx = shard(dBx, "batch", None, "d_inner", "state")
     dec, hs = _associative_scan(dA, dBx)
     hs = hs + dec * h[:, None]
     y = torch.einsum("blcn,bln->blc", hs, C_c.to(f32))
@@ -145,7 +162,15 @@ def _mamba1_inner(cfg, p, xc: torch.Tensor, z: torch.Tensor,
                                          h, y=y[:, c], h_out=h_out)
             h_out = h                   # later chunks update it in place
         return y, h
-    dt = softplus(dt.float() + p.dt_bias.float())
+    if is_dtensor(xc):
+        return _scan_on_shards(dt, B_, C_, xc, z, A, p.dt_bias, p.D, L)
+    return _plain_scan(dt, B_, C_, xc, z, A, p.dt_bias, p.D, L, h0, h_out)
+
+
+def _plain_scan(dt, B_, C_, xc, z, A, dt_bias, D, L: int, h0, h_out=None):
+    """The plain route's scan over chunks of ``L`` → (y, h)."""
+    S = xc.shape[1]
+    dt = softplus(dt.float() + dt_bias.float())
     h = h0.float()
     ys = []
     for c0 in range(0, S, L):
@@ -155,9 +180,38 @@ def _mamba1_inner(cfg, p, xc: torch.Tensor, z: torch.Tensor,
     y = torch.cat(ys, dim=1)
     if h_out is not None:
         h = h_out.copy_(h)
-    y = y + xc.float() * p.D
+    y = y + xc.float() * D
     y = (y * silu(z).float()).to(xc.dtype)
     return y, h
+
+
+def _scan_on_shards(dt, B_, C_, xc, z, A, dt_bias, D, L: int):
+    """``_plain_scan`` of DTensors on each rank's rows (``data``) and
+    channels (``model``, the reference's ``d_inner`` layout) from a zero
+    state: the scan runs along each channel alone.  B and C come whole,
+    each rank reading them against its channels."""
+    ctx = get_context()
+    B, S, di = xc.shape
+    N = A.shape[1]
+    rows = ctx.placements(("batch", "seq", "d_inner"), (B, S, di))
+    bc = ctx.placements(("batch", "seq", None), tuple(B_.shape))
+    a = ctx.placements(("d_inner", "state"), tuple(A.shape))
+    vec = ctx.placements(("d_inner",), (di,))
+    hp = ctx.placements(("batch", "d_inner", "state"), (B, di, N))
+    chans = tuple(q if ax == "model" else Replicate()
+                  for ax, q in zip(ctx.axis_names, rows))
+    batch = tuple(q if ax == "data" else Replicate()
+                  for ax, q in zip(ctx.axis_names, rows))
+
+    def local(dt, B_, C_, xc, z, A, dt_bias, D):
+        h0 = torch.zeros((xc.shape[0], xc.shape[2], N), dtype=torch.float32,
+                         device=xc.device)
+        return _plain_scan(dt, B_, C_, xc, z, A, dt_bias, D, L, h0)
+    return on_shards(local, (rows, hp), (dt, B_, C_, xc, z, A, dt_bias, D),
+                     (rows, bc, bc, rows, rows, a, vec, vec),
+                     (rows, shares(bc, chans), shares(bc, chans), rows, rows,
+                      shares(a, batch), shares(vec, batch),
+                      shares(vec, batch)))
 
 
 def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
@@ -170,6 +224,7 @@ def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
     B, S, _ = x.shape
     di, N = cfg.d_inner, cfg.ssm_state
     xz = torch.einsum("bsd,de->bse", x, p.in_proj)
+    xz = shard(xz, "batch", "seq", "d_inner")
     xr, z = xz.chunk(2, dim=-1)
     conv_in = cache["conv"] if cache is not None else None
     xc, conv_out = causal_conv(xr, p.conv_w, p.conv_b, conv_in)
@@ -181,6 +236,7 @@ def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
     # one-step formula, dA·h0 + dt·B·x
     y, h = _mamba1_inner(cfg, p, xc, z, h0, h_out)
     out = torch.einsum("bsc,cd->bsd", y, p.out_proj)
+    out = shard(out, "batch", "seq", "embed")
     return out, {"conv": conv_out, "h": h}
 
 
@@ -202,14 +258,15 @@ def mamba2_params(cfg, leaf) -> dict:
         return torch.log(a).to(dtype)
 
     f32 = torch.float32
-    return {"in_proj": leaf((D, 2 * di + 2 * N + H)),
-            "conv_w": leaf((d_xbc, K)),
-            "conv_b": leaf((d_xbc,), "zeros"),
-            "A_log": leaf((H,), a_init, dtype=f32),
-            "D": leaf((H,), "ones", dtype=f32),
-            "dt_bias": leaf((H,), "zeros", dtype=f32),
-            "norm": leaf((di,), "ones"),
-            "out_proj": leaf((di, D))}
+    return {"in_proj": leaf((D, 2 * di + 2 * N + H),
+                            axes=("embed", "d_inner")),
+            "conv_w": leaf((d_xbc, K), axes=("conv_dim", "kernel")),
+            "conv_b": leaf((d_xbc,), "zeros", axes=("conv_dim",)),
+            "A_log": leaf((H,), a_init, dtype=f32, axes=("ssm_heads",)),
+            "D": leaf((H,), "ones", dtype=f32, axes=("ssm_heads",)),
+            "dt_bias": leaf((H,), "zeros", dtype=f32, axes=("ssm_heads",)),
+            "norm": leaf((di,), "ones", axes=("d_inner",)),
+            "out_proj": leaf((di, D), axes=("d_inner", "embed"))}
 
 
 def _ssd_decay(Scum: torch.Tensor, C_c: torch.Tensor, B_c: torch.Tensor,
@@ -221,8 +278,9 @@ def _ssd_decay(Scum: torch.Tensor, C_c: torch.Tensor, B_c: torch.Tensor,
     f32 = torch.float32
     cb = torch.einsum("btn,bsn->bts", C_c.to(f32), B_c.to(f32))
     dec = Scum[:, :, None, :] - Scum[:, None, :, :]          # (B,t,s,H)
+    dec = shard(dec, "batch", None, None, "ssm_heads")
     w = torch.exp(torch.where(tri, dec, float("-inf")))
-    return cb[..., None] * w
+    return shard(cb[..., None] * w, "batch", None, None, "ssm_heads")
 
 
 def _ssd_carry(h: torch.Tensor, Scum: torch.Tensor, C_c: torch.Tensor,
@@ -266,6 +324,30 @@ def _ssd_chunk(cfg, dt: torch.Tensor, zlog: torch.Tensor, x: torch.Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _ssd_on_shards(cfg, dt, zlog, x, B_, C_):
+    """``_ssd_chunk`` of DTensors on each rank's rows (``data``) and heads
+    (``model``, the reference's ``ssm_heads`` layout) from a zero state:
+    each head's recurrence runs alone.  B and C come whole, each rank
+    reading them against its heads."""
+    ctx = get_context()
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    heads = ctx.placements(("batch", "seq", "ssm_heads"), (Bb, S, H))
+    xp = ctx.placements(("batch", "seq", "ssm_heads", None), (Bb, S, H, P))
+    bc = ctx.placements(("batch", "seq", None), tuple(B_.shape))
+    hp = ctx.placements(("batch", "ssm_heads", None, None), (Bb, H, P, N))
+    over = tuple(q if ax == "model" else Replicate()
+                 for ax, q in zip(ctx.axis_names, heads))
+
+    def local(dt, zlog, x, B_, C_):
+        h0 = torch.zeros((x.shape[0], x.shape[2], P, N), dtype=torch.float32,
+                         device=x.device)
+        return _ssd_chunk(cfg, dt, zlog, x, B_, C_, h0)
+    return on_shards(local, (xp, hp), (dt, zlog, x, B_, C_),
+                     (heads, heads, xp, bc, bc),
+                     (heads, heads, xp, shares(bc, over), shares(bc, over)))
+
+
 def mamba2_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
                  h_out: torch.Tensor | None = None):
     """x: (B, S, D).  ``cache``: None (prefill from scratch) or
@@ -278,6 +360,7 @@ def mamba2_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     f32 = torch.float32
     zxbcdt = torch.einsum("bsd,de->bse", x, p.in_proj)
+    zxbcdt = shard(zxbcdt, "batch", "seq", "d_inner")
     z, xBC, dt_raw = zxbcdt.split([di, di + 2 * N, H], dim=-1)
     conv_in = cache["conv"] if cache is not None else None
     xBC, conv_out = causal_conv(xBC, p.conv_w, p.conv_b, conv_in)
@@ -296,6 +379,8 @@ def mamba2_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
         h = h0 * dA[..., None, None] + torch.einsum(
             "bn,bhp->bhpn", B_[:, 0].to(f32), dtx)
         y = torch.einsum("bn,bhpn->bhp", C_[:, 0].to(f32), h)[:, None]
+    elif is_dtensor(xh):
+        y, h = _ssd_on_shards(cfg, dt, zlog, xh, B_, C_)
     else:
         y, h = _ssd_chunk(cfg, dt, zlog, xh, B_, C_, h0)
     if h_out is not None:
@@ -304,4 +389,5 @@ def mamba2_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
     # y·silu(z) is rounded to the working dtype before the norm
     y = norm(cfg, (y * silu(z).to(f32)).to(x.dtype), p.norm)
     out = torch.einsum("bsc,cd->bsd", y, p.out_proj)
+    out = shard(out, "batch", "seq", "embed")
     return out, {"conv": conv_out, "h": h}

@@ -19,6 +19,14 @@ device tensors: nothing here waits on the device.  The parameters may
 lie on several devices (the stages of ``runtime.pipeline``): the norm is
 summed on the first one's, and each step's scalars are copied to each
 parameter's device.
+
+Under a mesh (``runtime.steps``' ZeRO-1) the parameters are DTensors in
+their own placements and the gradients and moments DTensors in the
+ZeRO-1 placements: each rank updates its shard of the moments and of
+the parameter with the same arithmetic on its local tensors, then the
+parameter's new shards are gathered back into its placements.  The
+norm sums each rank's local squares, a replicated shard counted on one
+rank only, in one all-reduce over the ranks.
 """
 from __future__ import annotations
 
@@ -27,6 +35,10 @@ from collections.abc import Callable, Mapping
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..sharding.api import local, replica_rank, to_placements
 
 
 @dataclass(frozen=True)
@@ -57,10 +69,23 @@ def cosine_schedule(peak: float, warmup: int, total: int, floor: float = 0.1):
     return fn
 
 
-def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
-    """fp32 zero moments of every parameter, and the step count."""
+def zeros_like_in(p: torch.Tensor, placements=None) -> torch.Tensor:
+    """fp32 zeros of ``p``'s shape on its device, or, with
+    ``placements``, a DTensor of them in those on ``p``'s mesh."""
+    if placements is None:
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return DTensor.from_local(
+        torch.zeros(to_placements(p.detach(), placements).to_local().shape,
+                    dtype=torch.float32, device=p.device),
+        p.device_mesh, placements, run_check=False)
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor],
+                   placements: Mapping | None = None) -> dict:
+    """fp32 zero moments of every parameter (in ``placements``' entry for
+    its name, when given: ZeRO-1's), and the step count."""
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: zeros_like_in(p, placements and placements[n])
                 for n, p in params.items()}
     device = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),
@@ -69,10 +94,19 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every tensor's fp32 squares, on the first
-    tensor's device."""
-    dev = next(iter(tree.values())).device
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))).to(dev)
-                          for t in tree.values()))
+    tensor's device; of DTensors, the whole tensors' (each rank's local
+    squares, a replicated shard on one rank only, summed over the
+    ranks)."""
+    first = next(iter(tree.values()))
+    dev = first.device
+    if not isinstance(first, DTensor):
+        return torch.sqrt(sum(torch.sum(torch.square(
+            t.to(torch.float32))).to(dev) for t in tree.values()))
+    total = sum(torch.sum(torch.square(local(t).to(torch.float32)))
+                for t in tree.values() if replica_rank(t))
+    total = torch.as_tensor(total, dtype=torch.float32, device=dev).clone()
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def reference_leaf(name: str) -> tuple[str, bool]:
@@ -113,13 +147,23 @@ def apply_gradients(params: Mapping[str, torch.Tensor],
             scalars[p.device] = [t.to(p.device) if isinstance(t, torch.Tensor)
                                  else t for t in (scale, lr, bc1, bc2)]
         scale_d, lr_d, bc1_d, bc2_d = scalars[p.device]
-        g = grads[name].to(torch.float32) * scale_d
+        m_t = state["m"][name]
+        # under a mesh: this rank's shard of p in the moments' placements
+        p_z = to_placements(p.detach(), m_t.placements) \
+            if isinstance(m_t, DTensor) else p
+        p_l = local(p_z)
+        g = local(grads[name]).to(torch.float32) * scale_d
         # b1·m + (1 - b1)·g, each product rounded before the sum
-        m = state["m"][name].mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v = state["v"][name].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        m = local(m_t).mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v = local(state["v"][name]).mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         step = (m / bc1_d) / (torch.sqrt(v / bc2_d) + cfg.eps)
         if cfg.weight_decay > 0 and _reference_ndim(name, p) >= 2:
-            step = step + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr_d * step)
+            step = step + cfg.weight_decay * p_l.to(torch.float32)
+        new = (p_l.to(torch.float32) - lr_d * step).to(p.dtype)
+        if isinstance(m_t, DTensor):
+            new = to_placements(DTensor.from_local(
+                new, p.device_mesh, m_t.placements, run_check=False),
+                p.placements)
+        local(p).copy_(local(new))
     return ({"m": state["m"], "v": state["v"], "count": count},
             {"grad_norm": gnorm, "lr": lr})

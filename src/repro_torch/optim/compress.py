@@ -12,6 +12,13 @@ rounds half to even, as ``jnp.round`` does.  On one device nothing
 crosses a wire: the convergence behaviour is the compressed scheme's,
 and ``compressed_bytes`` credits the wire bytes analytically, in the
 codecs' layout.
+
+Under a mesh the gradients and the error state are DTensors in the
+ZeRO-1 placements (``runtime.steps``), the data axis's sum already
+taken: each rank quantizes its shard, and a leaf's scale is the max
+over every rank's pieces of it (one all-reduce of every leaf's local
+max a step), so every rank quantizes into the leaf's one grid, as the
+reference's one device does.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ from collections.abc import Mapping
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.codecs import quantized_wire_bytes
-from .adamw import reference_leaf
+from ..sharding.api import local
+from .adamw import reference_leaf, zeros_like_in
 
 
 @dataclass(frozen=True)
@@ -34,8 +44,11 @@ class CompressionConfig:
         return 2 ** (self.bits - 1) - 1
 
 
-def init_error_state(params: Mapping[str, torch.Tensor]) -> dict:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def init_error_state(params: Mapping[str, torch.Tensor],
+                     placements: Mapping | None = None) -> dict:
+    """fp32 zeros of every parameter's shape (in ``placements``' entry for
+    its name, when given)."""
+    return {n: zeros_like_in(p, placements and placements[n])
             for n, p in params.items()}
 
 
@@ -56,15 +69,28 @@ def compress_gradients(grads: Mapping[str, torch.Tensor], err_state: dict,
     leaf: the max magnitude over all its blocks."""
     if not cfg.enabled:
         return grads, err_state
+    groups = list(_leaves(grads).values())
+    g = {n: local(grads[n]).to(torch.float32) + local(err_state[n])
+         for names in groups for n in names}
+    amax = torch.stack([
+        torch.stack([g[n].abs().max() if g[n].numel() else
+                     g[n].new_zeros(()) for n in names]).max()
+        for names in groups])
+    sharded = isinstance(next(iter(grads.values())), DTensor)
+    if sharded:
+        dist.all_reduce(amax, dist.ReduceOp.MAX)
     deq, err = {}, {}
-    for names in _leaves(grads).values():
-        g = {n: grads[n].to(torch.float32) + err_state[n] for n in names}
-        amax = torch.stack([t.abs().max() for t in g.values()]).max()
-        scale = torch.clamp_min(amax, 1e-12) / cfg.levels
-        for n, t in g.items():
+    for names, top in zip(groups, amax):
+        scale = torch.clamp_min(top, 1e-12) / cfg.levels
+        for n in names:
+            t = g[n]
             q = torch.clamp(torch.round(t / scale), -cfg.levels, cfg.levels)
-            deq[n] = q * scale
-            err[n] = t - deq[n]
+            deq[n], err[n] = q * scale, t - q * scale
+            if sharded:
+                mesh, pl = grads[n].device_mesh, grads[n].placements
+                deq[n], err[n] = (DTensor.from_local(x, mesh, pl,
+                                                     run_check=False)
+                                  for x in (deq[n], err[n]))
     return deq, err
 
 

@@ -91,14 +91,16 @@ class PipelineBuilder:
     def __init__(self, base, lead: tuple[int, ...]):
         self.base, self.lead = base, lead
 
-    def __call__(self, shape, init="normal", scale=None, dtype=None):
+    def __call__(self, shape, init="normal", scale=None, dtype=None,
+                 axes=()):
         if init == "normal" and scale is None:
             fan_in = shape[0] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         if callable(init):
             orig, n = init, len(self.lead)
             init = lambda s, d, dev: orig(s[n:], d, dev).expand(s).clone()
-        return self.base((*self.lead, *shape), init, scale, dtype)
+        return self.base((*self.lead, *shape), init, scale, dtype,
+                         axes=(*(None,) * len(self.lead), *axes))
 
 
 def build_pipeline_params(cfg, leaf, pcfg: PipelineConfig) -> dict:

@@ -12,18 +12,41 @@ in place and returns the state with its new counts, and metrics (``loss``,
 the host only when logging, as the reference's loop does.  Training runs
 the plain route (``cfg.attn_impl="xla"``), as the reference's always
 does: the kernels have no backward, and ``kernels.ops`` raises if
-autograd would record one.  The ZeRO-1 sharding of the gradient
-accumulator waits for sharding (ROADMAP queue 1, item 12b); with one
-device it is the identity, as in the reference without a mesh.
+autograd would record one.
+
+Under a mesh (``sharding.api.use_mesh_context`` around
+``make_train_step`` and ``train_state``, the model placed by
+``lm.shard_params``) the step is the reference's under its mesh: the
+batch, whole on every rank, is split over ``data``; the model runs on
+DTensors with the reference's ``shard`` points; each gradient's sum over
+``data`` is redistributed straight into its ZeRO-1 placements
+(``sharding.api.zero1_spec``: a reduce-scatter), where the fp32
+accumulator (``grad_accum``), the error feedback (compression) and the
+moments live; AdamW updates each rank's shard and gathers the parameter
+back.  The reference's ZeRO-1 dim is its stacked leaf's, often
+``layers``; here each block's parameter takes ``zero1_spec`` of its own
+spec, so each rank holds the same bytes of every leaf's moments as the
+reference's device does wherever a block's dims divide.  The metrics
+come back whole, plain tensors on every rank (their gather is a
+collective of the step, which every rank makes).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import lm
-from ..models.common import chunked_cross_entropy
+from ..models.common import (chunked_cross_entropy, param_placements,
+                             param_shapes, param_specs)
 from ..optim import (CompressionConfig, OptConfig, apply_gradients,
                      compress_gradients, init_error_state, init_opt_state)
+from ..optim.adamw import reference_leaf
+from ..sharding.api import (Layout, Replicate, Shard, full, get_context,
+                            is_dtensor, to_placements, use_mesh_context,
+                            zero1_spec)
 from .pipeline import (PipelineConfig, place_stages, repack_params,
                        unpack_params)
 
@@ -39,53 +62,108 @@ def loss_fn(cfg, model: lm.LM, batch: dict):
     return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
 
 
+def zero1_placements(cfg, ctx) -> dict:
+    """Every parameter's ZeRO-1 placements under ``ctx``: its spec with
+    ``data`` on the first free dim that divides (``zero1_spec``).  A
+    block whose dims are all taken or do not divide, of a stack whose
+    depth does divide ``data`` (where the reference's stacked leaf puts
+    ``data`` on its ``layers`` dim), splits its ``model``-sharded dim
+    over ``data`` too, where that divides: each rank then holds the
+    reference device's bytes of the leaf."""
+    shapes = param_shapes(cfg)
+    dp, tp = ctx.size("data"), ctx.size("model")
+    out = {}
+    with use_mesh_context(ctx.mesh):
+        for n, spec in param_specs(cfg, ctx).items():
+            shape = shapes[n]
+            z1 = zero1_spec(spec, shape)
+            depth = getattr(cfg, lm.STACKS.get(n.partition(".")[0], ""), 0)
+            both = [i for i, a in enumerate(spec) if a == "model"
+                    and shape[i] % (dp * tp) == 0]
+            if z1 == spec and dp > 1 and depth and depth % dp == 0 and both:
+                out[n] = tuple(Shard(both[0]) if a in ("data", "model")
+                               and ctx.size(a) > 1 else Replicate()
+                               for a in ctx.axis_names)
+            else:
+                out[n] = ctx.placements_of(z1)
+    return out
+
+
 def make_train_step(cfg, opt: OptConfig,
                     comp: CompressionConfig | None = None,
                     grad_accum: int = 1):
     """→ ``train_step(state, batch) -> (state, metrics)``.  ``grad_accum``
     > 1 runs the batch as that many microbatches, summing their
     gradients in fp32 (the reference's scan): the activations shrink by
-    the factor at the cost of reading the weights once a microbatch."""
+    the factor at the cost of reading the weights once a microbatch.
+    Made under a mesh, the step runs under it (the module's docstring)
+    with the batch given whole on every rank."""
     comp = comp or CompressionConfig()
+    ctx = get_context()
+    z1 = zero1_placements(cfg, ctx) if ctx is not None else None
+
+    def placed(b):
+        """A (micro)batch split over ``data``, when under a mesh."""
+        if ctx is None:
+            return b
+        return {k: distribute_tensor(v, ctx.mesh, ctx.placements(
+            ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)),
+            src_data_rank=None) for k, v in b.items()}
+
+    def _z1(name, g):
+        return g if z1 is None else to_placements(g, z1[name])
 
     def _grads(model, batch):
         names, params = zip(*model.named_parameters())
 
         def grads_of(b):
-            loss, parts = loss_fn(cfg, model, b)
+            loss, parts = loss_fn(cfg, model, placed(b))
             g = torch.autograd.grad(loss, params, materialize_grads=True)
             return loss.detach(), parts, dict(zip(names, g))
 
         if grad_accum <= 1:
-            return grads_of(batch)
+            loss, parts, g = grads_of(batch)
+            return loss, parts, {n: _z1(n, t) for n, t in g.items()}
         mbs = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
                             *v.shape[1:]) for k, v in batch.items()}
-        gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for n, p in zip(names, params)}
+        gsum = None
         lsum = 0.0
         for i in range(grad_accum):
             loss, parts, g = grads_of({k: v[i] for k, v in mbs.items()})
-            for n in names:
-                gsum[n] += g[n].to(torch.float32)
+            g = {n: _z1(n, t.to(torch.float32)) for n, t in g.items()}
+            gsum = g if gsum is None else \
+                {n: gsum[n] + g[n] for n in names}
             lsum = lsum + loss
         grads = {n: g / grad_accum for n, g in gsum.items()}
         return lsum / grad_accum, parts, grads      # the last microbatch's parts
 
     def train_step(state: dict, batch: dict):
         model = state["model"]
-        loss, parts, grads = _grads(model, batch)
-        if comp.enabled:
-            grads, err = compress_gradients(grads, state["err"], comp)
-        params = dict(model.named_parameters())
-        opt_state, om = apply_gradients(params, grads, state["opt"], opt)
+        scope = contextlib.nullcontext() if ctx is None else \
+            _mesh_scope(ctx)
+        with scope:
+            loss, parts, grads = _grads(model, batch)
+            if comp.enabled:
+                grads, err = compress_gradients(grads, state["err"], comp)
+            params = dict(model.named_parameters())
+            opt_state, om = apply_gradients(params, grads, state["opt"], opt)
+            loss = full(loss)
+            parts = {k: full(v.detach()) for k, v in parts.items()}
         new_state = {"model": model, "opt": opt_state,
                      "step": state["step"] + 1}
         if comp.enabled:
             new_state["err"] = err
-        parts = {k: v.detach() for k, v in parts.items()}
         return new_state, {"loss": loss, **parts, **om}
 
     return train_step
+
+
+@contextlib.contextmanager
+def _mesh_scope(ctx):
+    """The mesh's context, with plain tensors (positions, masks, the
+    scalars of the loss) taken as replicated on it."""
+    with use_mesh_context(ctx.mesh), implicit_replication():
+        yield
 
 
 def make_prefill_step(cfg, cache_len: int | None = None):
@@ -108,21 +186,60 @@ def init_train_state(cfg, generator: torch.Generator,
     """A fresh state: random weights in ``cfg.dtype`` from ``generator``
     (on ``device``, ``cuda`` unless the caller names another),
     trainable; zero moments and counts; zero error feedback under
-    compression."""
+    compression.  Under a mesh every rank draws the whole weights and
+    keeps its shards (``train_state``)."""
     return train_state(lm.init(cfg, generator, device), comp)
 
 
 def train_state(model: lm.LM, comp: CompressionConfig | None = None) -> dict:
     """A fresh state around ``model``, made trainable: zero moments and
-    counts on its device; zero error feedback under compression."""
+    counts on its device; zero error feedback under compression.  Under
+    a mesh the model is placed on it first (``lm.shard_params``, unless
+    it is), and the moments and the error feedback are DTensors in the
+    ZeRO-1 placements."""
+    z1 = _placed(model)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    state = {"model": model, "opt": init_opt_state(params),
+    state = {"model": model, "opt": init_opt_state(params, z1),
              "step": torch.zeros((), dtype=torch.int32,
                                  device=model.device)}
     if comp is not None and comp.enabled:
-        state["err"] = init_error_state(params)
+        state["err"] = init_error_state(params, z1)
     return state
+
+
+def _placed(model: lm.LM) -> dict | None:
+    """Under a mesh, ``model`` placed on it (if it is not) → the ZeRO-1
+    placements of its parameters; None without a mesh."""
+    ctx = get_context()
+    if ctx is None:
+        return None
+    if not is_dtensor(model.embed.table):
+        lm.shard_params(model.cfg, model, ctx)
+    return zero1_placements(model.cfg, ctx)
+
+
+def reference_layouts(cfg, ctx, comp: CompressionConfig | None = None
+                      ) -> dict:
+    """The layouts of a state in the reference's tree under ``ctx`` (the
+    specs tree ``checkpoint.load_checkpoint`` takes): every parameter in
+    its placements, the moments and the error feedback in ZeRO-1's, a
+    stacked leaf's with its blocks' placements one dim further in."""
+    def tree_of(placements: dict) -> dict:
+        tree: dict = {}
+        for name, pl in placements.items():
+            leaf, stacked = reference_leaf(name)
+            if stacked:
+                pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                           for p in pl)
+            lm._put(tree, leaf.split("."), Layout(ctx.mesh, pl))
+        return tree
+    z1 = tree_of(zero1_placements(cfg, ctx))
+    tree = {"params": tree_of(param_placements(cfg, ctx)),
+            "opt": {"m": z1, "v": z1}}
+    if comp is not None and comp.enabled:
+        tree["err"] = z1
+    return tree
 
 
 def _relaid(tree: dict, fn) -> dict:
@@ -132,15 +249,18 @@ def _relaid(tree: dict, fn) -> dict:
     return {**tree, key: fn(tree[key])}
 
 
-def reference_state(state: dict, pcfg: PipelineConfig | None = None) -> dict:
+def reference_state(state: dict, pcfg: PipelineConfig | None = None,
+                    keep: bool = True) -> dict | None:
     """The state as the reference's tree of host arrays (``params``,
     ``opt``, ``step``, ``err``), each stacked tree's blocks stacked on
     the layer axis: what a checkpoint holds.  A pipelined state
     (``pcfg``) has its layers, and their moments, in the reference's
-    pipeline layout (K, l_max, ...), zero pads included."""
+    pipeline layout (K, l_max, ...), zero pads included.  Under a mesh
+    every rank gathers; only a rank that ``keep``s the tree (the one
+    that writes it) copies it to the host, the others get None."""
     def tree_of(named):
-        tree = lm.reference_tree(named)
-        if pcfg is None:
+        tree = lm.reference_tree(named, keep)
+        if pcfg is None or not keep:
             return tree
         return _relaid(tree, lambda t: repack_params(
             t, pcfg, next(_leaves(t)).shape[0]))
@@ -151,7 +271,7 @@ def reference_state(state: dict, pcfg: PipelineConfig | None = None) -> dict:
             "step": state["step"]}
     if "err" in state:
         tree["err"] = tree_of(state["err"])
-    return tree
+    return tree if keep else None
 
 
 def _leaves(tree):
@@ -168,7 +288,11 @@ def state_from_reference(cfg, tree: dict, device=None,
     """The inverse of ``reference_state``: a reference-layout state (a
     checkpoint's, of either package) as a port state on ``device``, its
     model trainable; a pipelined one (``pcfg``, its layers in the
-    reference's pipeline layout) with its stages placed on ``mesh``."""
+    reference's pipeline layout) with its stages placed on ``mesh``.
+    Under a mesh (``sharding.api.use_mesh_context``) every rank keeps
+    its shards: the parameters in their placements, the moments and the
+    error feedback in ZeRO-1's; leaves already placed there (a
+    checkpoint loaded with ``reference_layouts``) stay as they are."""
     def named(t):
         if pcfg is not None:
             t = _relaid(t, lambda s: unpack_params(s, pcfg, cfg.n_layers))
@@ -184,6 +308,15 @@ def state_from_reference(cfg, tree: dict, device=None,
              "step": torch.as_tensor(tree["step"]).to(dev)}
     if "err" in tree:
         state["err"] = lm.named_from_reference(cfg, named(tree["err"]), dev)
+    z1 = _placed(model)
+    if z1 is not None:
+        mesh = get_context().mesh
+        for part in (state["opt"]["m"], state["opt"]["v"],
+                     state.get("err", {})):
+            for n, t in part.items():
+                if not is_dtensor(t):
+                    part[n] = distribute_tensor(t, mesh, z1[n],
+                                                src_data_rank=None)
     if pcfg is not None:
         place_stages(cfg, model, pcfg, mesh)
         params = dict(model.named_parameters())

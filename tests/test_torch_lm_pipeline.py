@@ -208,5 +208,5 @@ def test_a_stage_off_its_device_is_refused():
                            {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     with pytest.raises(ValueError, match="2 devices for 3 stages"):
         PL.place_stages(cfg, model, PL.PipelineConfig(3, 1, (1, 1)), mesh)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         make_host_mesh(2, data=2, device="cpu")

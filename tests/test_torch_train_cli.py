@@ -3,9 +3,10 @@ as a user runs it on the CPU (mirrors the reference's drill in
 ``tests/test_system.py``): a run that crashes itself mid-way (exit 42)
 and resumes from its last checkpoint logs the uninterrupted run's
 losses bit for bit (the launcher prints nine significant digits, which
-tell every fp32 value apart); the multi-device flags are refused with
-the ROADMAP item they wait for; the default device, the card, raises
-where there is none.
+tell every fp32 value apart); the flags it refuses here name the
+ROADMAP item they belong to; the default device, the card, raises
+where there is none.  The data and model axes are in
+``test_torch_train_ranks_cli.py``.
 """
 import os
 import pathlib
@@ -59,8 +60,6 @@ def test_crash_restart_drill_is_bit_exact(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pods", "2"], "item 12"),
-    (["--data-par", "2"], "item 12"),
-    (["--model-par", "2"], "item 12"),
     (["--microbatches", "8"], "item 12"),
     (["--auto-partition"], "item 10.5"),
 ])

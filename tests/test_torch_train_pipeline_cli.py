@@ -62,8 +62,8 @@ def test_pipelined_crash_restart_drill_is_bit_exact(tmp_path):
 
 
 @pytest.mark.parametrize("flags,reason", [
-    (["--data-par", "2"], "item 12b"),
-    (["--model-par", "2"], "item 12b"),
+    (["--data-par", "2"], "item 12c"),
+    (["--model-par", "2"], "item 12c"),
     (["--compress-grads"], "--compress-grads with --pods 2"),
 ])
 def test_pipeline_refuses_what_it_does_not_run(flags, reason):
