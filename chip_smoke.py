@@ -276,8 +276,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              peak allocated memory and the optimizer's share of the step
              printed (the batch halves if the warm-up passes 75 GiB);
 26. resume drill — ``python -m repro_torch.launch.train --reduced
-             --device cuda`` as three processes: uninterrupted, crashed
-             at step 10 (exit 42), resumed from step 8: the resumed
+             --device cuda`` as three processes of six steps:
+             uninterrupted, crashed at step 4 (exit 42), resumed from
+             step 4: the resumed
              losses must be the uninterrupted run's bit for bit; then a
              bf16 checkpoint of qwen3-1.7b at full width and 2 layers,
              after one step, restores every leaf ``torch.equal``;
@@ -318,7 +319,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              at full width, 2 layers, fp32, batch 8, seq 512 (the loss
              within 1e-5 relative, every gradient leaf, recovered from the
              gathered first moment, within 1e-4 of its largest, both
-             moments within 1e-5 of theirs; each rank's moment bytes
+             moments within 1e-5 of theirs, compared on the card by the
+             reference's leaf; its collectives recorded on rank 0 by
+             ``launch.hlo_analysis.CollectiveRecorder``; each rank's
+             moment bytes
              printed beside 1/(data x model) of the one-card bytes), then
              every family's reduced config at batch 4, seq 32 (the loss
              and gradients alike, the moments within the gradients' 1e-4
@@ -333,10 +337,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              same batch; at (2, 2) and (4, 1) with four or more cards,
              (1, 2) and (2, 1) with two or three; with one card no mesh
              (phase 25 is that step): one line names the card count and
-             the meshes not run.
+             the meshes not run (phases 33, 31 and 32, in that order, run
+             in one spawn of ranks: every mesh has as many);
+33. sharded serve — prefill and decode on phase 31's mesh (NCCL ranks
+             spawned as there): qwen3-1.7b at full width, 2 layers, fp32,
+             TF32 off, batch 8, prompt 256, a prefill and four greedy
+             decode steps on the kernel route (flash, decode attention
+             and RMSNorm on each rank's shards), held to the one-card
+             serve of the same weights and prompt in rank 0: every step's
+             logits within phase 8's 2e-4, the tokens ``torch.equal``,
+             the gathered k/v caches within 2e-4 and laid out by
+             ``kv_cache_names``; then phase 7's serve (full width and
+             depth, bf16, batch 8, prompt 1024, 32 new tokens) through
+             ``launch.serve`` with ``--data-par D --model-par M`` in the
+             ranks: prefill ms, decode ms/token and each card's peak
+             beside phase 7's; each rank's flash, decode-attention and
+             RMSNorm launches those the path implies (a rank runs every
+             kernel call of one card, at its local shapes);
+34. dry run — ``launch.dryrun.measure`` (the step in
+             ``FakeTensorMode`` on fake CUDA tensors, as rank 0 of a fake
+             group for a mesh), run from the setup on in a process of its
+             own (``python3 chip_smoke.py --predict OUT CARDS``): phase
+             25's step on one card (its peak, counted FLOPs and the
+             analytic roofline bound printed beside phase 25's peak,
+             model FLOPs and median step); phase 31's full-width step on
+             phase 31's mesh, whose collectives (count and bytes by kind)
+             must equal those rank 0 of phase 31's real step issued; phase
+             32's step at each of its meshes, rank 0's predicted peak
+             printed beside each card's measured one.
 
 The kernel table's LM rows count the launches of every LM serving path
-(phases 7, 11, 15, 19 and 21, and the pipelined serves of phase 28);
+(phases 7, 11, 15, 19 and 21, the pipelined serves of phase 28, and
+rank 0's sharded serve of phase 33);
 every row's ``train_launches`` counts those of the training slices
 (phases 25, 30 and 32), 0 for each: training runs the plain route.  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
@@ -373,8 +405,10 @@ CODECS = ("int8", "fp8", "topk")
 CHECK_SIZES = (1, 7, 127, 129, 1_000_003)
 # past what fp8_pack's and topk_select's resident grids keep on chip
 BIG_CHECK = 40_000_003
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+# the H100 SXM's device-memory rate and dense bf16 tensor-core peak: the
+# dry run's roofline constants
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOP_PER_S)
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 # expf on the special-function units: 16 a clock per SM (CUDA programming
 # guide, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
@@ -463,11 +497,11 @@ TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_S), "--lr",
               str(TRAIN_LR), "--warmup", "1", "--seed", "0",
               "--device", "cuda"]
 # phase 26: the launcher's crash drill on the card (reduced qwen3-1.7b,
-# compression on), killed at step 10 of 12 and resumed from step 8
-DRILL_STEPS, DRILL_FAIL = 12, 10
+# compression on), killed at step 4 of 6 and resumed from step 4
+DRILL_STEPS, DRILL_FAIL = 6, 4
 DRILL_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
               "--steps", str(DRILL_STEPS), "--batch", "4", "--seq", "64",
-              "--ckpt-every", "4", "--log-every", "1", "--compress-grads"]
+              "--ckpt-every", "2", "--log-every", "1", "--compress-grads"]
 # phase 28: the pod pipeline served, each path's pipelined variants
 # (launcher flags) beside its unpipelined serve; the ParetoPipe cuts for
 # serving qwen3-1.7b and zamba2-7b at prompt 1024 on 2 pods
@@ -502,6 +536,15 @@ SHARD_MOMENT_FRAC = 1e-5
 SHARD_TRAIN_LOSS_TOL = 1e-2
 # a spawn of ranks that runs past this fails its phase (every rank killed)
 SHARD_TIMEOUT_S = 420
+# phase 33: the sharded serve's parity case (layers, batch, prompt, greedy
+# decode steps): qwen3-1.7b at full width, fp32, held to the one-card
+# serve within phase 8's 2e-4; its timing is phase 7's serve on the ranks
+SHARD_SERVE_PARITY = (2, 8, 256, 4)
+# phase 34: the predictions, made beside phases 2-33 in a process of their
+# own, must be in by then plus this
+PREDICT_TIMEOUT_S = 300
+# each serving path's numbers, by name (serve_slice)
+SERVED: dict[str, dict] = {}
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -1586,6 +1629,16 @@ def check_lm_kernels(torch, ops, ref, dev, flash_cases=None,
                 hold("decode_attention", ops.decode_attention(q, kc, vc, pos),
                      ref.decode_attention_ref(q, kc, vc, pos),
                      f"Smax={smax} H={h} KV={kv} hd={d} pos={pos}")
+                # the log-sum-exp a sequence-split cache merges by, read
+                # from the split kernel's partial states
+                out, lse = ops.decode_attention(q, kc, vc, pos,
+                                                with_lse=True)
+                want, want_lse = ref.decode_attention_ref(q, kc, vc, pos,
+                                                          with_lse=True)
+                hold("decode_attention", out, want,
+                     f"Smax={smax} H={h} KV={kv} hd={d} pos={pos} with_lse")
+                hold("decode_attention", lse, want_lse,
+                     f"Smax={smax} H={h} KV={kv} hd={d} pos={pos} lse")
             # forced split counts, empty splits included, against the
             # plain version and the plain split-and-combine
             for pos in (positions[0], positions[-1]):
@@ -1864,6 +1917,8 @@ def serve_slice(torch, ops, serve, name, argv, expect_of) -> dict[str, int]:
         f"({res['decode_tok_s']:.1f} tok/s aggregate), peak allocated "
         f"{peak / 2**30:.3f} GiB ({peak} B)")
     log(f"{name} slice: launches {json.dumps(launches)}")
+    SERVED[name] = {"prefill_ms": res["prefill_ms"],
+                    "decode_ms": res["decode_ms_per_token"], "peak": peak}
     wrong = {k: (launches[k], n) for k, n in expect.items()
              if launches[k] != n}
     if wrong:
@@ -2969,6 +3024,7 @@ def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
     del state, step_fn, batch
     return launches, {"losses": losses, "step_ms": med, "batch": B,
                       "tokens_s": B * S / med * 1e3, "peak": peak,
+                      "flops": flops,
                       "cuts": None if pipe is None else pipe[0].cuts}
 
 
@@ -3395,8 +3451,8 @@ def shard_meshes(cards: int) -> tuple[tuple, tuple]:
 def spawn_phase(phase: str, spec: dict, world: int, timeout_s: float) -> dict:
     """This script as ``world`` ranks of one NCCL group (``python3
     chip_smoke.py --rank PHASE SPEC OUT``, one card a rank), each running
-    ``phase`` on ``spec`` → what rank 0 wrote.  A rank's failure, or the
-    ranks running past ``timeout_s``, fails the phase."""
+    ``rank_main`` on ``spec`` → what rank 0 wrote.  A rank's failure, or
+    the ranks running past ``timeout_s``, fails ``phase``."""
     import tempfile
     from repro_torch.launch.mesh import spawn_ranks
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
@@ -3413,46 +3469,42 @@ def spawn_phase(phase: str, spec: dict, world: int, timeout_s: float) -> dict:
             return json.load(f)
 
 
-def _moment_trees(tree: dict):
-    """(m, v) of a ``reference_state`` tree as {path: float64 array}."""
-    import numpy as np
-
-    def flat(t, prefix=""):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                yield from flat(v, f"{prefix}{k}/")
-            else:
-                yield f"{prefix}{k}", np.asarray(v, np.float64)
-    return (dict(flat(tree["opt"]["m"])), dict(flat(tree["opt"]["v"])))
-
-
-def sharded_parity_rank(spec: dict, out_path: str) -> None:
+def sharded_parity_rank(spec: dict) -> dict | None:
     """Phase 31 in one rank: each case's sharded step on the spec's mesh,
-    and in rank 0 the one-card plain step first; rank 0 writes the
-    comparisons."""
-    import numpy as np
+    and in rank 0 the one-card plain step first; every rank gathers each
+    moment, and rank 0 compares them on the card (in float64, by the
+    reference's leaf: the worst |difference| over its blocks against its
+    largest magnitude) → in rank 0 the comparisons, with the collectives
+    (``launch.hlo_analysis.CollectiveRecorder``) that the full-width
+    case's sharded step issued on rank 0."""
     import torch
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import lm
     from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import reference_leaf
     from repro_torch.runtime import steps
-    from repro_torch.sharding.api import local, use_mesh_context
+    from repro_torch.sharding.api import full, local, use_mesh_context
     train.set_numerics()
     mesh = make_host_mesh(1, *spec["mesh"], "cuda")
     dev = torch.device("cuda", torch.cuda.current_device())
     rank, world = dist.get_rank(), dist.get_world_size()
     opt = OptConfig(lr=TRAIN_LR)
     ops.reset_launch_counts()
-    rows = []
-    for label, arch, full, B, S in spec["cases"]:
+    rows, collectives = [], None
+
+    def grad_scale(gn):
+        return min(1.0, opt.clip_norm / (gn + 1e-9)) * (1 - opt.b1)
+
+    for label, arch, full_width, B, S in spec["cases"]:
         t0 = time.perf_counter()
         cfg = (configs.get(arch).replace(n_layers=TRAIN_PARITY_LAYERS,
-                                         dtype="float32") if full
+                                         dtype="float32") if full_width
                else configs.reduced(arch)).replace(attn_impl="xla")
         model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
         batch = SyntheticLM(cfg, DataConfig(B, S, 0), device=dev).batch_at(0)
@@ -3460,69 +3512,98 @@ def sharded_parity_rank(spec: dict, out_path: str) -> None:
             st, met = steps.make_train_step(cfg, opt)(
                 steps.train_state(copy.deepcopy(model)), batch)
             plain_m = {k: v.item() for k, v in met.items()}
-            plain = _moment_trees(steps.reference_state(st))
+            plain = {k: dict(st["opt"][k]) for k in ("m", "v")}
             one_bytes = sum(t.numel() * 4 for t in st["opt"]["m"].values())
             del st, met
-            gc.collect()
-            torch.cuda.empty_cache()
         with use_mesh_context(mesh):
             state = steps.train_state(model)
             step = steps.make_train_step(cfg, opt)
-        state, met = step(state, batch)
-        # every rank gathers, rank 0 alone keeps the trees
-        mine = steps.reference_state(state, keep=rank == 0)
+        rec = CollectiveRecorder()
+        with rec if full_width else contextlib.nullcontext():
+            state, met = step(state, batch)
+        if full_width:
+            collectives = rec.summary.by_kind()
         held = sum(local(t).numel() * 4 for t in state["opt"]["m"].values())
         every = [None] * world
         dist.all_gather_object(every, held)
         sharded_m = {k: v.item() for k, v in met.items()}
+        # per reference leaf: [max |diff| of m, of v, of the gradient;
+        # max |one-card m|, v, gradient]
+        leaves: dict[str, list] = {}
+        equal = sharded_m["loss"] == plain_m["loss"] if rank == 0 else False
+        for k in ("m", "v"):
+            for n, t in state["opt"][k].items():
+                whole = full(t)                    # every rank gathers
+                if rank != 0:
+                    continue
+                a, b = plain[k][n].double(), whole.double()
+                acc = leaves.setdefault(reference_leaf(n)[0], [0.0] * 6)
+                i = 0 if k == "m" else 1
+                acc[i] = max(acc[i], float((b - a).abs().max()))
+                acc[i + 3] = max(acc[i + 3], float(a.abs().max()))
+                if k == "m":
+                    g0 = a / grad_scale(plain_m["grad_norm"])
+                    g1 = b / grad_scale(sharded_m["grad_norm"])
+                    acc[2] = max(acc[2], float((g1 - g0).abs().max()))
+                    acc[5] = max(acc[5], float(g0.abs().max()))
+                equal = equal and bool(torch.equal(plain[k][n], whole))
+                del whole, a, b
         del state, step, model, met
+        if rank == 0:
+            del plain
         gc.collect()
         torch.cuda.empty_cache()
         if rank != 0:
             continue
-        mine = _moment_trees(mine)
 
-        def grads(m, gn):
-            s = min(1.0, opt.clip_norm / (gn + 1e-9)) * (1 - opt.b1)
-            return {k: v / s for k, v in m.items()}
-        g0 = grads(plain[0], plain_m["grad_norm"])
-        g1 = grads(mine[0], sharded_m["grad_norm"])
-
-        def worst(a, b):
-            return max(float(np.abs(b[k] - a[k]).max())
-                       / max(float(np.abs(a[k]).max()), 1e-30) for k in a)
+        def worst(i):
+            return max(acc[i] / max(acc[i + 3], 1e-30)
+                       for acc in leaves.values())
         rows.append({
             "label": label, "name": cfg.name, "family": cfg.family,
             "layers": cfg.n_layers, "batch": B, "seq": S,
             "loss": sharded_m["loss"], "plain_loss": plain_m["loss"],
             "loss_rel": abs(sharded_m["loss"] - plain_m["loss"])
             / abs(plain_m["loss"]),
-            "grad": worst(g0, g1), "m": worst(plain[0], mine[0]),
-            "v": worst(plain[1], mine[1]),
-            "equal": bool(sharded_m["loss"] == plain_m["loss"] and all(
-                np.array_equal(p[k], q[k]) for p, q in zip(plain, mine)
-                for k in p)),
+            "grad": worst(2), "m": worst(0), "v": worst(1), "equal": equal,
             "bytes": every, "one_bytes": one_bytes,
             "s": time.perf_counter() - t0})
     launches = [None] * world
     dist.all_gather_object(launches, ops.launch_counts())
     if rank == 0:
-        with open(out_path, "w") as f:
-            json.dump({"cases": rows, "launches": launches}, f)
-    dist.barrier()
-    dist.destroy_process_group()
+        return {"cases": rows, "launches": launches,
+                "collectives": collectives}
+    return None
 
 
-def sharded_parity(torch, smi) -> None:
-    """Phase 31: the sharded step held to the one-card step on the mesh
-    the cards allow (``shard_meshes``)."""
+def rank_phases(torch, plain: dict) -> dict:
+    """Phases 33, 31 and 32 (every mesh of it: all have phase 31's
+    number of ranks) in one spawn of ranks (``shard_meshes``), in that
+    order: the serve before the training numerics → rank 0's results by
+    phase."""
     t0 = time.perf_counter()
-    mesh = shard_meshes(torch.cuda.device_count())[0]
+    mesh, meshes32 = shard_meshes(torch.cuda.device_count())
+    spec = {"parts": ["33", "31"], "33": {"mesh": list(mesh)},
+            "31": {"mesh": list(mesh), "cases": SHARD_PARITY_CASES}}
+    if meshes32:
+        assert all(a * b == mesh[0] * mesh[1] for a, b in meshes32)
+        spec["parts"].append("32")
+        spec["32"] = {"meshes": [list(m) for m in meshes32],
+                      "batch": plain["batch"]}
     gc.collect()
     torch.cuda.empty_cache()
-    res = spawn_phase("31", {"mesh": list(mesh),
-                             "cases": SHARD_PARITY_CASES},
-                      mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+    res = spawn_phase("31-33", spec, mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+    log(f"rank phases {', '.join(spec['parts'])} on {mesh[0] * mesh[1]} "
+        f"ranks: one spawn, {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def sharded_parity(torch, smi, res: dict) -> dict:
+    """Phase 31: the sharded step held to the one-card step on the mesh
+    the cards allow (``shard_meshes``), from rank 0's ``res`` → the
+    collectives by kind that the full-width case's sharded step issued
+    on rank 0."""
+    mesh = shard_meshes(torch.cuda.device_count())[0]
     bad = []
     for r in res["cases"]:
         full = r["label"] == "full"
@@ -3543,26 +3624,34 @@ def sharded_parity(torch, smi) -> None:
     moved = [{k: n for k, n in c.items() if n} for c in res["launches"]]
     log(f"sharded parity (phase 31) on {smi}: {len(res['cases'])} cases at "
         f"{mesh}, launches a rank {moved}; took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{sum(r['s'] for r in res['cases']):.1f} s in the ranks")
     if bad:
         raise AssertionError(f"phase 31: the sharded step is not the "
                              f"one-card step for {bad}")
     if any(moved):
         raise AssertionError(f"phase 31: sharded training launched kernels "
                              f"{moved}")
+    return res["collectives"]
 
 
-def sharded_train_rank(spec: dict, out_path: str) -> None:
+def sharded_train_rank(spec: dict) -> dict | None:
     """Phase 32 in one rank: phase 25's run through ``launch.train``'s
-    ``setup`` on the spec's mesh; rank 0 writes every rank's numbers."""
+    ``setup`` on each of the spec's meshes (all of the group's size) →
+    in rank 0 {str(mesh): every rank's numbers}."""
+    out = {str(tuple(mesh)): _train_on_mesh(mesh, spec["batch"])
+           for mesh in spec["meshes"]}
+    return out if out[str(tuple(spec["meshes"][0]))] is not None else None
+
+
+def _train_on_mesh(mesh, batch_size: int) -> list | None:
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    d, m = spec["mesh"]
+    d, m = mesh
     args = train.parse_args(TRAIN_ARGS + [
-        "--batch", str(spec["batch"]), "--steps", str(TRAIN_WARM
-                                                      + TRAIN_STEPS),
+        "--batch", str(batch_size), "--steps", str(TRAIN_WARM
+                                                   + TRAIN_STEPS),
         "--data-par", str(d), "--model-par", str(m)])
     train.set_numerics()
     t0 = time.perf_counter()
@@ -3585,31 +3674,30 @@ def sharded_train_rank(spec: dict, out_path: str) -> None:
             "params": state["model"].param_count()}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
-    if dist.get_rank() == 0:
-        with open(out_path, "w") as f:
-            json.dump(every, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return every if dist.get_rank() == 0 else None
 
 
-def sharded_train(torch, smi, plain: dict) -> dict[str, int]:
+def sharded_train(torch, smi, plain: dict, ranked: dict | None
+                  ) -> tuple[dict[str, int], dict]:
     """Phase 32: phase 25's run on each mesh the cards allow, beside
-    phase 25 → the ranks' kernel launches (all 0)."""
-    t0 = time.perf_counter()
+    phase 25, from the ranks' numbers ``rank_phases`` got ({str(mesh):
+    [a rank's numbers]}) → the ranks' kernel launches (all 0) and each
+    mesh's peaks a card ({str(mesh): [bytes a rank]})."""
     cards = torch.cuda.device_count()
     meshes = shard_meshes(cards)[1]
     launches: dict[str, int] = {}
+    peaks: dict[str, list] = {}
     if not meshes:
         log(f"sharded train (phase 32): {cards} card, no mesh of ranks to "
             f"run ((2, 2) and (4, 1) need four, (1, 2) and (2, 1) two); "
             f"phase 25 ran the one-card step")
-        return launches
+        return launches, peaks
     B, S = plain["batch"], TRAIN_S
     for mesh in meshes:
-        gc.collect()
-        torch.cuda.empty_cache()
-        ranks = spawn_phase("32", {"mesh": list(mesh), "batch": B},
-                            mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+        ranks = ranked[str(mesh)]
         lead = ranks[0]
         timed = sorted(lead["step_ms"][TRAIN_WARM:])
         med = (timed[len(timed) // 2] if len(timed) % 2 else
@@ -3636,6 +3724,7 @@ def sharded_train(torch, smi, plain: dict) -> dict[str, int]:
             f"{plain['peak'] / 2**30:.3f} GiB; warm-up loss {losses[0]:.6f} "
             f"against {plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
             f"{SHARD_TRAIN_LOSS_TOL})")
+        peaks[str(mesh)] = [r["peak"] for r in ranks]
         for r in ranks:
             for k, n in r["launches"].items():
                 launches[k] = launches.get(k, 0) + n
@@ -3647,8 +3736,304 @@ def sharded_train(torch, smi, plain: dict) -> dict[str, int]:
                                  "not the one-card one")
     if any(launches.values()):
         raise AssertionError(f"phase 32 launched kernels: {launches}")
-    log(f"sharded train (phase 32) took {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, peaks
+
+
+def serve_greedy(steps, cfg, model, inputs, cache_len: int, n: int, mesh):
+    """A prefill and ``n`` greedy decode steps through the serving steps
+    made under ``mesh`` (None: one card) → (tokens, each step's logits,
+    the final cache)."""
+    from repro_torch.sharding.api import use_mesh_context
+    with use_mesh_context(mesh):
+        prefill = steps.make_prefill_step(cfg, cache_len, with_logits=True)
+        decode = steps.make_decode_step(cfg, with_logits=True)
+    tok, cache, lg = prefill(model, inputs)
+    toks, logits = [tok], [lg]
+    for _ in range(n):
+        tok, cache, lg = decode(model, tok, cache)
+        toks.append(tok)
+        logits.append(lg)
+    return toks, logits, cache
+
+
+def sharded_serve_rank(spec: dict) -> dict | None:
+    """Phase 33 in one rank: the parity case (rank 0's one-card serve
+    first, then every rank's sharded serve of the same weights and
+    prompt, the final k/v caches gathered), then ``launch.serve``'s
+    ``main`` on the ranks with phase 7's flags, the kernels' launches
+    counted from just before it → in rank 0 every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.api import full, use_mesh_context
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, m = spec["mesh"]
+    mesh = make_host_mesh(1, d, m, "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    L, B, S, n = SHARD_SERVE_PARITY
+    t0 = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=L, dtype="float32",
+                                          attn_impl="pallas")
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    inputs = {k: v for k, v in SyntheticLM(cfg, DataConfig(B, S, 0),
+                                           device=dev).batch_at(0).items()
+              if k != "targets"}
+    cache_len = S + n
+    if rank == 0:
+        one = serve_greedy(steps, cfg, copy.deepcopy(model), inputs,
+                           cache_len, n, None)
+    with use_mesh_context(mesh) as ctx:
+        lm.shard_params(cfg, model, ctx)
+    toks, logits, cache = serve_greedy(steps, cfg, model, inputs, cache_len,
+                                       n, mesh)
+    laid = {k: str(tuple(cache[k].placements)) for k in ("k", "v")}
+    with use_mesh_context(mesh) as ctx:
+        placements = {k: str(ctx.placements(lm.cache_names(cfg, k),
+                                            tuple(cache[k].shape)))
+                      for k in ("k", "v")}
+    whole = {k: full(cache[k]) for k in ("k", "v")}    # every rank gathers
+    parity = None
+    if rank == 0:
+        tol = 2e-4                                     # phase 8's
+        o_toks, o_logits, o_cache = one
+        parity = {
+            "logits": [float((a - b).abs().max())
+                       for a, b in zip(logits, o_logits)],
+            "logits_ok": all(torch.allclose(a, b, rtol=tol, atol=tol)
+                             for a, b in zip(logits, o_logits)),
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(toks, o_toks)),
+            "cache": {k: float((whole[k] - o_cache[k]).abs().max())
+                      for k in ("k", "v")},
+            "cache_ok": all(torch.allclose(whole[k], o_cache[k], rtol=tol,
+                                           atol=tol) for k in ("k", "v")),
+            "placements": laid, "names": placements,
+            "s": time.perf_counter() - t0}
+        del one, o_toks, o_logits, o_cache
+    del model, toks, logits, cache, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = LM_ARGS + ["--device", "cuda", "--data-par", str(d),
+                      "--model-par", str(m)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    fcfg = configs.get(TRAIN_ARCH)
+    mine = {"prefill_ms": res["prefill_ms"],
+            "decode_ms": res["decode_ms_per_token"],
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": ops.launch_counts(),
+            "valid": res["valid"],
+            "local": {"batch": LM_B // d, "heads": fcfg.n_heads // m,
+                      "kv_heads": fcfg.n_kv_heads // m}}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"parity": parity, "ranks": every} if rank == 0 else None
+
+
+RANK_PARTS = {"33": sharded_serve_rank, "31": sharded_parity_rank,
+              "32": sharded_train_rank}
+
+
+def rank_main(spec: dict, out_path: str) -> None:
+    """One rank of ``spawn_phase``: the phases ``spec["parts"]`` names,
+    in that order, on one group (one standup for all); rank 0 writes
+    {part: its result}."""
+    import torch.distributed as dist
+    out = {part: RANK_PARTS[part](spec[part]) for part in spec["parts"]}
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_serve(torch, smi, plain: dict, res: dict) -> dict[str, int]:
+    """Phase 33: sharded prefill and decode on the mesh the cards allow
+    (``shard_meshes``, phase 31's), from rank 0's ``res``: the parity
+    case held to the one-card serve, then phase 7's serve on the ranks
+    beside phase 7 (``plain``, its numbers) → rank 0's kernel launches in
+    that serve."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    mesh = shard_meshes(torch.cuda.device_count())[0]
+    world = mesh[0] * mesh[1]
+    p = res["parity"]
+    L, B, S, n = SHARD_SERVE_PARITY
+    log(f"sharded serve (phase 33) parity: {TRAIN_ARCH} full width, {L} "
+        f"layers, fp32, TF32 off, batch {B}, prompt {S}, a prefill and {n} "
+        f"greedy decode steps on the kernel route at (data, model) {mesh} "
+        f"against the one-card serve: max |diff| of logits "
+        f"{[f'{x:.3g}' for x in p['logits']]} (rtol = atol = 2e-4: "
+        f"{p['logits_ok']}); tokens torch.equal {p['tokens_equal']}; the "
+        f"gathered cache k {p['cache']['k']:.3g}, v {p['cache']['v']:.3g} "
+        f"(2e-4: {p['cache_ok']}); cache placements {p['placements']} "
+        f"(kv_cache_names: {p['names']}); {p['s']:.1f} s")
+    lead = res["ranks"][0]
+    args = serve.parse_args(LM_ARGS)
+    cfg = configs.get(TRAIN_ARCH)
+    expect = {k: 0 for k in lead["launches"]}
+    expect.update(lm_expect(cfg, args))
+    log(f"sharded serve (phase 33) {TRAIN_ARCH} full width and depth, bf16, "
+        f"batch {LM_B}, prompt {LM_S}, {LM_NEW} new tokens at (data, "
+        f"model) {mesh} on {world} of {torch.cuda.device_count()} cards, "
+        f"{smi}: prefill {lead['prefill_ms']:.2f} ms, decode "
+        f"{lead['decode_ms']:.3f} ms/token (rank 0; slowest rank "
+        f"{max(r['decode_ms'] for r in res['ranks']):.3f}); peak GiB a "
+        f"card {[round(r['peak'] / 2**30, 3) for r in res['ranks']]}")
+    log(f"  beside phase 7 (one card): prefill {plain['prefill_ms']:.2f} ms,"
+        f" decode {plain['decode_ms']:.3f} ms/token, peak "
+        f"{plain['peak'] / 2**30:.3f} GiB")
+    log(f"  rank 0's launches {json.dumps(lead['launches'])} at its local "
+        f"shapes (batch {lead['local']['batch']}, heads "
+        f"{lead['local']['heads']}, kv heads {lead['local']['kv_heads']}); "
+        f"the path implies {json.dumps(lm_expect(cfg, args))}")
+    if not (p["logits_ok"] and p["tokens_equal"] and p["cache_ok"]
+            and p["placements"] == p["names"]):
+        raise AssertionError("phase 33: the sharded serve is not the "
+                             "one-card serve")
+    wrong = {r: {k: (got[k], v) for k, v in expect.items() if got[k] != v}
+             for r, got in enumerate(x["launches"] for x in res["ranks"])}
+    if any(wrong.values()) or not all(r["valid"] for r in res["ranks"]):
+        raise AssertionError(f"phase 33 launches (got, expected) a rank: "
+                             f"{wrong}")
+    return lead["launches"]
+
+
+def predict(out_path: str, cards: int) -> None:
+    """Phase 34's predictions, made beside the other phases in a process
+    of their own (``python3 chip_smoke.py --predict OUT CARDS``): each
+    step run once by ``launch.dryrun.measure`` inside ``FakeTensorMode``
+    on fake CUDA tensors, as rank 0 of a fake group for a mesh — phase
+    25's one-card step (with the analytic roofline bound of its cell),
+    phase 31's full-width step on phase 31's mesh (its collectives) and
+    phase 32's step on each of its meshes (rank 0's peak)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import cell_cost
+    from repro_torch.launch.roofline import model_flops as rl_model_flops
+    from repro_torch.launch.roofline import roofline_from
+    from repro_torch.launch.specs import ShapeSpec
+    out: dict = {}
+
+    def on_mesh(shape, cfg, mesh_shape):
+        with dryrun.fake_group(mesh_shape[0] * mesh_shape[1]):
+            mesh = init_device_mesh("cuda", tuple(mesh_shape),
+                                    mesh_dim_names=("data", "model"))
+            return dryrun.measure(cfg, shape, mesh, device="cuda",
+                                  grad_accum=1)
+
+    def item(key, fn):
+        t0 = time.perf_counter()
+        try:
+            out[key] = fn()
+        except Exception as e:              # reported by phase 34
+            out[key] = {"error": f"{type(e).__name__}: {e}"}
+        out[key]["s"] = time.perf_counter() - t0
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+    cfg25 = configs.get(TRAIN_ARCH).replace(attn_impl="xla")
+    shape25 = ShapeSpec("phase 25", TRAIN_S, TRAIN_B, "train")
+
+    def one_card():
+        got = dryrun.measure(cfg25, shape25, None, device="cuda",
+                             grad_accum=1)
+        cost = cell_cost(cfg25, shape25, n_chips=1, dp=1, tp=1,
+                         multi_pod=False)
+        rl = roofline_from(cost.flops_total, cost.hbm_bytes_per_dev,
+                           cost.wire_ici_per_dev, cost.wire_dcn_per_dev,
+                           rl_model_flops(cfg25, shape25), 1)
+        return {"peak": got["memory"]["peak"], "flops": got["flops"],
+                "bound_s": rl.step_time_s, "dominant": rl.dominant,
+                "compute_s": rl.compute_s, "memory_s": rl.memory_s}
+    item("one_card", one_card)
+
+    _, arch, _, B, S = SHARD_PARITY_CASES[0]
+    cfg31 = configs.get(arch).replace(n_layers=TRAIN_PARITY_LAYERS,
+                                      dtype="float32", attn_impl="xla")
+    mesh31, meshes32 = shard_meshes(cards)
+
+    def p31():
+        got = on_mesh(ShapeSpec("phase 31", S, B, "train"), cfg31, mesh31)
+        return {"collectives": got["collectives"].by_kind(),
+                "peak": got["memory"]["peak"]}
+    item("p31", p31)
+    for mesh in meshes32:
+        item(f"p32 {mesh}", lambda: {"peak": on_mesh(
+            shape25, cfg25, mesh)["memory"]["peak"]})
+
+
+def dryrun_phase(torch, smi, predictor, plain: dict, p31: dict,
+                 p32: dict) -> None:
+    """Phase 34: the dry run's predictions (``predict``, run beside the
+    earlier phases) against the card: (a) phase 25's peak, FLOPs and
+    step beside the one-card prediction, (b) the collectives of phase
+    31's full-width step in fake mode held equal, count and bytes by
+    kind, to those its rank 0 issued (``p31``), and phase 32's peaks a
+    card (``p32``: {mesh: [bytes a rank]}) beside rank 0's prediction at
+    each mesh."""
+    t0 = time.perf_counter()
+    proc, path = predictor
+    try:
+        proc.wait(timeout=PREDICT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 34: the predictions ran past "
+                             f"{PREDICT_TIMEOUT_S} s")
+    with open(path) as f:
+        pred = json.load(f)
+    errors = {k: v["error"] for k, v in pred.items() if "error" in v}
+    if proc.returncode or errors:
+        raise AssertionError(f"phase 34: the predictions failed (exit "
+                             f"{proc.returncode}): {errors}")
+    a = pred["one_card"]
+    log(f"dry run (phase 34a) against phase 25 ({TRAIN_ARCH}, full depth, "
+        f"bf16, remat, batch {plain['batch']}, seq {TRAIN_S}, one card, "
+        f"{smi}; predicted for batch {TRAIN_B} in {a['s']:.1f} s): peak "
+        f"{a['peak'] / 2**30:.3f} GiB predicted against "
+        f"{plain['peak'] / 2**30:.3f} measured ({a['peak'] / plain['peak']:.4f}"
+        f"x); FLOPs counted {a['flops']:.4e} against the model FLOPs "
+        f"{plain['flops']:.4e} ({a['flops'] / plain['flops']:.4f}x); roofline "
+        f"bound {a['bound_s'] * 1e3:.2f} ms ({a['dominant']}; compute "
+        f"{a['compute_s'] * 1e3:.2f}, memory {a['memory_s'] * 1e3:.2f}) "
+        f"against the median step {plain['step_ms']:.2f} ms "
+        f"({plain['step_ms'] / (a['bound_s'] * 1e3):.2f}x the bound)")
+    fake = {k: (d["count"], d["bytes"])
+            for k, d in pred["p31"]["collectives"].items()}
+    real = {k: (d["count"], d["bytes"]) for k, d in p31.items()}
+    log(f"dry run (phase 34b) phase 31's full-width step at (data, model) "
+        f"{shard_meshes(torch.cuda.device_count())[0]}, (count, bytes) by "
+        f"kind: fake {json.dumps(fake)}, rank 0 of the real step "
+        f"{json.dumps(real)}; predicted peak "
+        f"{pred['p31']['peak'] / 2**30:.3f} GiB")
+    for mesh, peaks in p32.items():
+        pp = pred[f"p32 {mesh}"]["peak"]
+        gib = [round(b / 2**30, 3) for b in peaks]
+        log(f"  phase 32 at {mesh}: predicted peak (rank 0) "
+            f"{pp / 2**30:.3f} GiB against {gib} measured a card "
+            f"({pp / max(peaks):.4f}x the largest)")
+    if fake != real:
+        raise AssertionError("phase 34: the dry run's collectives are not "
+                             "those of phase 31's real step")
+    log(f"dry run (phase 34) took {time.perf_counter() - t0:.1f} s (waiting "
+        f"for the predictions included)")
 
 
 def main() -> int:
@@ -3656,10 +4041,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from repro_torch.core import best_throughput, scenarios, solve
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.models.cnn import zoo
-    from repro_torch.runtime import EdgePipeline
+    from repro_torch.kernels import _build
 
     # ---------------------------------------------------------------- setup
     smi = nvidia_smi()
@@ -3680,6 +4062,32 @@ def main() -> int:
                               _build.LIBRARIES))
     log(f"built {[str(p.relative_to(ROOT)) for p in built]} in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
+    # phase 34's predictions run on the host beside the phases until then
+    import tempfile
+    pred_dir = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    pred_path = os.path.join(pred_dir, "predict.json")
+    with open(os.path.join(pred_dir, "log.txt"), "w") as pred_log:
+        predictor = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--predict",
+             pred_path, str(torch.cuda.device_count())],
+            stdout=pred_log, stderr=subprocess.STDOUT)
+    try:
+        return phases(torch, smi, (predictor, pred_path))
+    finally:
+        if predictor.poll() is None:
+            predictor.kill()
+        predictor.wait()
+        import shutil
+        shutil.rmtree(pred_dir, ignore_errors=True)
+
+
+def phases(torch, smi, predictor) -> int:
+    """Phases 2-34 (``main`` made the setup and started the
+    predictions)."""
+    from repro_torch.core import best_throughput, scenarios, solve
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models.cnn import zoo
+    from repro_torch.runtime import EdgePipeline
     for lib in _build.LIBRARIES:
         for line in lib.log.read_text().splitlines():
             if "Compiling entry" in line or "registers" in line:
@@ -4109,15 +4517,23 @@ def main() -> int:
     t_shard = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_parity(torch, smi)
-    for k, n in sharded_train(torch, smi, plain_train).items():
+    ranked = rank_phases(torch, plain_train)
+    p31_collectives = sharded_parity(torch, smi, ranked["31"])
+    shard_launches, p32_peaks = sharded_train(torch, smi, plain_train,
+                                              ranked.get("32"))
+    for k, n in shard_launches.items():
         train_launches[k] += n
-    log(f"sharded phases 31-32 took {time.perf_counter() - t_shard:.1f} s")
+    serve_launches = sharded_serve(torch, smi, SERVED["lm"], ranked["33"])
+    log(f"sharded phases 31-33 took {time.perf_counter() - t_shard:.1f} s")
+
+    # -------------------------------------------------------------- dry run
+    dryrun_phase(torch, smi, predictor, plain_train, p31_collectives,
+                 p32_peaks)
 
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
-                enc_launches, pipe_launches)
+                enc_launches, pipe_launches, serve_launches)
     rows = []
     for name in REPLACES:
         t = timings[name]
@@ -4159,8 +4575,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
         with open(sys.argv[3]) as spec_file:
             spec = json.load(spec_file)
-        {"31": sharded_parity_rank, "32": sharded_train_rank}[sys.argv[2]](
-            spec, sys.argv[4])
+        rank_main(spec, sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--predict":
+        predict(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     if len(sys.argv) > 1:
         sys.exit(f"usage: {sys.argv[0]}")

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.cnn.zoo import resolve_device
+from ..models.common import AbstractBuilder
 from ..models.config import ArchConfig
 
 
@@ -42,6 +43,28 @@ def _token_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
     else:
         shapes["tokens"] = (batch, seq)
     return shapes
+
+
+def _axes_for(name: str) -> tuple:
+    return {"tokens": ("batch", "seq"),
+            "targets": ("batch", "seq"),
+            "img": ("batch", "patches", "embed"),
+            "frames": ("batch", "frames", "embed")}[name]
+
+
+def make_batch_specs(cfg: ArchConfig, batch: int, seq: int, ctx,
+                     kind: str = "train") -> dict:
+    """``LeafSpec``s of a train/prefill batch under ``ctx`` (a
+    ``sharding.api.MeshContext``, or None): fp32 image patches and
+    frames, int32 tokens and targets, split over ``data`` where the
+    batch divides (decode's cache specs live in ``launch.specs``)."""
+    shapes = dict(_token_shapes(cfg, batch, seq))
+    if kind == "train":
+        shapes["targets"] = (batch, seq)
+    leaf = AbstractBuilder(ctx)
+    return {name: leaf(shape, axes=_axes_for(name), dtype=torch.float32
+                       if name in ("img", "frames") else torch.int32)
+            for name, shape in shapes.items()}
 
 
 class SyntheticLM:

@@ -49,11 +49,13 @@ def _sm_count(index: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
-                     splits: int | None = None) -> torch.Tensor:
+                     splits: int | None = None, with_lse: bool = False):
     """q: (B,H,hd); caches: (B,Smax,KV,hd), one float dtype (fp32 or
     bf16); ``0 <= pos < Smax`` → (B,H,hd).  ``splits`` forces the number
     of position ranges (tests only; ``decode_splits`` picks it
-    otherwise); ranges past ``pos`` are empty and add nothing."""
+    otherwise); ranges past ``pos`` are empty and add nothing.  With
+    ``with_lse`` also the fp32 (B,H) log-sum-exp of the scaled scores,
+    read from the split kernel's partial softmax states (``_lse``)."""
     require_cuda("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
@@ -98,4 +100,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       P(out.data_ptr()), P(part_o.data_ptr()),
                       P(part_ml.data_ptr()), B, H, KV, Smax, hd, pos,
                       splits, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype])
+    if with_lse:
+        return out, _lse(part_ml.view(B, H, splits, 2))
     return out
+
+
+def _lse(part_ml: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp (natural log) of the scaled scores from the split
+    kernel's (B,H,splits,2) states: each split's max ``m_i`` and sum
+    ``l_i`` of ``2^(s - m_i)``, scores in the log2 domain (``scale ·
+    log2 e``); an empty split (``m_i = -inf``) adds nothing."""
+    m, l = part_ml.unbind(-1)
+    mx = m.amax(dim=-1, keepdim=True)
+    tot = (l * torch.exp2(m - mx)).sum(dim=-1)
+    return (mx[..., 0] + torch.log2(tot)) * math.log(2.0)

@@ -10,7 +10,11 @@ wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, so a run can show that its main path went
 through the kernels.
 
-The LM wrappers (attention, RMSNorm, the two scans) raise when autograd
+The LM wrappers (attention, RMSNorm, the two scans) take plain tensors
+and raise for a DTensor: under a mesh the model calls them on each
+rank's local shards (``sharding.api.on_shards``), and a layout they
+cannot take is an error, never a quiet detour through the plain route.
+They also raise when autograd
 would record them: their kernels have no backward (nor have the
 reference's Pallas kernels), and a ``ctypes`` launch returns a tensor
 without a ``grad_fn``, which would cut the graph and leave every weight
@@ -23,6 +27,7 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import codec_pack, ref
 from . import decode_attention as _decode
@@ -44,7 +49,12 @@ def _launched(fn) -> None:
 
 
 def _no_autograd(fn, *tensors) -> None:
-    """Raise if autograd is on and any of ``tensors`` requires grad."""
+    """Raise if any of ``tensors`` is a DTensor, or if autograd is on and
+    any requires grad."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"ops.{fn.__name__} takes each rank's local tensors: under a "
+            "mesh call it through sharding.api.on_shards")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(
@@ -118,13 +128,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @_counted
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, *,
+                     with_lse: bool = False):
     """q (B,H,hd), caches (B,Smax,KV,hd), int pos → (B,H,hd) over the
-    cache positions ``<= pos``."""
+    cache positions ``<= pos``; with ``with_lse`` also the fp32 (B,H)
+    log-sum-exp of those positions' scaled scores, by which outputs over
+    disjoint ranges of positions merge (a cache split along its
+    sequence)."""
     _no_autograd(decode_attention, q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k_cache, v_cache, pos)
-    out = _decode.decode_attention(q, k_cache, v_cache, pos)
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos,
+                                        with_lse=with_lse)
+    out = _decode.decode_attention(q, k_cache, v_cache, pos,
+                                   with_lse=with_lse)
     _launched(decode_attention)
     return out
 

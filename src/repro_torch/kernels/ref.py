@@ -115,9 +115,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                         v_cache: torch.Tensor, pos: int, *,
+                         with_lse: bool = False):
     """q: (B,H,hd); caches: (B,Smax,KV,hd); attends positions ``<= pos``
-    → (B,H,hd)."""
+    → (B,H,hd), and with ``with_lse`` the fp32 (B,H) log-sum-exp of the
+    scaled scores over those positions."""
     H, hd = q.shape[1], q.shape[2]
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -128,7 +130,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.arange(Smax, device=q.device) <= pos
     s = s.masked_fill(~mask, float("-inf"))
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", w, vv).to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", w, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -7,8 +7,7 @@ XLA's ``cost_analysis()`` counts a while-loop body once; the formulas
 feed its roofline and, through ``models.blocks_adapter``, the pipeline
 planner, so the port keeps them exactly (its tests hold every function
 equal to the reference's).  ``cell_cost`` takes a shape with ``.batch``,
-``.seq`` and ``.kind``: the reference builds one in ``launch/specs.py``,
-which needs jax; ``CellShape`` is the port's jax-free record of it.
+``.seq`` and ``.kind``: a ``launch.specs.ShapeSpec``.
 
 Conventions:
   * matmul (m,k)x(k,n): 2·m·k·n FLOPs.
@@ -34,14 +33,6 @@ def _ar_wire(nbytes: float, s: int) -> float:
 
 def _ag_wire(nbytes: float, s: int) -> float:
     return nbytes * (s - 1) / s if s > 1 else 0.0
-
-
-@dataclass(frozen=True)
-class CellShape:
-    """The shape of one cell, as ``cell_cost`` reads it."""
-    seq: int
-    batch: int
-    kind: str          # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)

@@ -74,6 +74,18 @@ def make_host_mesh(n_pods: int = 1, data: int = 1, model: int = 1,
                          for k in range(n_pods)))
 
 
+def make_production_mesh(multi_pod: bool = False, device_type: str = "cpu"):
+    """The reference's single-pod ``(data, model)`` mesh, 16 x 16, over
+    the 256 ranks of the current process group (the dry run's fake
+    one); the multi-pod 2 x 16 x 16 mesh is item 12c, not ported."""
+    if multi_pod:
+        raise NotImplementedError(
+            "the multi-pod (pod, data, model) mesh is not ported (ROADMAP "
+            "queue 1, item 12c)")
+    return init_device_mesh(device_type, (16, 16),
+                            mesh_dim_names=("data", "model"))
+
+
 def in_rank() -> bool:
     """Whether this process is one of a group's ranks (``spawn_ranks``'s
     or ``torchrun``'s environment)."""

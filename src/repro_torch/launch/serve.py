@@ -19,6 +19,14 @@ serves through the pod pipeline (``runtime.pipeline``, stage k on
 ``cuda:{k % cards}``), with even cuts or, with ``--auto-partition``,
 the ParetoPipe cuts for serving (``choose_pipeline_cuts(...,
 train=False)``); its tokens equal the unpipelined serve's.
+``--data-par D --model-par M`` (D x M > 1) serves on a ``(data, model)``
+mesh of D x M ranks, as ``launch.train`` trains on one: the command
+starts the ranks (``launch.mesh.spawn_ranks``), or is one of them under
+``torchrun``; each draws the whole weights from ``--seed`` and keeps its
+shards (``lm.shard_params``), the steps split the batch over ``data``
+and run the kernels on each rank's shards, and the cache stays sharded
+(``lm.cache_names``).  Rank 0 alone prints.  More ranks than cards is an
+error; pods with data or model axes are item 12c, not ported.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
@@ -42,15 +50,19 @@ train=False)``); its tokens equal the unpipelined serve's.
       --batch 8 --prompt-len 416 --new-tokens 32         # on the card
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --pods 2 --auto-partition             # pipelined
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
+      --device cpu --data-par 2 --model-par 2 --batch 4  # 4 gloo ranks
 
 ``main`` prints the reference's lines and returns the numbers.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import configs
 from ..data.pipeline import DataConfig, SyntheticLM
@@ -59,7 +71,8 @@ from ..models.cnn.zoo import resolve_device
 from ..runtime.pipeline import (make_pipeline_decode_step,
                                 make_pipeline_prefill_step)
 from ..runtime.steps import make_decode_step, make_prefill_step
-from .mesh import plan_pipeline
+from ..sharding.api import use_mesh_context
+from .mesh import in_rank, make_host_mesh, plan_pipeline, spawn_ranks
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -75,7 +88,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="serve through a pipeline of this many stages")
     ap.add_argument("--auto-partition", action="store_true",
                     help="ParetoPipe chooses the pipeline cuts")
+    ap.add_argument("--data-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
     args = ap.parse_args(argv)
+    world = args.data_par * args.model_par
+    if args.pods > 1 and world > 1:
+        ap.error(f"--pods {args.pods} with --data-par {args.data_par} "
+                 f"--model-par {args.model_par}: the (pod, data, model) mesh "
+                 "is not ported (ROADMAP queue 1, item 12c)")
+    if world > 1 and torch.device(args.device).type == "cuda" \
+            and not in_rank() and world > torch.cuda.device_count():
+        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
+                 f"{world} ranks need {world} cards, one a rank; this "
+                 f"machine has {torch.cuda.device_count()}")
     if args.new_tokens < 2:
         ap.error("--new-tokens must be at least 2 (one warm-up decode step)")
     if args.auto_partition and args.pods <= 1:
@@ -89,6 +114,8 @@ def setup(args: argparse.Namespace):
     ``torch.Generator`` on the device seeded with ``--seed``, one
     synthetic batch without its targets."""
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
     cfg = cfg.replace(attn_impl="pallas")
     model = lm.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
@@ -103,10 +130,14 @@ def setup(args: argparse.Namespace):
 
 def _sync(device: torch.device) -> None:
     """Wait for the work of every card (a pipeline's stages may sit on
-    several)."""
-    if device.type == "cuda":
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
+    several); in a rank of a group, for its own card."""
+    if device.type != "cuda":
+        return
+    if dist.is_initialized():
+        torch.cuda.synchronize(device)
+        return
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int,
@@ -143,10 +174,29 @@ def serve(cfg, model, inputs: dict, cache_len: int, new_tokens: int,
 
 
 def main(argv=None) -> dict:
+    """Serve as ``argv`` says; prints the reference's lines → the
+    numbers.  With ``--data-par`` x ``--model-par`` > 1, outside a rank:
+    starts the ranks, each this command, and exits with their code (0 →
+    {"arch", "ranks"})."""
     args = parse_args(argv)
+    world = args.data_par * args.model_par
+    if world > 1 and not in_rank():
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               *(sys.argv[1:] if argv is None else argv)]
+        code = spawn_ranks(cmd, world)
+        if code:
+            sys.exit(code)
+        return {"arch": args.arch, "ranks": world}
+    ranks = None
+    if world > 1 or in_rank():
+        ranks = make_host_mesh(1, args.data_par, args.model_par, args.device)
     cfg, model, inputs, cache_len = setup(args)
     pcfg, steps = None, None
-    if args.pods > 1:
+    if ranks is not None:
+        with use_mesh_context(ranks) as ctx:
+            lm.shard_params(cfg, model, ctx)
+            steps = (make_prefill_step(cfg, cache_len), make_decode_step(cfg))
+    elif args.pods > 1:
         pcfg, mesh = plan_pipeline(cfg, model, args.pods, 1,
                                    seq=args.prompt_len, batch=args.batch,
                                    auto_partition=args.auto_partition,
@@ -161,13 +211,17 @@ def main(argv=None) -> dict:
     decode_tok_s = B * n_dec / res["decode_s"]
     out = res["tokens"]
     finite = bool((out >= 0).all() and (out < cfg.vocab).all())
-    print(f"arch={cfg.name} batch={B} prompt={S} device={model.device}"
-          + ("" if pcfg is None else f" pods={args.pods} cuts={pcfg.cuts}"))
-    print(f"prefill latency: {res['prefill_s'] * 1e3:.1f} ms "
-          f"({prefill_tok_s:.0f} tok/s)")
-    print(f"decode: {ms_per_token:.2f} ms/token "
-          f"({decode_tok_s:.0f} tok/s aggregate)")
-    print(f"generated shape {tuple(out.shape)}, finite={finite}")
+    say = print if ranks is None or dist.get_rank() == 0 else \
+        (lambda *a, **k: None)
+    say(f"arch={cfg.name} batch={B} prompt={S} device={model.device}"
+        + ("" if pcfg is None else f" pods={args.pods} cuts={pcfg.cuts}")
+        + ("" if ranks is None else
+           f" mesh=(data {args.data_par}, model {args.model_par})"))
+    say(f"prefill latency: {res['prefill_s'] * 1e3:.1f} ms "
+        f"({prefill_tok_s:.0f} tok/s)")
+    say(f"decode: {ms_per_token:.2f} ms/token "
+        f"({decode_tok_s:.0f} tok/s aggregate)")
+    say(f"generated shape {tuple(out.shape)}, finite={finite}")
     return {"arch": cfg.name, "device": str(model.device),
             "cuts": None if pcfg is None else pcfg.cuts,
             "prefill_ms": res["prefill_s"] * 1e3,

@@ -21,15 +21,16 @@ import math
 import torch
 
 from ..kernels import ops
-from ..sharding.api import (attn_q_names, get_context, is_dtensor,
-                            on_shards, shard)
-from .common import apply_rope, norm
+from ..sharding.api import (Partial, Replicate, Shard, attn_q_names,
+                            get_context, is_dtensor, on_shards, shard,
+                            shard_start, to_placements)
+from .common import SumOver, apply_rope, norm
 
 
 def attn_params(cfg, leaf) -> dict:
-    """``leaf``: a ``common.Init`` (or ``common.Specs``).  Shapes, scales
-    and logical axes of the reference's ``attn_params`` (``wo``'s fan-in
-    is its first axis, H, as there).  Under a mesh whose ``model`` dim
+    """``leaf``: a ``common.Init`` (or ``common.AbstractBuilder``).
+    Shapes, scales and logical axes of the reference's ``attn_params``
+    (``wo``'s fan-in is its first axis, H, as there).  Under a mesh whose ``model`` dim
     does not divide the heads, the projections shard their contraction
     dims instead (row-parallel: D for q/k/v, head_dim for o), the
     reference's build-time choice."""
@@ -76,8 +77,34 @@ def qkv_project(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
 def o_project(p, attn_out: torch.Tensor) -> torch.Tensor:
     # under a mesh the sequence comes whole (q may have been split on it)
     attn_out = shard(attn_out, "batch", "seq", "heads", "head_dim")
-    y = torch.einsum("bshk,hkd->bsd", attn_out, p.wo)
+    if is_dtensor(p.wo) and Shard(1) in p.wo.placements:
+        y = _row_parallel_o(attn_out, p.wo)
+    else:
+        y = torch.einsum("bshk,hkd->bsd", attn_out, p.wo)
     return shard(y, "batch", "seq", "embed")
+
+
+def _row_parallel_o(attn_out, wo):
+    """The output projection of a row-parallel ``wo`` (H, hd, D), its
+    head_dim split over ``model`` (``head_dim_rp``), on each rank's
+    shards: each rank's slice of head_dim against its rows of ``wo``, the
+    partial products summed over that mesh dim (an all-reduce, whose
+    gradient is the output's on every rank).  DTensor's own rule would
+    meet head_dim split inside the flattened (H·hd) contraction and
+    fail."""
+    wp = tuple(wo.placements)
+    split = wp.index(Shard(1))
+    ap = tuple(Shard(3) if md == split else
+               p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for md, p in enumerate(attn_out.placements))
+    out = tuple(Shard(0) if p == Shard(0) else Replicate() for p in ap)
+    group = wo.device_mesh.get_group(split)
+
+    def local(a, w):
+        return SumOver.apply(torch.einsum("bshk,hkd->bsd", a, w), group)
+    return on_shards(local, out, (attn_out, wo), (ap, wp),
+                     (ap, tuple(Partial() if p == Shard(0) else q
+                                for p, q in zip(ap, wp))))
 
 
 # --------------------------------------------------------------------------- #
@@ -103,19 +130,21 @@ def _causal_bias(n_q: int, n_k: int, device) -> torch.Tensor:
     return torch.where(pos_q >= pos_k, zero, float("-inf"))
 
 
-def _attend_on_shards(cfg, q, k, v, causal: bool):
-    """``attend_prefill_chunked`` of DTensors on each rank's shards: the
-    batch over ``data``, the kv heads (and their query heads) over
-    ``model`` where it divides them, the sequence whole (q's is gathered
-    if it came split); the heads whole on every rank where ``model``
-    does not divide the kv heads."""
+def _attend_on_shards(cfg, q, k, v, causal: bool, fn=None):
+    """Prefill attention of DTensors on each rank's shards, by ``fn(q,
+    k, v)`` (``attend_prefill_chunked`` by default): the batch over
+    ``data``, the kv heads (and their query heads) over ``model`` where
+    it divides them, the sequences whole (q's is gathered if it came
+    split); the heads whole on every rank where ``model`` does not
+    divide the kv heads."""
     ctx = get_context()
     heads = "heads" if k.shape[2] % ctx.size("model") == 0 else None
     kv = "kv_heads" if heads else None
     qp = ctx.placements(("batch", "seq", heads, "head_dim"), tuple(q.shape))
     kp = ctx.placements(("batch", "seq", kv, "head_dim"), tuple(k.shape))
-    return on_shards(lambda q, k, v: attend_prefill_chunked(
-        cfg, q, k, v, causal=causal), qp, (q, k, v), (qp, kp, kp))
+    fn = fn or (lambda q, k, v: attend_prefill_chunked(cfg, q, k, v,
+                                                       causal=causal))
+    return on_shards(fn, qp, (q, k, v), (qp, kp, kp))
 
 
 def attend_prefill_chunked(cfg, q, k, v, *, causal: bool = True):
@@ -173,7 +202,11 @@ def attend_prefill_chunked(cfg, q, k, v, *, causal: bool = True):
 def attend_prefill(cfg, q, k, v, *, causal: bool = True):
     """q: (B,S,H,hd); k,v: (B,T,KV,hd) → (B,S,H,hd)."""
     if cfg.attn_impl == "pallas":
-        return ops.flash_attention(q, k, v, causal=causal)
+        def kernel(q, k, v):
+            return ops.flash_attention(q, k, v, causal=causal)
+        if is_dtensor(q):
+            return _attend_on_shards(cfg, q, k, v, causal, kernel)
+        return kernel(q, k, v)
     return attend_prefill_chunked(cfg, q, k, v, causal=causal)
 
 
@@ -197,9 +230,83 @@ def attend_decode_dense(q, k_cache, v_cache, pos: int):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _decode_part(cfg, q, k_cache, v_cache, pos: int):
+    """Decode attention of q (B,1,H,hd) over the positions ``0..pos`` of
+    the caches (B,Smax,KV,hd) → (out (B,1,H,hd), fp32 (B,H) log-sum-exp
+    of their scaled scores): the kernel under ``"pallas"``, else the
+    plain masked softmax.  A ``pos`` below 0 holds no position: a zero
+    output of weight ``-inf``."""
+    B, _, H, hd = q.shape
+    if pos < 0:
+        return (torch.zeros_like(q),
+                torch.full((B, H), float("-inf"), dtype=torch.float32,
+                           device=q.device))
+    pos = min(pos, k_cache.shape[1] - 1)
+    if cfg.attn_impl == "pallas":
+        out, lse = ops.decode_attention(q.reshape(B, H, hd), k_cache,
+                                        v_cache, pos, with_lse=True)
+        return out.reshape(B, 1, H, hd), lse
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) / math.sqrt(hd)
+    s = s.masked_fill(torch.arange(Smax, device=q.device) > pos,
+                      float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    w = torch.exp(s - lse[..., None])
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, hd).to(q.dtype), lse.reshape(B, H)
+
+
+class _MergeOver:
+    """Decode attention over a cache split along its sequence on one
+    mesh dim: each rank attends over its own positions (``_decode_part``
+    at its shard's offset) and the parts merge by their log-sum-exps
+    over the dim's group (three all-reduces of (B,H)-sized or (B,H,hd)
+    tensors; no rank gathers the cache)."""
+
+    def __init__(self, cfg, pos: int, start: int, group):
+        self.cfg, self.pos, self.start, self.group = cfg, pos, start, group
+
+    def __call__(self, q, k_cache, v_cache):
+        import torch.distributed as dist
+        out, lse = _decode_part(self.cfg, q, k_cache, v_cache,
+                                self.pos - self.start)
+        m = lse.clone()
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=self.group)
+        w = torch.exp(lse - m)                            # 0 for no positions
+        num = out[:, 0].to(torch.float32) * w[..., None]
+        dist.all_reduce(num, group=self.group)
+        dist.all_reduce(w, group=self.group)
+        return (num / w[..., None])[:, None].to(q.dtype)
+
+
+def _decode_on_shards(cfg, q, k_cache, v_cache, pos: int):
+    """``attend_decode`` of DTensors on each rank's shards, the caches
+    as they lie: the batch over ``data``; the kv heads (and their query
+    heads) over ``model`` where the cache splits them; where it splits
+    the sequence instead (``kv_cache_names``' ``seq_model``), the heads
+    whole and the ranks' parts merged (``_MergeOver``)."""
+    kp = tuple(k_cache.placements)
+    qp = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in kp)
+    split = [md for md, p in enumerate(kp) if p == Shard(1)]
+    if not split:
+        def fn(q, k, v):
+            return _decode_part(cfg, q, k, v, pos)[0]
+    else:
+        mesh = k_cache.device_mesh
+        fn = _MergeOver(cfg, pos, shard_start(k_cache, 1),
+                        mesh.get_group(split[0]))
+    return on_shards(fn, qp, (q, k_cache, v_cache), (qp, kp, kp))
+
+
 def attend_decode(cfg, q, k_cache, v_cache, pos: int):
     """q: (B,1,H,hd); caches: (B,Smax,KV,hd); pos: index of the current
-    token (the cache already holds it) → (B,1,H,hd)."""
+    token (the cache already holds it) → (B,1,H,hd).  Under a mesh on
+    each rank's shards (``_decode_on_shards``)."""
+    if is_dtensor(q):
+        return _decode_on_shards(cfg, q, k_cache, v_cache, pos)
     if cfg.attn_impl == "pallas":
         B, _, H, hd = q.shape
         out = ops.decode_attention(q.reshape(B, H, hd), k_cache, v_cache,
@@ -208,11 +315,30 @@ def attend_decode(cfg, q, k_cache, v_cache, pos: int):
     return attend_decode_dense(q, k_cache, v_cache, pos)
 
 
+def write_rows(cache, new, start: int):
+    """Write ``new`` (B,n,KV,hd) into rows ``start..start+n`` of ``cache``
+    (B,Smax,KV,hd), in place → ``cache``.  A DTensor cache keeps its
+    layout: ``new`` takes the cache's split of the batch and kv heads,
+    whole along the sequence, and where the cache splits the sequence
+    each rank writes only the rows its shard holds."""
+    n = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = new.to(cache.dtype)
+        return cache
+    lp = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in cache.placements)
+    rows = to_placements(new, lp).to_local()
+    dst = cache.to_local()
+    lo = shard_start(cache, 1)
+    a, b = max(start, lo), min(start + n, lo + dst.shape[1])
+    if a < b:
+        dst[:, a - lo:b - lo] = rows[:, a - start:b - start].to(dst.dtype)
+    return cache
+
+
 def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
     """Write (B,1,KV,hd) at position ``pos`` of the (B,Smax,KV,hd)
-    caches.  Unlike the reference, which returns updated copies, this
-    writes the caches in place and returns them: a serving step then
-    moves one row per layer, not the whole cache."""
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    return k_cache, v_cache
+    caches (``write_rows``).  Unlike the reference, which returns
+    updated copies, this writes the caches in place and returns them: a
+    serving step then moves one row per layer, not the whole cache."""
+    return write_rows(k_cache, k_new, pos), write_rows(v_cache, v_new, pos)

@@ -5,16 +5,17 @@ The reference declares every weight through a ``Builder`` (real arrays,
 abstract shapes with shardings, partition specs).  Here a leaf function
 takes the same declaration (shape, init, scale, dtype and the logical
 ``axes``): ``Init`` draws each leaf directly from a ``torch.Generator``
-with the reference builder's shapes and scales, and ``Specs`` gives its
-PartitionSpec under a mesh (the reference's ``SpecBuilder``), from
-which ``param_placements`` gives every parameter's DTensor placements.
-Under a mesh ``Init`` still draws every leaf whole, on every rank, and
-``shard_model`` then keeps each rank's shard, so a sharded run starts
-from the one-device run's weights exactly.  (The reference's abstract
-builder, for its dry run, is not ported: ROADMAP queue 1, item 13.)  A
-``torch.Generator`` gives other numbers than ``jax.random`` from the
-same seed: parity loads the reference's weights (``lm.from_reference``)
-instead.  The tree itself keeps the reference's keys and leaf shapes
+with the reference builder's shapes and scales, and ``AbstractBuilder``
+(the reference's ``AbstractBuilder`` and ``SpecBuilder`` in one) gives
+its ``LeafSpec`` — shape, dtype, and under a mesh its PartitionSpec and
+DTensor placements — with no storage, for the dry run
+(``launch/specs.py``) and for ``param_specs``, ``param_shapes`` and
+``param_placements``.  Under a mesh ``Init`` still draws every leaf
+whole, on every rank, and ``lm.shard_params`` then keeps each rank's
+shard, so a sharded run starts from the one-device run's weights
+exactly.  A ``torch.Generator`` gives other numbers than ``jax.random``
+from the same seed: parity loads the reference's weights
+(``lm.from_reference``) instead.  The tree itself keeps the reference's keys and leaf shapes
 (``Leaves``).
 
 Host arrays: numpy has no bfloat16 without ``ml_dtypes``, which the
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Callable
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -50,7 +52,7 @@ from torch import nn
 from ..kernels import ops
 from ..sharding.api import (Partial, Replicate, Shard, get_context,
                             in_context, is_dtensor, on_shards, shard,
-                            use_mesh_context)
+                            use_mesh_context, whole_along)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -94,52 +96,82 @@ class Init:
         return (w * scale).to(dtype)
 
 
-class Specs:
-    """The spec builder (the reference's ``SpecBuilder``): a leaf
-    function that gives each leaf's PartitionSpec under ``ctx``, its
-    logical ``axes`` mapped through the rules table."""
+@dataclass(frozen=True)
+class LeafSpec:
+    """A tensor without storage: its shape and dtype and, under a mesh,
+    its PartitionSpec (one mesh-dim name, a tuple of them, or None a
+    tensor dim) and the DTensor placements of that layout (None without
+    a mesh)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: tuple | None = None
+    placements: tuple | None = None
 
-    def __init__(self, ctx):
-        self.ctx = ctx
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+class AbstractBuilder:
+    """The abstract builder (the reference's ``AbstractBuilder``, whose
+    ``SpecBuilder`` is its ``spec`` field): a leaf function that gives
+    each leaf's ``LeafSpec``, its logical ``axes`` mapped through the
+    rules table under ``ctx`` (None: no mesh).  A leaf's ``dtype``
+    defaults to ``dtype``."""
+
+    def __init__(self, ctx, dtype: torch.dtype = torch.bfloat16):
+        self.ctx, self.dtype = ctx, dtype
 
     def __call__(self, shape, init="normal", scale=None, dtype=None,
-                 axes=()):
-        return self.ctx.spec(tuple(axes), tuple(shape))
+                 axes=()) -> LeafSpec:
+        shape = tuple(shape)
+        if self.ctx is None:
+            return LeafSpec(shape, dtype or self.dtype)
+        spec = self.ctx.spec(tuple(axes), shape)
+        return LeafSpec(shape, dtype or self.dtype, spec,
+                        self.ctx.placements_of(spec))
+
+
+def abstract_params(cfg, ctx) -> dict:
+    """``lm.build_params`` through ``AbstractBuilder`` in ``cfg.dtype``:
+    the parameter tree of ``LeafSpec``s.  The builders run under ``ctx``
+    (when one is given), as attention's row-parallel choice reads it."""
+    from . import lm
+    with use_mesh_context(None if ctx is None else ctx.mesh):
+        return lm.build_params(cfg, AbstractBuilder(ctx, DTYPES[cfg.dtype]))
 
 
 def param_specs(cfg, ctx) -> dict:
     """Every parameter's PartitionSpec under ``ctx``, keyed by the port's
     names (``layers.3.attn.wq``): a block's is its stacked reference
-    leaf's without the leading ``layers`` dim (always replicated).  The
-    builders run under ``ctx``, as attention's row-parallel choice reads
-    it."""
-    from . import lm
-    with use_mesh_context(ctx.mesh):
-        tree = lm.build_params(cfg, Specs(ctx))
-    return dict(_named(tree))
+    leaf's without the leading ``layers`` dim (always replicated)."""
+    return {n: leaf.spec for n, leaf in
+            named_leaves(abstract_params(cfg, ctx))}
 
 
 def param_shapes(cfg) -> dict:
     """Every parameter's shape, keyed by the port's names."""
-    from . import lm
-    return dict(_named(lm.build_params(
-        cfg, lambda shape, *a, **k: tuple(shape))))
+    return {n: leaf.shape for n, leaf in
+            named_leaves(abstract_params(cfg, None))}
 
 
-def _named(tree, prefix=""):
+def named_leaves(tree, prefix=""):
+    """(``layers.3.attn.wq``, leaf) of a parameter tree (dicts, and the
+    stacked trees' lists of blocks), in the tree's order."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _named(v, f"{prefix}{k}.")
+            yield from named_leaves(v, f"{prefix}{k}.")
     elif isinstance(tree, list):
         for i, v in enumerate(tree):
-            yield from _named(v, f"{prefix}{i}.")
+            yield from named_leaves(v, f"{prefix}{i}.")
     else:
         yield prefix[:-1], tree
 
 
 def param_placements(cfg, ctx) -> dict:
     """Every parameter's DTensor placements under ``ctx``."""
-    return {n: ctx.placements_of(s) for n, s in param_specs(cfg, ctx).items()}
+    return {n: leaf.placements for n, leaf in
+            named_leaves(abstract_params(cfg, ctx))}
 
 
 class Leaves(nn.Module):
@@ -204,9 +236,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """RMSNorm as ``cfg.attn_impl`` selects it: ``"pallas"`` → the fused
-    kernel (``ops.fused_rmsnorm``), ``"xla"`` → the plain ``rms_norm``."""
+    kernel (``ops.fused_rmsnorm``; under a mesh on each rank's rows),
+    ``"xla"`` → the plain ``rms_norm``."""
     if cfg.attn_impl == "pallas":
-        return ops.fused_rmsnorm(x, scale, eps=cfg.norm_eps)
+        def kernel(x, scale):
+            return ops.fused_rmsnorm(x, scale, eps=cfg.norm_eps)
+        if is_dtensor(x):
+            # on each rank's rows, the normalised dim gathered if split
+            xp = whole_along(x, (-1,))
+            return on_shards(kernel, xp, (x, scale),
+                             (xp, (Replicate(),) * len(xp)))
+        return kernel(x, scale)
     return rms_norm(x, scale, cfg.norm_eps)
 
 
@@ -355,7 +395,7 @@ def _lse_minus_label(logits: torch.Tensor,
     return lse - lab
 
 
-class _SumOver(torch.autograd.Function):
+class SumOver(torch.autograd.Function):
     """The sum of every rank's tensor over ``group`` (an all-reduce),
     whose gradient on each rank is the output's: each rank's tensor is a
     share of a sum that every rank then uses whole."""
@@ -386,13 +426,13 @@ class _VocabParallel:
         m = logits.detach().amax(dim=-1, keepdim=True)
         torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
                                      group=self.group)
-        s = _SumOver.apply(torch.exp(logits - m).sum(dim=-1), self.group)
+        s = SumOver.apply(torch.exp(logits - m).sum(dim=-1), self.group)
         lse = m[..., 0] + torch.log(s)
         lab = labels.long() - self.rank * V
         inside = (lab >= 0) & (lab < V)
         picked = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])
         picked = torch.where(inside, picked[..., 0], 0.0)
-        return lse - _SumOver.apply(picked, self.group)
+        return lse - SumOver.apply(picked, self.group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

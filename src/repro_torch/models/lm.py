@@ -61,12 +61,13 @@ from torch import nn
 from torch.distributed.tensor import distribute_tensor
 
 from .attention import (attend_decode, attend_prefill, attn_params,
-                        cache_update, o_project, qkv_project)
+                        cache_update, o_project, qkv_project, write_rows)
 from .cnn.zoo import resolve_device
 from .common import (DTYPES, Init, Leaves, embed_lookup, from_host,
                      host_array, layer_norm, lm_logits, norm,
                      param_placements)
-from ..sharding.api import full, in_context, shard
+from ..sharding.api import (full, in_context, is_dtensor, kv_cache_names,
+                            new_like, put, select, shard)
 from .mlp import mlp, mlp_params, moe_mlp, moe_mlp_gshard, moe_params
 from .ssm import mamba1_block, mamba1_params, mamba2_block, mamba2_params
 
@@ -359,19 +360,59 @@ def ssm_block(cfg, p, x, cache=None, h_out=None):
     return x + y, new_cache
 
 
-def _ssm_cache(cfg, L: int, B: int, dtype, device) -> dict:
+def cache_names(cfg, key: str) -> tuple[str, ...]:
+    """The logical axes of the serving cache's leaf ``key`` (the
+    reference's: ``kv_cache_names`` for the self-attention k/v, under
+    the current mesh, as ``src/repro/models/lm.py:259-260`` shards them;
+    the axes of ``launch/specs.py:cache_specs`` for the rest)."""
+    if key in ("k", "v"):
+        return kv_cache_names(cfg.n_kv_heads, cfg.hd)
+    if key == "conv":
+        return ("layers", "batch", "kernel",
+                "d_inner" if cfg.family == "ssm" else "conv_dim")
+    if key == "h":
+        return (("layers", "batch", "d_inner", "state")
+                if cfg.family == "ssm" else
+                ("layers", "batch", "ssm_heads", "head_dim", "state"))
+    return {"ck": ("layers", "batch", "frames", "kv_heads", "head_dim"),
+            "ak": ("layers", "batch", "seq", "kv_heads", "head_dim")}[
+        {"cv": "ck", "av": "ak"}.get(key, key)]
+
+
+def _new_cache(cfg, key: str, x, shape, dtype=None, zeros=False):
+    """Cache leaf ``key`` of ``shape`` beside the activations ``x``: a
+    DTensor in ``cache_names``' layout under a mesh (each rank allocates
+    its shard), else a plain tensor on x's device."""
+    return new_like(x, shape, dtype or x.dtype, cache_names(cfg, key),
+                    zeros)
+
+
+def _ssm_cache(cfg, L: int, B: int, x) -> dict:
     """Empty conv windows and fp32 states of ``L`` layers of an ssm or
-    hybrid trunk, for prefill to fill."""
+    hybrid trunk beside ``x``, for prefill to fill."""
     K = cfg.ssm_conv
     if cfg.family == "ssm":
         conv, state = cfg.d_inner, (cfg.d_inner, cfg.ssm_state)
     else:
         conv = cfg.d_inner + 2 * cfg.ssm_state
         state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-    return {"conv": torch.empty((L, B, K - 1, conv), dtype=dtype,
-                                device=device),
-            "h": torch.empty((L, B, *state), dtype=torch.float32,
-                             device=device)}
+    return {"conv": _new_cache(cfg, "conv", x, (L, B, K - 1, conv)),
+            "h": _new_cache(cfg, "h", x, (L, B, *state), torch.float32)}
+
+
+def _ssm_layer(cfg, p, x, cache: dict, li: int, decode: bool):
+    """Layer ``li`` of an ssm or hybrid trunk: its block, reading the
+    cache's conv window and state in decode, its new ones written into
+    the cache (the state in place through the block's ``h_out``, or
+    under a mesh into each rank's shard) → x."""
+    conv, h = select(cache["conv"], li), select(cache["h"], li)
+    mesh = is_dtensor(h)
+    x, new = ssm_block(cfg, p, x, {"conv": conv, "h": h} if decode else None,
+                       h_out=None if mesh else h)
+    if mesh:
+        put(h, new["h"])
+    put(conv, new["conv"])
+    return x
 
 
 def n_apps(cfg, layers: range) -> int:
@@ -395,30 +436,29 @@ def trunk_prefill(cfg, model: LM, x, positions, cache_len: int,
     B, S, _ = x.shape
     layers = range(cfg.n_layers) if layers is None else layers
     if cfg.family in ("ssm", "hybrid"):
-        cache = _ssm_cache(cfg, len(layers), B, x.dtype, x.device)
+        cache = _ssm_cache(cfg, len(layers), B, x)
         every = cfg.shared_attn_every
         if cfg.family == "hybrid":
             shared = model.shared if shared is None else shared
             shape = (n_apps(cfg, layers), B, cache_len, cfg.n_kv_heads,
                      cfg.hd)
-            cache["ak"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
-            cache["av"] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+            for key in ("ak", "av"):
+                cache[key] = _new_cache(cfg, key, x, shape, zeros=True)
         for li, i in enumerate(layers):
             if cfg.family == "hybrid" and i % every == 0:
                 x, (k, v) = attn_mlp_block(cfg, shared, x, positions)
                 slot = i // every - layers.start // every
-                cache["ak"][slot, :, :S] = k
-                cache["av"][slot, :, :S] = v
-            x, new = ssm_block(cfg, model.layers[i], x, h_out=cache["h"][li])
-            cache["conv"][li] = new["conv"]
+                write_rows(select(cache["ak"], slot), k, 0)
+                write_rows(select(cache["av"], slot), v, 0)
+            x = _ssm_layer(cfg, model.layers[i], x, cache, li, False)
         return x, {**cache, "pos": S}
     shape = (len(layers), B, cache_len, cfg.n_kv_heads, cfg.hd)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    ks = _new_cache(cfg, "k", x, shape, zeros=True)
+    vs = _new_cache(cfg, "v", x, shape, zeros=True)
     for li, i in enumerate(layers):
         x, (k, v) = _serving_block(cfg, model.layers[i], x, positions)
-        ks[li, :, :S] = k
-        vs[li, :, :S] = v
+        write_rows(select(ks, li), k, 0)
+        write_rows(select(vs, li), v, 0)
     return x, {"k": ks, "v": vs, "pos": S}
 
 
@@ -440,16 +480,14 @@ def trunk_decode(cfg, model: LM, x, cache: dict,
                 slot = i // every - layers.start // every
                 x, _ = attn_mlp_block(
                     cfg, shared, x, positions,
-                    kv_cache=(cache["ak"][slot], cache["av"][slot]), pos=pos)
-            x, new = ssm_block(cfg, model.layers[i], x,
-                               {"conv": cache["conv"][li],
-                                "h": cache["h"][li]},
-                               h_out=cache["h"][li])
-            cache["conv"][li] = new["conv"]
+                    kv_cache=(select(cache["ak"], slot),
+                              select(cache["av"], slot)), pos=pos)
+            x = _ssm_layer(cfg, model.layers[i], x, cache, li, True)
         return x, {**cache, "pos": pos + 1}
     for li, i in enumerate(layers):
         x, _ = _serving_block(cfg, model.layers[i], x, positions,
-                              kv_cache=(cache["k"][li], cache["v"][li]),
+                              kv_cache=(select(cache["k"], li),
+                                        select(cache["v"], li)),
                               pos=pos)
     return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
@@ -617,16 +655,18 @@ def decoder_prefill(cfg, model: LM, x, enc, positions, cache_len: int,
     B, S, _ = x.shape
     layers = range(cfg.n_layers) if layers is None else layers
     L, F, KV, hd = len(layers), enc.shape[1], cfg.n_kv_heads, cfg.hd
-    ks = torch.zeros((L, B, cache_len, KV, hd), dtype=x.dtype,
-                     device=x.device)
-    vs = torch.zeros_like(ks)
-    cks = torch.empty((L, B, F, KV, hd), dtype=x.dtype, device=x.device)
-    cvs = torch.empty_like(cks)
+    cache = {key: _new_cache(cfg, key, x, (L, B, cache_len, KV, hd),
+                             zeros=True) for key in ("k", "v")}
+    cache.update({key: _new_cache(cfg, key, x, (L, B, F, KV, hd))
+                  for key in ("ck", "cv")})
     for li, i in enumerate(layers):
         x, (k, v), (ck, cv) = dec_layer(cfg, model.dec_layers[i], x, enc,
                                         positions)
-        ks[li, :, :S], vs[li, :, :S], cks[li], cvs[li] = k, v, ck, cv
-    return x, {"k": ks, "v": vs, "ck": cks, "cv": cvs, "pos": S}
+        write_rows(select(cache["k"], li), k, 0)
+        write_rows(select(cache["v"], li), v, 0)
+        put(select(cache["ck"], li), ck)
+        put(select(cache["cv"], li), cv)
+    return x, {**cache, "pos": S}
 
 
 def decoder_decode(cfg, model: LM, x, cache: dict,
@@ -639,8 +679,10 @@ def decoder_decode(cfg, model: LM, x, cache: dict,
     layers = range(cfg.n_layers) if layers is None else layers
     for li, i in enumerate(layers):
         x, _, _ = dec_layer(cfg, model.dec_layers[i], x,
-                            (cache["ck"][li], cache["cv"][li]), positions,
-                            kv_cache=(cache["k"][li], cache["v"][li]),
+                            (select(cache["ck"], li),
+                             select(cache["cv"], li)), positions,
+                            kv_cache=(select(cache["k"], li),
+                                      select(cache["v"], li)),
                             pos=pos)
     return x, {**cache, "pos": pos + 1}
 

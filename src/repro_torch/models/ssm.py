@@ -43,12 +43,16 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     The reference's depthwise cross-correlation of ``concat(carry, x)``
     (no flip); the new carry is the last ``K-1`` inputs, before the
     conv.  Under a mesh each rank convolves its own channels (the conv
-    has no DTensor rule for a depthwise weight sharded on them)."""
-    if is_dtensor(x) and carry is None:
+    has no DTensor rule for a depthwise weight sharded on them), from
+    its shard of the carry in decode."""
+    if is_dtensor(x):
         ctx = get_context()
         xp = ctx.placements(("batch", "seq", "conv_dim"), tuple(x.shape))
         wp = ctx.placements(("conv_dim", "kernel"), tuple(w.shape))
         bp = ctx.placements(("conv_dim",), tuple(b.shape))
+        if carry is not None:
+            return on_shards(causal_conv, (xp, xp), (x, w, b, carry),
+                             (xp, wp, bp, xp))
         # each rank's weight gradient sums over its rows of the batch only
         batch = [q == Shard(0) for q in xp]
         return on_shards(causal_conv, (xp, xp), (x, w, b), (xp, wp, bp),
@@ -142,29 +146,38 @@ def _plain_chunk(dt_c, B_c, C_c, x_c, A, h):
 
 
 def _mamba1_inner(cfg, p, xc: torch.Tensor, z: torch.Tensor,
-                  h0: torch.Tensor, h_out: torch.Tensor | None = None):
+                  h0: torch.Tensor | None, h_out: torch.Tensor | None = None):
     """Scan core.  xc: (B, S, di) after conv and SiLU; z: the gate; h0:
-    (B, di, N) fp32 → (y (B, S, di), h).  The final state is written
-    into ``h_out`` when one is given (it may be ``h0``)."""
-    B, S, di = xc.shape
+    (B, di, N) fp32, or None for a zero state under a mesh → (y (B, S,
+    di), h).  The final state is written into ``h_out`` when one is
+    given (it may be ``h0``).  ``"pallas"`` runs the kernel
+    (``_kernel_scan``), else the plain scan; under a mesh either on each
+    rank's shards (``_scan_on_shards``)."""
+    S = xc.shape[1]
     dt, B_, C_, A = _scan_dt(cfg, p, xc)
     L = min(cfg.ssm_chunk, S)
     if S % L != 0:
         L = S
-    if cfg.attn_impl == "pallas":
-        # softplus, D-skip and gate run inside the kernel
-        y = torch.empty((B, S, di), dtype=xc.dtype, device=xc.device)
-        h = h0
-        for c0 in range(0, S, L):
-            c = slice(c0, c0 + L)
-            _, h = ops.mamba1_scan_chunk(dt[:, c], p.dt_bias, xc[:, c],
-                                         z[:, c], B_[:, c], C_[:, c], A, p.D,
-                                         h, y=y[:, c], h_out=h_out)
-            h_out = h                   # later chunks update it in place
-        return y, h
+    scan = _kernel_scan if cfg.attn_impl == "pallas" else _plain_scan
     if is_dtensor(xc):
-        return _scan_on_shards(dt, B_, C_, xc, z, A, p.dt_bias, p.D, L)
-    return _plain_scan(dt, B_, C_, xc, z, A, p.dt_bias, p.D, L, h0, h_out)
+        return _scan_on_shards(scan, dt, B_, C_, xc, z, A, p.dt_bias, p.D, L,
+                               h0)
+    return scan(dt, B_, C_, xc, z, A, p.dt_bias, p.D, L, h0, h_out)
+
+
+def _kernel_scan(dt, B_, C_, xc, z, A, dt_bias, D, L: int, h0, h_out=None):
+    """The kernel's scan over chunks of ``L`` (``ops.mamba1_scan_chunk``:
+    softplus, D-skip and gate run inside it) → (y, h)."""
+    B, S, di = xc.shape
+    y = torch.empty((B, S, di), dtype=xc.dtype, device=xc.device)
+    h = h0
+    for c0 in range(0, S, L):
+        c = slice(c0, c0 + L)
+        _, h = ops.mamba1_scan_chunk(dt[:, c], dt_bias, xc[:, c], z[:, c],
+                                     B_[:, c], C_[:, c], A, D, h, y=y[:, c],
+                                     h_out=h_out)
+        h_out = h                       # later chunks update it in place
+    return y, h
 
 
 def _plain_scan(dt, B_, C_, xc, z, A, dt_bias, D, L: int, h0, h_out=None):
@@ -185,11 +198,13 @@ def _plain_scan(dt, B_, C_, xc, z, A, dt_bias, D, L: int, h0, h_out=None):
     return y, h
 
 
-def _scan_on_shards(dt, B_, C_, xc, z, A, dt_bias, D, L: int):
-    """``_plain_scan`` of DTensors on each rank's rows (``data``) and
-    channels (``model``, the reference's ``d_inner`` layout) from a zero
-    state: the scan runs along each channel alone.  B and C come whole,
-    each rank reading them against its channels."""
+def _scan_on_shards(scan, dt, B_, C_, xc, z, A, dt_bias, D, L: int,
+                    h0=None):
+    """``scan`` (``_plain_scan`` or ``_kernel_scan``) of DTensors on each
+    rank's rows (``data``) and channels (``model``, the reference's
+    ``d_inner`` layout) from ``h0``, or a zero state: the scan runs
+    along each channel alone.  B and C come whole, each rank reading
+    them against its channels."""
     ctx = get_context()
     B, S, di = xc.shape
     N = A.shape[1]
@@ -203,15 +218,17 @@ def _scan_on_shards(dt, B_, C_, xc, z, A, dt_bias, D, L: int):
     batch = tuple(q if ax == "data" else Replicate()
                   for ax, q in zip(ctx.axis_names, rows))
 
-    def local(dt, B_, C_, xc, z, A, dt_bias, D):
-        h0 = torch.zeros((xc.shape[0], xc.shape[2], N), dtype=torch.float32,
-                         device=xc.device)
-        return _plain_scan(dt, B_, C_, xc, z, A, dt_bias, D, L, h0)
-    return on_shards(local, (rows, hp), (dt, B_, C_, xc, z, A, dt_bias, D),
-                     (rows, bc, bc, rows, rows, a, vec, vec),
+    def local(dt, B_, C_, xc, z, A, dt_bias, D, h0):
+        if h0 is None:
+            h0 = torch.zeros((xc.shape[0], xc.shape[2], N),
+                             dtype=torch.float32, device=xc.device)
+        return scan(dt, B_, C_, xc, z, A, dt_bias, D, L, h0)
+    return on_shards(local, (rows, hp),
+                     (dt, B_, C_, xc, z, A, dt_bias, D, h0),
+                     (rows, bc, bc, rows, rows, a, vec, vec, hp),
                      (rows, shares(bc, chans), shares(bc, chans), rows, rows,
                       shares(a, batch), shares(vec, batch),
-                      shares(vec, batch)))
+                      shares(vec, batch), hp))
 
 
 def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
@@ -229,8 +246,12 @@ def mamba1_block(cfg, p, x: torch.Tensor, cache: dict | None = None,
     conv_in = cache["conv"] if cache is not None else None
     xc, conv_out = causal_conv(xr, p.conv_w, p.conv_b, conv_in)
     xc = silu(xc)
-    h0 = cache["h"] if cache is not None else torch.zeros(
-        (B, di, N), dtype=torch.float32, device=x.device)
+    if cache is not None:
+        h0 = cache["h"]
+    elif is_dtensor(x):
+        h0 = None                       # each rank's shard starts at zero
+    else:
+        h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     # a decode step is one chunk of L = 1: through the kernel under
     # "pallas"; under "xla" the scan of one element is the reference's
     # one-step formula, dA·h0 + dt·B·x

@@ -45,7 +45,8 @@ from ..optim import (CompressionConfig, OptConfig, apply_gradients,
                      compress_gradients, init_error_state, init_opt_state)
 from ..optim.adamw import reference_leaf
 from ..sharding.api import (Layout, Replicate, Shard, full, get_context,
-                            is_dtensor, to_placements, use_mesh_context,
+                            is_dtensor, on_shards, shard_start,
+                            to_placements, use_mesh_context, whole_along,
                             zero1_spec)
 from .pipeline import (PipelineConfig, place_stages, repack_params,
                        unpack_params)
@@ -103,12 +104,7 @@ def make_train_step(cfg, opt: OptConfig,
     z1 = zero1_placements(cfg, ctx) if ctx is not None else None
 
     def placed(b):
-        """A (micro)batch split over ``data``, when under a mesh."""
-        if ctx is None:
-            return b
-        return {k: distribute_tensor(v, ctx.mesh, ctx.placements(
-            ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)),
-            src_data_rank=None) for k, v in b.items()}
+        return split_batch(ctx, b)
 
     def _z1(name, g):
         return g if z1 is None else to_placements(g, z1[name])
@@ -139,9 +135,7 @@ def make_train_step(cfg, opt: OptConfig,
 
     def train_step(state: dict, batch: dict):
         model = state["model"]
-        scope = contextlib.nullcontext() if ctx is None else \
-            _mesh_scope(ctx)
-        with scope:
+        with _scope(ctx):
             loss, parts, grads = _grads(model, batch)
             if comp.enabled:
                 grads, err = compress_gradients(grads, state["err"], comp)
@@ -158,6 +152,22 @@ def make_train_step(cfg, opt: OptConfig,
     return train_step
 
 
+def split_batch(ctx, b: dict) -> dict:
+    """Each tensor of ``b``, whole on every rank, split over ``data``
+    along its leading (batch) dim under ``ctx``; ``b`` itself without a
+    mesh."""
+    if ctx is None:
+        return b
+    return {k: distribute_tensor(v, ctx.mesh, ctx.placements(
+        ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)),
+        src_data_rank=None) for k, v in b.items()}
+
+
+def _scope(ctx):
+    """``_mesh_scope(ctx)``, or nothing without a mesh."""
+    return contextlib.nullcontext() if ctx is None else _mesh_scope(ctx)
+
+
 @contextlib.contextmanager
 def _mesh_scope(ctx):
     """The mesh's context, with plain tensors (positions, masks, the
@@ -166,18 +176,78 @@ def _mesh_scope(ctx):
         yield
 
 
-def make_prefill_step(cfg, cache_len: int | None = None):
+def make_prefill_step(cfg, cache_len: int | None = None,
+                      with_logits: bool = False):
+    """→ ``prefill_step(model, inputs) -> (tokens (B, 1) int32, cache)``,
+    and the fp32 (B, 1, V) logits too with ``with_logits``.  Made under
+    a mesh, the step runs under it on the model ``lm.shard_params``
+    placed: the inputs, whole on every rank, are split over ``data``;
+    the cache comes back in its sharded layout (``lm.cache_names``), the
+    tokens and logits whole on every rank (a gather every rank makes)."""
+    ctx = get_context()
+
     def prefill_step(model, inputs):
-        logits, cache = lm.forward_prefill(cfg, model, inputs, cache_len)
-        return logits.argmax(dim=-1).to(torch.int32), cache
+        with _scope(ctx):
+            logits, cache = lm.forward_prefill(
+                cfg, model, split_batch(ctx, inputs), cache_len)
+            return _greedy(logits, cache, with_logits)
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, with_logits: bool = False):
+    """→ ``decode_step(model, token, cache) -> (tokens, cache)`` (and the
+    logits with ``with_logits``): one greedy step on ``token`` (B, 1),
+    writing into ``cache``; under a mesh as ``make_prefill_step``, the
+    token whole on every rank and the cache as prefill laid it out."""
+    ctx = get_context()
+
     def decode_step(model, token, cache):
-        logits, cache = lm.forward_decode(cfg, model, token, cache)
-        return logits.argmax(dim=-1).to(torch.int32), cache
+        with _scope(ctx):
+            logits, cache = lm.forward_decode(
+                cfg, model, split_batch(ctx, {"t": token})["t"], cache)
+            return _greedy(logits, cache, with_logits)
     return decode_step
+
+
+def _greedy(logits, cache, with_logits: bool):
+    tok = full(greedy_tokens(logits))
+    return (tok, cache, full(logits)) if with_logits else (tok, cache)
+
+
+def greedy_tokens(logits):
+    """The argmax of the last dim as int32.  Of a DTensor on each rank's
+    shards: where a mesh dim splits the vocabulary, each rank's best of
+    its slice and the slices' best, the first among equal maxima as
+    ``argmax`` takes it (an all-gather of (B, 1) values and indices over
+    that dim, not of the logits)."""
+    if not is_dtensor(logits):
+        return logits.argmax(dim=-1).to(torch.int32)
+    import torch.distributed as dist
+    last = logits.ndim - 1
+    lp = whole_along(logits)
+    split = [md for md, p in enumerate(lp) if p == Shard(last)]
+    out = tuple(Replicate() if p == Shard(last) else p for p in lp)
+    start = shard_start(logits, last)
+    group = logits.device_mesh.get_group(split[0]) if split else None
+
+    def local(lg):
+        best, idx = lg.max(dim=-1)
+        idx = (idx + start).to(torch.int32)
+        if group is None:
+            return idx
+        n = dist.get_world_size(group)
+        # all_gather_single is all_gather_into_tensor's newer name
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        every = []
+        for t in (best, idx):
+            dst = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            gather(dst, t.contiguous(), group=group)
+            every.append(dst.view(n, *t.shape))
+        pick = every[0].argmax(dim=0, keepdim=True)
+        return every[1].gather(0, pick)[0]
+    return on_shards(local, out, (logits,), (lp,))
 
 
 def init_train_state(cfg, generator: torch.Generator,

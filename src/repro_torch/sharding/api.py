@@ -360,6 +360,75 @@ def local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def whole_along(t, dims=()) -> tuple:
+    """``t``'s placements with every ``Partial`` and every ``Shard`` of a
+    dim in ``dims`` (negative ones count from the end) made
+    ``Replicate``: the layout in which a function of the local shards
+    sees those dims whole (a kernel that reduces over them)."""
+    nd = t.ndim
+    dims = {d % nd for d in dims}
+    return tuple(Replicate() if isinstance(p, Partial)
+                 or isinstance(p, Shard) and p.dim % nd in dims else p
+                 for p in t.placements)
+
+
+def shard_start(t, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of a
+    DTensor split evenly there (0 for a dim it holds whole, and for a
+    plain tensor); mesh dims that split the same dim nest in mesh
+    order."""
+    if not isinstance(t, DTensor):
+        return 0
+    mesh, start, size = t.device_mesh, 0, t.shape[dim]
+    coord = mesh.get_coordinate()
+    for md, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(md)
+            start += coord[md] * size
+    return start
+
+
+def select(t, i: int):
+    """``t[i]`` along a leading dim that no mesh dim splits (a cache's
+    layers): for a DTensor a DTensor over a view of the local shard, so
+    that writes into its local shard land in ``t``'s."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    if any(isinstance(p, Shard) and p.dim == 0 for p in t.placements):
+        raise ValueError(f"select: dim 0 of {tuple(t.shape)} is split "
+                         f"({t.placements})")
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in t.placements)
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, pl,
+                              run_check=False)
+
+
+def put(dst, src):
+    """Write ``src`` into ``dst`` in place → ``dst``; a DTensor ``src`` is
+    redistributed to ``dst``'s placements first, so each rank copies
+    into its own shard."""
+    if not isinstance(dst, DTensor):
+        return dst.copy_(src)
+    dst.to_local().copy_(to_placements(src, dst.placements).to_local())
+    return dst
+
+
+def new_like(like, shape, dtype, names, zeros: bool = False):
+    """A new tensor of ``shape`` beside ``like``: for a DTensor ``like``
+    a DTensor on its mesh laid out by the logical ``names`` (each rank
+    allocates its shard alone), else a plain tensor on its device;
+    zero-filled with ``zeros``."""
+    if not isinstance(like, DTensor):
+        fn = torch.zeros if zeros else torch.empty
+        return fn(shape, dtype=dtype, device=like.device)
+    import torch.distributed.tensor as dtensor
+    mesh = like.device_mesh
+    fn = dtensor.zeros if zeros else dtensor.empty
+    return fn(*shape, dtype=dtype, device_mesh=mesh,
+              placements=MeshContext(mesh).placements(tuple(names),
+                                                      tuple(shape)))
+
+
 def replica_rank(t) -> bool:
     """Whether this rank holds the copy of ``t``'s shard that counts: the
     first along every mesh dim ``t`` is replicated on (True for a plain

@@ -1,5 +1,7 @@
-"""One rank of the port's sharded train steps, for the rank tests
-(``tests/test_torch_sharded_train.py``, ``test_torch_sharded_families.py``).
+"""One rank of the port's sharded train and serving steps, for the rank
+tests (``tests/test_torch_sharded_train.py``,
+``test_torch_sharded_families.py``, ``test_torch_sharded_serve.py``,
+``test_torch_dryrun.py``).
 
     python tests/_torch_sharded_ranks.py CASES.json OUT.npz
 
@@ -17,6 +19,19 @@ moments gathered, in the reference's layout), ``<case>/bytes/<leaf>``
 order), ``<case>/kept`` (whether each rank's ``reference_state`` kept
 the gathered tree) and, with "plain", ``<case>/plain/{metrics,m,v}/...``: the same
 step in this process without a mesh.
+
+A case with ``"kind": "serve"`` ({"case", "arch", "mesh", "weights",
+"impl": ``attn_impl``, "cache", "decode", "plain"}) serves the
+weights' batch (targets dropped) through ``make_prefill_step`` and
+``decode`` greedy ``make_decode_step``s under the mesh: ``<case>/tokens``
+(steps + 1, B), ``<case>/logits/<i>``, ``<case>/placements/<leaf>`` (the
+prefill cache's, as text) and ``<case>/names/<leaf>`` (the placements of
+``lm.cache_names``), and with "plain" ``<case>/plain/{tokens,logits}``:
+the same serve in this process without a mesh.  A case with ``"kind":
+"dryrun"`` ({"case", "arch", "mesh", "shape": [kind, seq, batch],
+"accum"}) runs ``launch.dryrun.measure`` on real, zero-filled tensors:
+``<case>/flops``, ``<case>/peak`` and ``<case>/coll/<kind>/{count,bytes}``
+of rank 0.
 """
 import copy
 import json
@@ -112,6 +127,68 @@ def run(case, out):
             out[f"{c}/bytes/{leaf}"] = np.array([b[leaf] for b in every])
 
 
+def served(cfg, model, inputs, clen, n, mesh=None):
+    with use_mesh_context(mesh):
+        prefill = steps.make_prefill_step(cfg, clen, with_logits=True)
+        decode = steps.make_decode_step(cfg, with_logits=True)
+    tok, cache, lg = prefill(model, inputs)
+    first = cache
+    toks, logits = [tok], [lg]
+    for _ in range(n):
+        tok, cache, lg = decode(model, tok, cache)
+        toks.append(tok)
+        logits.append(lg)
+    return toks, logits, first
+
+
+def serve(case, out):
+    c = case["case"]
+    cfg = configs.reduced(case["arch"]).replace(attn_impl=case["impl"])
+    with np.load(case["weights"]) as z:
+        model = lm.from_reference(cfg, nested(z, "params"), "cpu")
+        inputs = {k: torch.from_numpy(np.array(v))
+                  for k, v in nested(z, "batch").items() if k != "targets"}
+    rank = dist.get_rank()
+    if case["plain"] and rank == 0:
+        toks, logits, _ = served(cfg, copy.deepcopy(model), inputs,
+                                 case["cache"], case["decode"])
+        out[f"{c}/plain/tokens"] = torch.cat(toks, 1).T.numpy()
+        for i, lg in enumerate(logits):
+            out[f"{c}/plain/logits/{i}"] = lg.numpy()
+    mesh = make_host_mesh(1, *case["mesh"], "cpu")
+    with use_mesh_context(mesh) as ctx:
+        lm.shard_params(cfg, model, ctx)
+    toks, logits, cache = served(cfg, model, inputs, case["cache"],
+                                 case["decode"], mesh)
+    if rank == 0:
+        out[f"{c}/tokens"] = torch.cat(toks, 1).T.numpy()
+        for i, lg in enumerate(logits):
+            out[f"{c}/logits/{i}"] = lg.numpy()
+        for k, t in cache.items():
+            if k != "pos":
+                out[f"{c}/placements/{k}"] = np.array(str(t.placements))
+                with use_mesh_context(mesh) as ctx:
+                    out[f"{c}/names/{k}"] = np.array(str(ctx.placements(
+                        lm.cache_names(cfg, k), tuple(t.shape))))
+
+
+def dryrun(case, out):
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.specs import ShapeSpec
+    c = case["case"]
+    kind, seq, batch = case["shape"]
+    cfg = configs.reduced(case["arch"])
+    mesh = make_host_mesh(1, *case["mesh"], "cpu")
+    got = D.measure(cfg, ShapeSpec(c, seq, batch, kind), mesh, fake=False,
+                    grad_accum=case["accum"])
+    if dist.get_rank() == 0:
+        out[f"{c}/flops"] = np.array(got["flops"])
+        out[f"{c}/peak"] = np.array(got["memory"]["peak"])
+        for k, d in got["collectives"].by_kind().items():
+            out[f"{c}/coll/{k}/count"] = np.array(d["count"])
+            out[f"{c}/coll/{k}/bytes"] = np.array(d["bytes"])
+
+
 def main(cases_path, out_path):
     torch.set_num_threads(1)
     with open(cases_path) as f:
@@ -119,7 +196,8 @@ def main(cases_path, out_path):
     out: dict = {}
     join("cpu")
     for case in cases:
-        run(case, out)
+        {"serve": serve, "dryrun": dryrun}.get(case.get("kind"), run)(
+            case, out)
     if dist.get_rank() == 0:
         np.savez(out_path, **out)
     dist.barrier()

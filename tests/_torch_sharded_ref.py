@@ -1,6 +1,6 @@
-"""The JAX reference's sharded train steps, run for the port's rank
-tests (``tests/test_torch_sharded_train.py``,
-``test_torch_sharded_families.py``).
+"""The JAX reference's sharded train steps and serving steps, run for
+the port's rank tests (``tests/test_torch_sharded_train.py``,
+``test_torch_sharded_families.py``, ``test_torch_sharded_serve.py``).
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/_torch_sharded_ref.py CASES.json OUT.npz
@@ -22,6 +22,17 @@ sequence, ``seq_sp``, since 4 heads do not divide by 3.
 ``OUT.npz``, keys joined by ``/``: for each case ``<case>/metrics/...``
 and ``<case>/m/...`` (the first AdamW moment, from which the test
 recovers the gradients).
+
+A case with ``"kind": "serve"`` ({"case", "arch", "mesh", "weights",
+"cache": its length, "decode": the steps}) runs the reference's
+``make_prefill_step`` on the weights' batch (its targets dropped) and
+``decode`` ``make_decode_step``s after it, each jitted under the mesh,
+and the same steps' logits (``lm.forward_prefill`` /
+``forward_decode``): ``<case>/tokens`` (steps + 1, B),
+``<case>/logits/<i>``, and of the prefill's cache each leaf's
+PartitionSpec as it came out (``<case>/out_spec/<leaf>``) and as
+``launch/specs.py:cache_specs`` states it (``<case>/spec/<leaf>``),
+JSON text, one entry a tensor dim.
 """
 import json
 import sys
@@ -92,11 +103,60 @@ def nested(z, prefix):
     return tree
 
 
+def _spec_text(spec, ndim):
+    """A PartitionSpec as JSON text, padded to ``ndim`` entries."""
+    entries = [None if e is None else e if isinstance(e, str) else list(e)
+               for e in tuple(spec)]
+    return json.dumps(entries + [None] * (ndim - len(entries)))
+
+
+def serve(c, out):
+    from repro.launch.specs import cache_specs
+    from repro.runtime.steps import make_decode_step, make_prefill_step
+    cfg = configs.reduced(c["arch"])
+    with np.load(c["weights"]) as z:
+        params, batch = nested(z, "params"), nested(z, "batch")
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+    n = c["mesh"][0] * c["mesh"][1]
+    mesh = jax.make_mesh(tuple(c["mesh"]), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2,
+                         devices=jax.devices()[:n])
+    clen = c["cache"]
+    with use_mesh_context(mesh) as ctx:
+        prefill = jax.jit(make_prefill_step(cfg, clen))
+        decode = jax.jit(make_decode_step(cfg))
+        first = jax.jit(lambda p, i: lm.forward_prefill(cfg, p, i, clen)[0])
+        step = jax.jit(lambda p, t, k: lm.forward_decode(cfg, p, t, k)[0])
+        tok, cache = prefill(params, inputs)
+        B = tok.shape[0]
+        for k, spec in cache_specs(cfg, B, clen, ctx).items():
+            sh = getattr(spec, "sharding", None)
+            out[f"{c['case']}/spec/{k}"] = np.array(_spec_text(
+                sh.spec if sh is not None else (), len(spec.shape)))
+            if k != "pos":
+                out[f"{c['case']}/out_spec/{k}"] = np.array(_spec_text(
+                    cache[k].sharding.spec, cache[k].ndim))
+        toks, logits = [tok], [first(params, inputs)]
+        for _ in range(c["decode"]):
+            logits.append(step(params, tok, cache))
+            tok, cache = decode(params, tok, cache)
+            toks.append(tok)
+    out[f"{c['case']}/tokens"] = np.stack([np.asarray(t)[:, 0]
+                                           for t in toks])
+    for i, lg in enumerate(logits):
+        out[f"{c['case']}/logits/{i}"] = np.asarray(lg)
+    print(c["case"], [np.asarray(t)[:, 0].tolist() for t in toks],
+          flush=True)
+
+
 def main(cases_path, path):
     with open(cases_path) as f:
         cases = json.load(f)
     out: dict = {}
     for c in cases:
+        if c.get("kind") == "serve":
+            serve(c, out)
+            continue
         cfg = configs.reduced(c["arch"])
         with np.load(c["weights"]) as z:
             params, batch = nested(z, "params"), nested(z, "batch")

@@ -1,0 +1,61 @@
+"""The JAX reference's dry-run input specs of every single-pod cell, for
+``tests/test_torch_specs.py``.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=256 JAX_PLATFORMS=cpu \\
+        python tests/_torch_specs_ref.py OUT.json
+
+On the reference's 16 x 16 ``(data, model)`` mesh (``AxisType.Auto``
+axes, under ``use_mesh_context``) each arch × shape cell's
+``cell_supported`` answer and, for a supported cell, every leaf of
+``launch/specs.py:input_specs``: {"arch/shape": {"supported", "reason",
+"leaves": {path: [shape, dtype, spec]}}}, the path's keys joined by
+``/``, the spec one entry a tensor dim (None, a mesh axis, or a list of
+them).  Nothing of the reference changes here.
+"""
+import json
+import sys
+
+import jax
+
+import repro.configs as configs
+from repro.launch import specs as SP
+from repro.sharding.api import use_mesh_context
+
+
+def _spec(s, ndim):
+    sh = getattr(s, "sharding", None)
+    entries = [] if sh is None else [
+        None if e is None else e if isinstance(e, str) else list(e)
+        for e in tuple(sh.spec)]
+    return entries + [None] * (ndim - len(entries))
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def main(path):
+    mesh = jax.make_mesh((16, 16), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+    with use_mesh_context(mesh) as ctx:
+        for arch in configs.ARCH_NAMES:
+            cfg = configs.get(arch)
+            for shape in SP.SHAPES:
+                ok, why = SP.cell_supported(cfg, shape)
+                rec = {"supported": ok, "reason": why, "leaves": {}}
+                if ok:
+                    for p, s in _leaves(SP.input_specs(cfg, shape, ctx)):
+                        rec["leaves"][p] = [list(s.shape), str(s.dtype),
+                                            _spec(s, len(s.shape))]
+                out[f"{arch}/{shape}"] = rec
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -13,10 +13,14 @@ from repro.models import blocks_adapter as RB
 from repro.runtime.pipeline import PipelineConfig as RPipelineConfig
 from repro_torch import configs
 from repro_torch.launch import analytic as A
+from repro_torch.launch import specs as SP
 from repro_torch.models import blocks_adapter as B
 from repro_torch.runtime.pipeline import PipelineConfig
 
 ARCHS = [(name, red) for name in configs.ARCH_NAMES for red in (False, True)]
+# the port's cells are ``specs.ShapeSpec``s of each kind, at 1024 x 8
+KIND_SHAPES = {"train": "train_4k", "prefill": "prefill_32k",
+               "decode": "decode_32k"}
 
 
 def _cfgs(name, red):
@@ -53,7 +57,8 @@ def test_cell_cost_matches_reference(name, red):
     cfg, rcfg = _cfgs(name, red)
     cuts = (max(1, cfg.n_layers // 3),)
     for kind in ("train", "prefill", "decode"):
-        shape = A.CellShape(seq=1024, batch=8, kind=kind)
+        shape = dataclasses.replace(SP.SHAPES[KIND_SHAPES[kind]], seq=1024,
+                                    batch=8)
         rshape = ShapeSpec("cell", 1024, 8, kind)
         for multi_pod, pc in ((False, None), (True, cuts)):
             kw = dict(n_chips=16, dp=4, tp=4, multi_pod=multi_pod)

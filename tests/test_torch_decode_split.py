@@ -12,6 +12,8 @@ tolerances (2e-5 in fp32, 2e-2 in bf16).  On the card the CUDA kernels
 are held to both plain versions by ``test_torch_kernels_cuda.py`` and
 ``chip_smoke.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,3 +112,38 @@ def test_split_and_combine_matches_plain_and_pallas(B, H, KV, hd, Smax, pos,
     for exp in (plain.to(torch.float32).numpy(), np.asarray(pallas,
                                                             np.float32)):
         assert_allclose(out.to(torch.float32).numpy(), exp, **tol(dtype))
+
+
+@pytest.mark.parametrize("splits", [1, 3, "more than positions"])
+def test_lse_from_split_states_is_the_scores_logsumexp(splits):
+    """``decode_attention._lse`` reads the log-sum-exp that a
+    sequence-split cache merges by from the split kernel's partial
+    states, as ``decode_split_kernel`` writes them: per split the max
+    ``m_i`` and the sum ``l_i`` of ``2^(s - m_i)``, scores in the log2
+    domain (scaled by ``scale · log2 e``), an empty split ``(-inf,
+    0)``; it must equal the natural log-sum-exp of the scaled scores,
+    which ``ref.decode_attention_ref(..., with_lse=True)`` returns."""
+    from repro_torch.kernels.decode_attention import _lse
+    B, H, KV, hd, Smax, pos = 2, 4, 2, 64, 96, 70
+    q, kc, vc = (torch.from_numpy(_normal(s, seed)) for s, seed in
+                 (((B, H, hd), 7), ((B, Smax, KV, hd), 8),
+                  ((B, Smax, KV, hd), 9)))
+    _, want = ref.decode_attention_ref(q, kc, vc, pos, with_lse=True)
+    n = pos + 1
+    n_splits = n + 3 if splits == "more than positions" else splits
+    chunk = -(-n // n_splits)
+    s = torch.einsum("bhd,bshd->bhs", q,
+                     kc[:, :n].repeat_interleave(H // KV, dim=2)) \
+        / math.sqrt(hd) * math.log2(math.e)
+    states = []
+    for i in range(n_splits):
+        part = s[..., min(i * chunk, n):min((i + 1) * chunk, n)]
+        if part.shape[-1] == 0:
+            states.append(torch.stack([torch.full((B, H), float("-inf")),
+                                       torch.zeros((B, H))], -1))
+            continue
+        m = part.amax(-1)
+        states.append(torch.stack([m, torch.exp2(part - m[..., None])
+                                   .sum(-1)], -1))
+    got = _lse(torch.stack(states, 2))
+    assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)

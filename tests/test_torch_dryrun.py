@@ -1,0 +1,168 @@
+"""The dry run (``launch.dryrun``): fake against real, and its CLI.
+
+Fake against real: for each family's reduced config, one train cell
+(seq 32, batch 4; the dense one with ``grad_accum=2``), one prefill cell
+(seq 32, batch 4) and one decode cell (a cache of 32, batch 4) at (data
+2, model 2).  ``measure`` runs each step once as rank 0 of a fake
+4-rank group inside ``FakeTensorMode`` in this process, and on real,
+zero-filled tensors in four gloo ranks (``_torch_sharded_ranks.py``,
+meanwhile); rank 0's collectives (count and bytes by kind), FLOPs
+(``FlopCounterMode``) and ``MemTracker`` peak must be equal, and no
+fake group may be left after each.
+
+The CLI: ``--arch whisper-small --shape decode_32k --mesh single``
+writes a record with status ``ok`` on the full-size 16 x 16 mesh (256
+fake ranks); a rerun prints ``[cached]``; ``long_500k`` on a
+pure-attention arch is ``skipped`` with the reference's reason; ``--mesh
+multi`` and ``--mesh both`` exit 2 naming item 12c and record nothing;
+in a sweep a cell that runs past its time is recorded as failed and the
+sweep goes on.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import pytest
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from _torch_sharded_fixture import run_ranks
+from repro_torch import configs
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.specs import ShapeSpec
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FAMILIES = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
+            "moe": "qwen3-moe-30b-a3b", "ssm": "falcon-mamba-7b",
+            "hybrid": "zamba2-7b", "encdec": "whisper-small"}
+KINDS = {"train": (32, 4), "prefill": (32, 4), "decode": (32, 4)}
+CASES = [f"{fam}-{kind}" for fam in FAMILIES for kind in KINDS]
+
+
+def _accum(case: str) -> int:
+    return 2 if case == "dense-train" else 1
+
+
+def _fake(arch, kind, accum) -> dict:
+    seq, batch = KINDS[kind]
+    with D.fake_group(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        got = D.measure(configs.reduced(arch),
+                        ShapeSpec(kind, seq, batch, kind), mesh,
+                        grad_accum=accum)
+    return {"flops": got["flops"], "peak": got["memory"]["peak"],
+            "coll": {k: {"count": d["count"], "bytes": d["bytes"]}
+                     for k, d in got["collectives"].by_kind().items()}}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """→ ({case: the fake run's numbers}, {case: the real ranks'})."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    cases = [{"case": f"{fam}-{kind}", "kind": "dryrun", "arch": arch,
+              "mesh": [2, 2], "shape": [kind, *KINDS[kind]],
+              "accum": _accum(f"{fam}-{kind}")}
+             for fam, arch in FAMILIES.items() for kind in KINDS]
+    with ThreadPoolExecutor(2) as pool:
+        real = [pool.submit(run_ranks, cases[i::2], 4, tmp, f"dryrun{i}")
+                for i in range(2)]
+        fake = {}
+        for case in CASES:
+            fam, kind = case.split("-")
+            fake[case] = _fake(FAMILIES[fam], kind, _accum(case))
+            fake[case]["left"] = dist.is_initialized()
+        return fake, {k: v for r in real for k, v in r.result().items()}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fake_step_counts_what_the_real_one_does(runs, case):
+    got, want = runs[0][case], runs[1][case]
+    assert not got["left"]
+    assert got["flops"] == int(want["flops"]) > 0
+    assert got["peak"] == int(want["peak"]) > 0
+    assert got["coll"] == {k: {"count": int(d["count"]),
+                               "bytes": int(d["bytes"])}
+                           for k, d in want["coll"].items()}, case
+    assert got["coll"], case
+
+
+def _cli(*args, cwd):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=cwd,
+        capture_output=True, text=True, timeout=300)
+
+
+def test_cli_records_a_cell_and_resumes(tmp_path):
+    out = tmp_path / "runs"
+    cell = ["--arch", "whisper-small", "--shape", "decode_32k", "--mesh",
+            "single", "--out", str(out)]
+    cp = _cli(*cell, cwd=tmp_path)
+    assert cp.returncode == 0, cp.stdout + cp.stderr
+    rec = json.loads((out / "whisper-small__decode_32k__single.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec
+    assert (rec["mesh"], rec["n_chips"], rec["kind"]) == ("16x16", 256,
+                                                          "decode")
+    assert rec["memory"]["peak_mb"] > rec["memory"]["args_mb"] > 0
+    assert rec["collectives"] and rec["counted"]["flops_per_dev"] > 0
+    assert rec["roofline"]["step_bound_s"] > 0
+    again = _cli(*cell, cwd=tmp_path)
+    assert again.returncode == 0
+    assert "[cached] whisper-small__decode_32k__single: ok" in again.stdout
+    skip = _cli("--arch", "qwen3-1.7b", "--shape", "long_500k", "--mesh",
+                "single", "--out", str(out), cwd=tmp_path)
+    assert skip.returncode == 0, skip.stderr
+    rec = json.loads((out / "qwen3-1.7b__long_500k__single.json")
+                     .read_text())
+    assert rec["status"] == "skipped"
+    assert rec["reason"].startswith("skip: pure full-attention arch")
+
+
+@pytest.mark.parametrize("mesh", ["multi", "both"])
+def test_cli_multi_pod_mesh_is_item_12c(tmp_path, mesh):
+    cp = _cli("--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh",
+              mesh, "--out", str(tmp_path / "runs"), cwd=tmp_path)
+    assert cp.returncode == 2
+    assert "item 12c" in cp.stderr
+    assert not list((tmp_path / "runs").glob("*.json")) \
+        if (tmp_path / "runs").exists() else True
+
+
+def test_run_cell_leaves_no_process_group(monkeypatch):
+    """A cell that fails inside its fake group (here the step itself) is
+    recorded as failed, and the group is gone."""
+    def boom(*a, **k):
+        assert dist.is_initialized() and dist.get_world_size() == D.WORLD
+        raise RuntimeError("boom")
+    monkeypatch.setattr(D, "measure", boom)
+    rec = D.run_cell("falcon-mamba-7b", "long_500k", False)
+    assert rec["status"] == "failed" and "boom" in rec["error"], rec
+    assert not dist.is_initialized()
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        D.run_cell("falcon-mamba-7b", "long_500k", True)
+
+
+def test_sweep_records_a_timed_out_cell_and_goes_on(tmp_path, monkeypatch):
+    """In a sweep each cell runs in a process of its own; one that runs
+    past ``CELL_TIMEOUT_S`` is a failed cell, and the sweep goes on to
+    the next."""
+    calls = []
+
+    def slow(cmd, **kw):
+        calls.append(cmd[cmd.index("--shape") + 1])
+        raise subprocess.TimeoutExpired(cmd, kw["timeout"])
+    monkeypatch.setattr(subprocess, "run", slow)
+    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "qwen3-1.7b",
+                                      "--mesh", "single", "--out",
+                                      str(tmp_path)])
+    assert D.main() == 1
+    assert calls == ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+    rec = json.loads((tmp_path / "qwen3-1.7b__train_4k__single.json")
+                     .read_text())
+    assert rec["status"] == "failed"
+    assert rec["error"] == f"timed out after {D.CELL_TIMEOUT_S} s"

@@ -263,6 +263,27 @@ def test_decode_attention_kernel_forced_splits(Smax, pos, splits, dtype,
                                    rtol=_lm_tol(dtype), atol=_lm_tol(dtype))
 
 
+@pytest.mark.parametrize("Smax,pos", [(77, 0), (1056, 511), (1056, 1055)])
+@pytest.mark.parametrize("splits", [1, 2, "more than positions"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_lse_matches_plain(Smax, pos, splits, dtype, cuda):
+    """With ``with_lse`` the split kernel's output and the log-sum-exp read
+    from its partial states (a sequence-split cache merges by it), empty
+    ranges included, against the plain version's."""
+    from repro_torch.kernels import decode_attention as dk
+    n = pos + 3 if splits == "more than positions" else splits
+    q = _randn((2, 8, 128), dtype, cuda, 14)
+    kc = _randn((2, Smax, 4, 128), dtype, cuda, 15)
+    vc = _randn((2, Smax, 4, 128), dtype, cuda, 16)
+    out, lse = dk.decode_attention(q, kc, vc, pos, splits=n, with_lse=True)
+    exp, exp_lse = ref.decode_attention_ref(q, kc, vc, pos, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (2, 8)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=_lm_tol(dtype),
+                               atol=_lm_tol(dtype))
+    torch.testing.assert_close(lse, exp_lse, rtol=2e-5, atol=2e-5)
+
+
 def test_bf16_flash_refuses_head_dim_off_16_bytes(cuda):
     """hd % 8 != 0 in bf16 is refused before anything is launched."""
     x = _randn((1, 8, 2, 12), torch.bfloat16, cuda, 13)
