@@ -270,7 +270,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              from phase 24 on, torch's deterministic algorithms, with
              cuBLAS's workspace set at the top of the script), bf16, remat on,
              batch 8, seq 2048 (two CE chunks of 1024), one warm-up and
-             six timed steps on one batch: every loss finite and the last
+             three timed steps on one batch: every loss finite and the last
              below the first, no kernel launched; step ms (median),
              tokens/s, model FLOPs a step and their share of 989 TFLOP/s,
              peak allocated memory and the optimizer's share of the step
@@ -292,7 +292,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 28. pipeline serve — the pod pipeline (``runtime.pipeline``; every
              stage on the one card) through ``launch.serve --pods``:
              qwen3-1.7b at 2 stages (the ParetoPipe cuts for serving,
-             (1,)) and 4 (even), zamba2-7b at 2 (cuts (9,)), each beside
+             (1,)) and 4 (even), zamba2-7b at 2 (cuts (9,)), batch 8,
+             prompt 1024, 8 new tokens, each beside
              its unpipelined serve in the same run: the kernels' launches
              equal, every token ``torch.equal``, and every step's logits
              of a greedy run ``torch.equal``; prefill ms, decode ms/token
@@ -305,9 +306,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              1e-5 (relative), every gradient leaf within 1e-4 of its
              largest; no kernel launched.
 30. pipeline train — phase 25's run through ``launch.train --pods 2
-             --microbatches 4 --auto-partition``: the cuts must be (7,);
-             step ms, tokens/s and peak printed beside phase 25's; the
-             warm-up loss within 1e-2 of phase 25's on the same batch.
+             --microbatches 4 --auto-partition``, one warm-up and three
+             timed steps: the cuts must be (7,); step ms, tokens/s and
+             peak printed beside phase 25's; the warm-up loss within 1e-2
+             of phase 25's on the same batch.
 31. sharded parity — the data and model axes (``sharding.api``:
              DTensor on a ``(data, model)`` mesh of NCCL ranks, one card
              a rank, spawned from this script by
@@ -331,14 +333,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 32. sharded train — qwen3-1.7b at full width and depth through
              ``launch.train``'s ``setup`` in each rank with
              ``--data-par D --model-par M``, phase 25's flags (bf16, remat,
-             batch 8, seq 2048): one warm-up and six timed steps, the
+             batch 8, seq 2048): one warm-up and three timed steps, the
              median step ms, tokens/s and each card's peak printed beside
              phase 25's, the warm-up loss within 1e-2 of phase 25's on the
              same batch; at (2, 2) and (4, 1) with four or more cards,
              (1, 2) and (2, 1) with two or three; with one card no mesh
              (phase 25 is that step): one line names the card count and
-             the meshes not run (phases 33, 31 and 32, in that order, run
-             in one spawn of ranks: every mesh has as many);
+             the meshes not run (phases 33, 35, 31 and 32, in that order,
+             run in one spawn of ranks: every mesh has as many);
 33. sharded serve — prefill and decode on phase 31's mesh (NCCL ranks
              spawned as there): qwen3-1.7b at full width, 2 layers, fp32,
              TF32 off, batch 8, prompt 256, a prefill and four greedy
@@ -364,13 +366,47 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              phase 31's mesh, whose collectives (count and bytes by kind)
              must equal those rank 0 of phase 31's real step issued; phase
              32's step at each of its meshes, rank 0's predicted peak
-             printed beside each card's measured one.
+             printed beside each card's measured one; phase 35a's
+             pipelined step at each of its meshes, as rank 0 of a fake
+             group of that mesh's ranks, whose collectives by kind,
+             split into those that cross a pod and those that do not
+             (``CollectiveRecorder``'s ``pod_size``), must equal those
+             rank 0 of phase 35a's real step issued.
+35. pod mesh — the pod pipeline over ranks (``runtime.pipeline`` on
+             ``launch.mesh.pod_mesh``: each pod's stage a DTensor on its
+             ``(data, model)`` sub-mesh, the hop a point-to-point send
+             between ranks at one ``(data, model)`` point), in the spawn
+             of phases 31-33, on the meshes the cards allow: (pod 2,
+             data 1, model 2) and (2, 2, 1) with four or more, (2, 1, 1)
+             with two or three, the world-1 mesh (1, 1, 1) with one (a
+             line names the card count and the meshes not run).  (b)
+             phase 33's parity case through the stages (kernel route on
+             each rank's shards, cut after layer 1): every step's logits
+             within 2e-4, the tokens ``torch.equal``, the caches gathered
+             to rank 0 in the reference's (K, l_max, ...) layout within
+             2e-4 of the one-card cache repacked, each rank's flash,
+             decode-attention and RMSNorm launches those its stage
+             implies; (a) phase 31's full-width case (2 layers, fp32,
+             batch 8, seq 512, 2 microbatches, cut after layer 1) against
+             the one-card step: the loss within 1e-5, every gradient leaf
+             within 1e-4 and both moments within 1e-5 of their largest,
+             from the state gathered to rank 0 in the reference's
+             pipelined layout; at the world-1 mesh (one microbatch) the
+             step ``torch.equal`` to the ``(1, 1)`` mesh's (phase 31's)
+             step; no kernel launched; (c) with two or more cards, phase
+             30's run on the ranks at (2, 1, 2) or (2, 1, 1) through
+             ``launch.train``'s ``setup`` (one warm-up and three timed
+             steps): the cuts (7,), the warm-up loss within 1e-2 of phase
+             25's, the median step ms, tokens/s and each card's peak
+             printed beside phases 25, 30 and 32.
 
 The kernel table's LM rows count the launches of every LM serving path
-(phases 7, 11, 15, 19 and 21, the pipelined serves of phase 28, and
-rank 0's sharded serve of phase 33);
+(phases 7, 11, 15, 19 and 21, the pipelined serves of phase 28,
+rank 0's sharded serve of phase 33, and rank 0's pod-mesh serves of
+phase 35b);
 every row's ``train_launches`` counts those of the training slices
-(phases 25, 30 and 32), 0 for each: training runs the plain route.  The rows for the two scan entries carry their
+(phases 25, 30 and 32; phase 35's, asserted 0 there), 0 for each:
+training runs the plain route.  The rows for the two scan entries carry their
 prefill-chunk times; the decode-step times are printed in phase 10.  The
 last three lines of
 standard output are the kernel table (JSON), the
@@ -489,9 +525,10 @@ TRAIN_FAMILIES = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
                   "hybrid": "zamba2-7b", "encdec": "whisper-small"}
 # phase 25: full width and depth, bf16, remat on, batch 8, seq 2048 (two
 # CE chunks of 1024: at 1024 the CE would take the dense (8, 1024,
-# 151936) fp32 logits), one warm-up and six timed steps on one batch; the
+# 151936) fp32 logits), one warm-up and three timed steps on one batch
+# (every later training run takes as many); the
 # batch halves if the warm-up's peak passes 75 GiB
-TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 8, 2048, 1, 6
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 8, 2048, 1, 3
 TRAIN_PEAK_GIB = 75
 TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_S), "--lr",
               str(TRAIN_LR), "--warmup", "1", "--seed", "0",
@@ -503,11 +540,15 @@ DRILL_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
               "--steps", str(DRILL_STEPS), "--batch", "4", "--seq", "64",
               "--ckpt-every", "2", "--log-every", "1", "--compress-grads"]
 # phase 28: the pod pipeline served, each path's pipelined variants
-# (launcher flags) beside its unpipelined serve; the ParetoPipe cuts for
-# serving qwen3-1.7b and zamba2-7b at prompt 1024 on 2 pods
-PIPE_SERVE = (("lm", LM_ARGS, (["--pods", "2", "--auto-partition"],
-                               ["--pods", "4"])),
-              ("hybrid", HYB_ARGS, (["--pods", "2", "--auto-partition"],)))
+# (launcher flags) beside its unpipelined serve, 8 new tokens (its own
+# serves, not phase 7's or 19's: the decode steps past the first few add
+# no check); the ParetoPipe cuts for serving qwen3-1.7b and zamba2-7b at
+# prompt 1024 on 2 pods
+PIPE_NEW = ["--new-tokens", "8"]
+PIPE_SERVE = (("lm", LM_ARGS + PIPE_NEW, (["--pods", "2", "--auto-partition"],
+                                          ["--pods", "4"])),
+              ("hybrid", HYB_ARGS + PIPE_NEW,
+               (["--pods", "2", "--auto-partition"],)))
 PIPE_SERVE_CUTS = {("lm", 2): (1,), ("lm", 4): (7, 14, 21),
                    ("hybrid", 2): (9,)}
 # phase 29: the pipelined train step held to the card's plain step:
@@ -535,16 +576,29 @@ SHARD_MOMENT_FRAC = 1e-5
 # allow; the warm-up loss within 1e-2 of phase 25's, as phase 30's
 SHARD_TRAIN_LOSS_TOL = 1e-2
 # a spawn of ranks that runs past this fails its phase (every rank killed)
-SHARD_TIMEOUT_S = 420
+SHARD_TIMEOUT_S = 540
 # phase 33: the sharded serve's parity case (layers, batch, prompt, greedy
 # decode steps): qwen3-1.7b at full width, fp32, held to the one-card
 # serve within phase 8's 2e-4; its timing is phase 7's serve on the ranks
 SHARD_SERVE_PARITY = (2, 8, 256, 4)
+# phase 35: the pod pipeline over ranks, each stage on its pod's (data,
+# model) sub-mesh.  (a) the train parity case (layers, batch, seq,
+# microbatches, cut): phase 31's, 2 microbatches, cut after layer 1, held
+# by phase 31's gates; (b) the serve parity case (layers, batch, prompt,
+# greedy decode steps): phase 33's, held by its 2e-4; (c) phase 30's run
+# on the ranks: phase 25's flags with --pods 2 --microbatches 4
+# --auto-partition, the cuts (7,) and the warm-up loss within phase 30's
+# 1e-2 of phase 25's
+POD_PARITY = (2, 8, 512, 2, (1,))
+POD_SERVE_PARITY = (2, 8, 256, 4)
 # phase 34: the predictions, made beside phases 2-33 in a process of their
 # own, must be in by then plus this
 PREDICT_TIMEOUT_S = 300
 # each serving path's numbers, by name (serve_slice)
 SERVED: dict[str, dict] = {}
+# phase 30's numbers, and phase 32's median step ms by mesh, for phase 35
+PIPE30: dict = {}
+SHARD32: dict[str, float] = {}
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -3423,6 +3477,7 @@ def pipeline_train(torch, dev, smi, plain: dict) -> dict[str, int]:
     if st["cuts"] != PIPE_TRAIN_CUTS:
         raise AssertionError(f"pipelined train: cuts {st['cuts']}, the "
                              f"planner's are {PIPE_TRAIN_CUTS}")
+    PIPE30.update(st)
     diff = abs(st["losses"][0] - plain["losses"][0])
     log(f"  beside phase 25 (unpipelined, batch {plain['batch']}): step "
         f"{st['step_ms']:.2f} against {plain['step_ms']:.2f} ms "
@@ -3577,13 +3632,18 @@ def sharded_parity_rank(spec: dict) -> dict | None:
 
 
 def rank_phases(torch, plain: dict) -> dict:
-    """Phases 33, 31 and 32 (every mesh of it: all have phase 31's
-    number of ranks) in one spawn of ranks (``shard_meshes``), in that
-    order: the serve before the training numerics → rank 0's results by
-    phase."""
+    """Phases 33, 35, 31 and 32 (every mesh of them: all have phase 31's
+    number of ranks) in one spawn of ranks (``shard_meshes``,
+    ``pod_meshes``), in that order: the serves before the training
+    numerics → rank 0's results by phase."""
     t0 = time.perf_counter()
-    mesh, meshes32 = shard_meshes(torch.cuda.device_count())
-    spec = {"parts": ["33", "31"], "33": {"mesh": list(mesh)},
+    cards = torch.cuda.device_count()
+    mesh, meshes32 = shard_meshes(cards)
+    pods, timed = pod_meshes(cards)
+    assert all(math.prod(m) == mesh[0] * mesh[1] for m in pods)
+    spec = {"parts": ["33", "35", "31"], "33": {"mesh": list(mesh)},
+            "35": {"meshes": [list(m) for m in pods],
+                   "timed": timed and list(timed), "batch": plain["batch"]},
             "31": {"mesh": list(mesh), "cases": SHARD_PARITY_CASES}}
     if meshes32:
         assert all(a * b == mesh[0] * mesh[1] for a, b in meshes32)
@@ -3592,7 +3652,7 @@ def rank_phases(torch, plain: dict) -> dict:
                       "batch": plain["batch"]}
     gc.collect()
     torch.cuda.empty_cache()
-    res = spawn_phase("31-33", spec, mesh[0] * mesh[1], SHARD_TIMEOUT_S)
+    res = spawn_phase("31-35", spec, mesh[0] * mesh[1], SHARD_TIMEOUT_S)
     log(f"rank phases {', '.join(spec['parts'])} on {mesh[0] * mesh[1]} "
         f"ranks: one spawn, {time.perf_counter() - t0:.1f} s")
     return res
@@ -3638,24 +3698,25 @@ def sharded_train_rank(spec: dict) -> dict | None:
     """Phase 32 in one rank: phase 25's run through ``launch.train``'s
     ``setup`` on each of the spec's meshes (all of the group's size) →
     in rank 0 {str(mesh): every rank's numbers}."""
-    out = {str(tuple(mesh)): _train_on_mesh(mesh, spec["batch"])
-           for mesh in spec["meshes"]}
+    out = {str(tuple(mesh)): _train_on_mesh(
+        ["--data-par", str(mesh[0]), "--model-par", str(mesh[1])],
+        spec["batch"]) for mesh in spec["meshes"]}
     return out if out[str(tuple(spec["meshes"][0]))] is not None else None
 
 
-def _train_on_mesh(mesh, batch_size: int) -> list | None:
+def _train_on_mesh(flags: list[str], batch_size: int) -> list | None:
+    """Phase 25's run through ``launch.train``'s ``setup`` in this rank
+    with ``flags`` (the mesh's) → in rank 0 every rank's numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    d, m = mesh
     args = train.parse_args(TRAIN_ARGS + [
         "--batch", str(batch_size), "--steps", str(TRAIN_WARM
-                                                   + TRAIN_STEPS),
-        "--data-par", str(d), "--model-par", str(m)])
+                                                   + TRAIN_STEPS), *flags])
     train.set_numerics()
     t0 = time.perf_counter()
-    cfg, state, step_fn, data, _ = train.setup(args)
+    cfg, state, step_fn, data, pipe = train.setup(args)
     setup_s = time.perf_counter() - t0
     batch = data.batch_at(0)
     torch.cuda.synchronize()
@@ -3671,13 +3732,23 @@ def _train_on_mesh(mesh, batch_size: int) -> list | None:
     mine = {"step_ms": step_ms, "losses": losses, "setup_s": setup_s,
             "peak": torch.cuda.max_memory_allocated(),
             "launches": ops.launch_counts(),
-            "params": state["model"].param_count()}
+            "params": state["model"].param_count(),
+            "cuts": None if pipe is None else list(pipe[0].cuts)}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     del state, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
     return every if dist.get_rank() == 0 else None
+
+
+def step_medians(ranks: list) -> tuple[float, float]:
+    """Rank 0's median of its timed steps' ms, and the slowest rank's."""
+    def median(r):
+        t = sorted(r["step_ms"][TRAIN_WARM:])
+        return t[len(t) // 2] if len(t) % 2 else \
+            (t[len(t) // 2 - 1] + t[len(t) // 2]) / 2
+    return median(ranks[0]), max(median(r) for r in ranks)
 
 
 def sharded_train(torch, smi, plain: dict, ranked: dict | None
@@ -3699,11 +3770,7 @@ def sharded_train(torch, smi, plain: dict, ranked: dict | None
     for mesh in meshes:
         ranks = ranked[str(mesh)]
         lead = ranks[0]
-        timed = sorted(lead["step_ms"][TRAIN_WARM:])
-        med = (timed[len(timed) // 2] if len(timed) % 2 else
-               (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2)
-        worst = max(sorted(r["step_ms"][TRAIN_WARM:])[len(timed) // 2]
-                    for r in ranks)
+        med, worst = step_medians(ranks)
         losses = lead["losses"]
         diff = abs(losses[0] - plain["losses"][0])
         log(f"sharded train (phase 32) {TRAIN_ARCH} full width and depth "
@@ -3713,17 +3780,19 @@ def sharded_train(torch, smi, plain: dict, ranked: dict | None
         log(f"  losses {json.dumps([float(f'{x:.6f}') for x in losses])}")
         log(f"  step ms (rank 0, each) "
             f"{json.dumps([round(t, 2) for t in lead['step_ms']])}; median "
-            f"of the {TRAIN_STEPS} timed {med:.2f} ms (slowest rank's "
-            f"median {worst:.2f}), {B * S / med * 1e3:.0f} tokens/s; peak "
-            f"GiB a card {[round(r['peak'] / 2**30, 3) for r in ranks]}")
-        log(f"  beside phase 25 (one card, batch {B}): step {med:.2f} "
-            f"against {plain['step_ms']:.2f} ms "
+            f"of the {TRAIN_STEPS} timed {med:.2f} ms (slowest "
+            f"rank's median {worst:.2f}), {B * S / med * 1e3:.0f} "
+            f"tokens/s; peak GiB a card "
+            f"{[round(r['peak'] / 2**30, 3) for r in ranks]}")
+        log(f"  beside phase 25 (one card, batch {B}): step "
+            f"{med:.2f} against {plain['step_ms']:.2f} ms "
             f"({plain['step_ms'] / med:.4f}x), {B * S / med * 1e3:.0f} "
             f"against {plain['tokens_s']:.0f} tokens/s, peak "
             f"{max(r['peak'] for r in ranks) / 2**30:.3f} against "
             f"{plain['peak'] / 2**30:.3f} GiB; warm-up loss {losses[0]:.6f} "
             f"against {plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
             f"{SHARD_TRAIN_LOSS_TOL})")
+        SHARD32[str(mesh)] = med
         peaks[str(mesh)] = [r["peak"] for r in ranks]
         for r in ranks:
             for k, n in r["launches"].items():
@@ -3844,8 +3913,346 @@ def sharded_serve_rank(spec: dict) -> dict | None:
     return {"parity": parity, "ranks": every} if rank == 0 else None
 
 
+def pod_meshes(cards: int) -> tuple[list, tuple | None]:
+    """Phase 35's ``(pod, data, model)`` meshes the cards allow (all of
+    phase 31's number of ranks) → ((a) and (b)'s, (c)'s or None)."""
+    if cards >= 4:
+        return [(2, 1, 2), (2, 2, 1)], (2, 1, 2)
+    if cards >= 2:
+        return [(2, 1, 1)], (2, 1, 1)
+    return [(1, 1, 1)], None
+
+
+def pod_pcfg(mesh, microbatches: int):
+    """The pipeline of a phase 35 mesh: cut after layer 1 over its two
+    pods; the world-1 mesh's one stage (one microbatch, so that its step
+    is the ``(1, 1)`` step's)."""
+    from repro_torch.runtime.pipeline import PipelineConfig
+    if mesh[0] == 1:
+        return PipelineConfig(1, 1, ())
+    return PipelineConfig(mesh[0], microbatches, POD_PARITY[4])
+
+
+def pod_train_cfg():
+    """(a)'s config: phase 31's full-width case, fp32, the plain route."""
+    from repro_torch import configs
+    return configs.get(TRAIN_ARCH).replace(
+        n_layers=POD_PARITY[0], dtype="float32", attn_impl="xla")
+
+
+def _moments_held(torch, got: dict, want: dict, gn: float, want_gn: float,
+                  opt, dev) -> dict:
+    """Two states' moments in the reference's pipelined layout, leaf by
+    leaf on the card in float64 → the worst |difference| over each
+    leaf's largest magnitude, of m, v and the gradient behind m, and
+    whether every leaf is equal."""
+    import numpy as np
+    from repro_torch.models.common import named_leaves
+
+    def scale(g):
+        return min(1.0, opt.clip_norm / (g + 1e-9)) * (1 - opt.b1)
+    worst = {"m": 0.0, "v": 0.0, "grad": 0.0}
+    equal = True
+    for k in ("m", "v"):
+        theirs = dict(named_leaves(want["opt"][k]))
+        for path, leaf in named_leaves(got["opt"][k]):
+            a = torch.as_tensor(np.asarray(theirs[path])).to(dev).double()
+            b = torch.as_tensor(np.asarray(leaf)).to(dev).double()
+            equal = equal and bool(torch.equal(a, b))
+            big = float(a.abs().max())
+            if big:
+                worst[k] = max(worst[k], float((b - a).abs().max()) / big)
+                if k == "m":
+                    worst["grad"] = max(worst["grad"], float(
+                        (b / scale(gn) - a / scale(want_gn)).abs().max())
+                        / (big / scale(want_gn)))
+            del a, b
+    return {**worst, "equal": equal}
+
+
+def pod_mesh_rank(spec: dict) -> dict | None:
+    """Phase 35 in one rank, on each of the spec's meshes (made once):
+    (b) the pipelined serve held to rank 0's one-card serve of the same
+    weights and prompt (every rank's launches counted from just before
+    it), then, with the training numerics on, (a) the pipelined train
+    step held to rank 0's one-card step (the world-1 mesh: to the ``(1,
+    1)`` mesh's sharded step, ``torch.equal``), its collectives recorded
+    on rank 0; then (c) phase 30's run through ``launch.train``'s
+    ``setup`` on the ranks → in rank 0 the comparisons and every rank's
+    numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
+    from repro_torch.launch.mesh import make_host_mesh, pod_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import pipeline as pl
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.api import use_mesh_context
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {tuple(m): pod_mesh(*m, "cuda") for m in spec["meshes"]}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lead = rank == 0
+    out: dict = {"serve": {}, "train": {}}
+
+    # (b) the serve, on the kernel route
+    L, B, S, n = POD_SERVE_PARITY
+    t0 = time.perf_counter()
+    from repro_torch import configs
+    scfg = configs.get(TRAIN_ARCH).replace(n_layers=L, dtype="float32",
+                                           attn_impl="pallas")
+    base = lm.init(scfg, torch.Generator(device=dev).manual_seed(0), dev)
+    inputs = {k: v for k, v in SyntheticLM(scfg, DataConfig(B, S, 0),
+                                           device=dev).batch_at(0).items()
+              if k != "targets"}
+    cache_len = S + n
+    one = serve_greedy(steps, scfg, copy.deepcopy(base), inputs, cache_len,
+                       n, None) if lead else None
+    for shape, mesh in meshes.items():
+        t1 = time.perf_counter()
+        pcfg = pod_pcfg(shape, 1)
+        model = pl.place_stages(scfg, copy.deepcopy(base), pcfg, mesh)
+        prefill = pl.make_pipeline_prefill_step(scfg, pcfg, mesh, cache_len,
+                                                with_logits=True)
+        decode = pl.make_pipeline_decode_step(scfg, pcfg, mesh,
+                                              with_logits=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tok, cache, lg = prefill(model, inputs)
+        toks, logits = [tok], [lg]
+        for _ in range(n):
+            tok, cache, lg = decode(model, tok, cache)
+            toks.append(tok)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        laid = {k: str(tuple(t.placements)) for k, t in cache["stage"].items()}
+        got = pl.reference_cache(scfg, pcfg, cache, mesh, keep=lead)
+        every = [None] * world
+        dist.all_gather_object(every, {
+            "launches": launches, "layers": len(pcfg.ranges(L)[
+                mesh.get_local_rank("pod")]),
+            "last": mesh.get_local_rank("pod") == shape[0] - 1,
+            "placements": laid})
+        if lead:
+            o_toks, o_logits, o_cache = one
+            want = pl.repack_params({k: o_cache[k] for k in ("k", "v")},
+                                    pcfg, L)
+            tol = 2e-4                                 # phase 8's
+            out["serve"][str(shape)] = {
+                "logits": [float((a - b).abs().max())
+                           for a, b in zip(logits, o_logits)],
+                "logits_ok": all(torch.allclose(a, b, rtol=tol, atol=tol)
+                                 for a, b in zip(logits, o_logits)),
+                "tokens_equal": all(torch.equal(a, b)
+                                    for a, b in zip(toks, o_toks)),
+                "cache": {k: float((got[k].to(dev) - want[k]).abs().max())
+                          for k in ("k", "v")},
+                "cache_ok": all(torch.allclose(got[k].to(dev), want[k],
+                                               rtol=tol, atol=tol)
+                                for k in ("k", "v")),
+                "ranks": every, "s": time.perf_counter() - t1}
+        del model, cache, toks, logits, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["serve_setup_s"] = time.perf_counter() - t0
+    del base, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the train step
+    train.set_numerics()
+    ops.reset_launch_counts()
+    cfg = pod_train_cfg()
+    _, B, S, M, _ = POD_PARITY
+    opt = OptConfig(lr=TRAIN_LR)
+    base = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = SyntheticLM(cfg, DataConfig(B, S, 0), device=dev).batch_at(0)
+    wanted: dict = {}             # rank 0's reference state, by pipeline
+    for shape, mesh in meshes.items():
+        t1 = time.perf_counter()
+        pcfg = pod_pcfg(shape, M)
+        if lead and pcfg not in wanted:
+            if shape[0] == 1:
+                # the (1, 1) mesh's sharded step: phase 31's at world 1
+                with use_mesh_context(make_host_mesh(1, 1, 1, "cuda")):
+                    st = steps.train_state(copy.deepcopy(base))
+                    st, met = steps.make_train_step(cfg, opt)(st, batch)
+            else:
+                st, met = steps.make_train_step(cfg, opt)(
+                    steps.train_state(copy.deepcopy(base)), batch)
+            wanted[pcfg] = (steps.reference_state(st, pcfg),
+                            {k: v.item() for k, v in met.items()})
+            del st, met
+        model = pl.place_stages(cfg, copy.deepcopy(base), pcfg, mesh)
+        with use_mesh_context(pl.stage_context(mesh)):
+            state = steps.train_state(model)
+        step = pl.make_pipeline_train_step(cfg, pcfg, opt, mesh)
+        rec = CollectiveRecorder(world // shape[0])
+        with rec:
+            state, m = step(state, batch)
+        got_m = {k: v.item() for k, v in m.items()}
+        got = steps.reference_state(state, pcfg, keep=lead)
+        if lead:
+            want, want_m = wanted[pcfg]
+            held = _moments_held(torch, got, want, got_m["grad_norm"],
+                                 want_m["grad_norm"], opt, dev)
+            out["train"][str(shape)] = {
+                "loss": got_m["loss"], "plain_loss": want_m["loss"],
+                "loss_rel": abs(got_m["loss"] - want_m["loss"])
+                / abs(want_m["loss"]),
+                "loss_equal": got_m["loss"] == want_m["loss"], **held,
+                "collectives": rec.summary.by_kind_and_pod(),
+                "s": time.perf_counter() - t1}
+        del model, state, step, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = [None] * world
+    dist.all_gather_object(launches, ops.launch_counts())
+    out["train_launches"] = launches
+    del base, batch, wanted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) phase 30's run on the ranks
+    if spec.get("timed"):
+        p, d, m = spec["timed"]
+        out["timed"] = _train_on_mesh(
+            PIPE_TRAIN_FLAGS + ["--pods", str(p), "--data-par", str(d),
+                                "--model-par", str(m)],
+            spec["batch"])
+    return out if lead else None
+
+
+def expect_stage(layers: int, last: bool, n: int) -> dict[str, int]:
+    """The LM kernels' launches of one stage of (b)'s serve: a prefill
+    and ``n`` decode steps over ``layers`` layers (per layer a flash
+    launch in the prefill, a decode-attention launch a step, four norms
+    each), and the final norm on the last stage."""
+    return {"flash_attention": layers, "decode_attention": layers * n,
+            "fused_rmsnorm": (4 * layers + int(last)) * (1 + n)}
+
+
+def pod_mesh_phase(torch, smi, plain: dict, res: dict
+                   ) -> tuple[dict[str, int], dict]:
+    """Phase 35 from rank 0's ``res`` (``pod_mesh_rank``): (a) and (b) on
+    each mesh, (c) beside phases 25, 30 and 32 → (rank 0's kernel
+    launches in (b)'s serves, {mesh: (a)'s collectives on rank 0 by kind
+    and by crossing a pod})."""
+    cards = torch.cuda.device_count()
+    meshes, timed = pod_meshes(cards)
+    bad = []
+    launches: dict[str, int] = {}
+    L, B, S, n = POD_SERVE_PARITY
+    for mesh in meshes:
+        p = res["serve"][str(mesh)]
+        log(f"pod mesh (phase 35b) {TRAIN_ARCH} full width, {L} layers, "
+            f"fp32, TF32 off, batch {B}, prompt {S}, a prefill and {n} "
+            f"greedy decode steps on the kernel route at (pod, data, model) "
+            f"{mesh} against the one-card serve: max |diff| of logits "
+            f"{[f'{x:.3g}' for x in p['logits']]} (rtol = atol = 2e-4: "
+            f"{p['logits_ok']}); tokens torch.equal {p['tokens_equal']}; the "
+            f"gathered cache, reference layout, k {p['cache']['k']:.3g}, v "
+            f"{p['cache']['v']:.3g} (2e-4: {p['cache_ok']}); {p['s']:.1f} s")
+        for r, x in enumerate(p["ranks"]):
+            want = expect_stage(x["layers"], x["last"], n)
+            got = {k: x["launches"].get(k, 0) for k in want}
+            log(f"  rank {r}: stage of {x['layers']} layers"
+                f"{' (the last)' if x['last'] else ''}, cache "
+                f"{x['placements']}, launches {json.dumps(x['launches'])}; "
+                f"the stage implies {json.dumps(want)}")
+            if got != want or any(v for k, v in x["launches"].items()
+                                  if k not in want):
+                bad.append(f"(b) {mesh} rank {r} launches")
+        if not (p["logits_ok"] and p["tokens_equal"] and p["cache_ok"]):
+            bad.append(f"(b) {mesh}")
+        for k, v in p["ranks"][0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    _, B, S, M, cut = POD_PARITY
+    for mesh in meshes:
+        a = res["train"][str(mesh)]
+        world1 = mesh[0] == 1
+        what = ("the (1, 1) mesh's sharded step (phase 31's), torch.equal "
+                if world1 else "the one-card step")
+        log(f"pod mesh (phase 35a) {TRAIN_ARCH} full width, {POD_PARITY[0]} "
+            f"layers, fp32, batch {B}, seq {S}, "
+            f"{pod_pcfg(mesh, M).microbatches} microbatches, cuts "
+            f"{pod_pcfg(mesh, M).cuts} at (pod, data, model) {mesh} against "
+            f"{what}: loss {a['loss']:.7f} against {a['plain_loss']:.7f} (rel "
+            f"{a['loss_rel']:.3e}); worst gradient leaf {a['grad']:.3e}, m "
+            f"{a['m']:.3e}, v {a['v']:.3e} of its largest; every moment "
+            f"torch.equal {a['equal']}; {a['s']:.1f} s")
+        counted = {k: (d["count"], d["bytes"])
+                   for k, d in a["collectives"].items()}
+        log(f"  collectives of rank 0's step, (count, bytes) by kind and "
+            f"pod: {json.dumps(counted)}")
+        if world1:
+            if not (a["loss_equal"] and a["equal"]):
+                bad.append(f"(a) {mesh} not torch.equal")
+        elif a["loss_rel"] > 1e-5 or a["grad"] > TRAIN_GRAD_FRAC \
+                or a["m"] > SHARD_MOMENT_FRAC or a["v"] > SHARD_MOMENT_FRAC:
+            bad.append(f"(a) {mesh}")
+    moved = [{k: v for k, v in c.items() if v} for c in res["train_launches"]]
+    if any(moved):
+        bad.append(f"(a) launched kernels {moved}")
+    if timed is None:
+        log(f"pod mesh (phase 35c): {cards} card, no mesh of two pods to "
+            f"run ((2, 1, 2) and (2, 2, 1) need four cards, (2, 1, 1) two); "
+            f"phase 30 ran the one-process pipeline")
+    else:
+        ranks = res["timed"]
+        lead = ranks[0]
+        med, worst = step_medians(ranks)
+        diff = abs(lead["losses"][0] - plain["losses"][0])
+        Bt = plain["batch"]
+        log(f"pod mesh (phase 35c) {TRAIN_ARCH} full width and depth "
+            f"({lead['params']} parameters on rank 0), bf16, remat, batch "
+            f"{Bt}, seq {TRAIN_S}, --pods 2 --microbatches 4 "
+            f"--auto-partition at (pod, data, model) {timed} on "
+            f"{math.prod(timed)} of {cards} cards, {smi}: cuts "
+            f"{tuple(lead['cuts'])}, setup {lead['setup_s']:.1f} s")
+        losses = [float(f"{x:.6f}") for x in lead["losses"]]
+        log(f"  losses {json.dumps(losses)}")
+        log(f"  step ms (rank 0, each) "
+            f"{json.dumps([round(t, 2) for t in lead['step_ms']])}; median "
+            f"of the {TRAIN_STEPS} timed {med:.2f} ms (slowest rank's "
+            f"median {worst:.2f}), {Bt * TRAIN_S / med * 1e3:.0f} tokens/s; "
+            f"peak GiB a card {[round(r['peak'] / 2**30, 3) for r in ranks]}")
+        beside = [f"phase 25 (one card) {plain['step_ms']:.2f} ms, "
+                  f"{plain['tokens_s']:.0f} tokens/s, peak "
+                  f"{plain['peak'] / 2**30:.3f} GiB"]
+        if PIPE30:
+            beside.append(f"phase 30 (one process, 2 stages) "
+                          f"{PIPE30['step_ms']:.2f} ms, "
+                          f"{PIPE30['tokens_s']:.0f} tokens/s, peak "
+                          f"{PIPE30['peak'] / 2**30:.3f} GiB")
+        beside += [f"phase 32 at {k} {v:.2f} ms" for k, v in SHARD32.items()]
+        log(f"  beside {'; '.join(beside)}; warm-up loss "
+            f"{lead['losses'][0]:.6f} against phase 25's "
+            f"{plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
+            f"{PIPE_TRAIN_LOSS_TOL})")
+        if tuple(lead["cuts"]) != PIPE_TRAIN_CUTS:
+            bad.append(f"(c) cuts {lead['cuts']}")
+        if not diff <= PIPE_TRAIN_LOSS_TOL or \
+                not all(math.isfinite(x) for x in lead["losses"]):
+            bad.append("(c) the warm-up loss")
+        if any(v for r in ranks for v in r["launches"].values()):
+            bad.append("(c) launched kernels")
+    log(f"pod mesh (phase 35) on {smi}: meshes {meshes}; the serve's "
+        f"setup {res['serve_setup_s']:.1f} s in the ranks")
+    if bad:
+        raise AssertionError(f"phase 35: {bad}")
+    return launches, {str(m): res["train"][str(m)]["collectives"]
+                      for m in meshes}
+
+
 RANK_PARTS = {"33": sharded_serve_rank, "31": sharded_parity_rank,
-              "32": sharded_train_rank}
+              "32": sharded_train_rank, "35": pod_mesh_rank}
 
 
 def rank_main(spec: dict, out_path: str) -> None:
@@ -3977,17 +4384,34 @@ def predict(out_path: str, cards: int) -> None:
     for mesh in meshes32:
         item(f"p32 {mesh}", lambda: {"peak": on_mesh(
             shape25, cfg25, mesh)["memory"]["peak"]})
+    _, B35, S35, M35, _ = POD_PARITY
+    cfg35 = pod_train_cfg()
+
+    def p35(mesh):
+        with dryrun.fake_group(math.prod(mesh)):
+            dm = init_device_mesh("cuda", tuple(mesh),
+                                  mesh_dim_names=("pod", "data", "model"))
+            got = dryrun.measure(cfg35, ShapeSpec("phase 35", S35, B35,
+                                                  "train"),
+                                 dm, device="cuda", grad_accum=1,
+                                 pcfg=pod_pcfg(mesh, M35))
+        return {"collectives": got["collectives"].by_kind_and_pod(),
+                "peak": got["memory"]["peak"]}
+    for mesh in pod_meshes(cards)[0]:
+        item(f"p35 {mesh}", lambda: p35(mesh))
 
 
 def dryrun_phase(torch, smi, predictor, plain: dict, p31: dict,
-                 p32: dict) -> None:
+                 p32: dict, p35: dict) -> None:
     """Phase 34: the dry run's predictions (``predict``, run beside the
     earlier phases) against the card: (a) phase 25's peak, FLOPs and
     step beside the one-card prediction, (b) the collectives of phase
     31's full-width step in fake mode held equal, count and bytes by
     kind, to those its rank 0 issued (``p31``), and phase 32's peaks a
     card (``p32``: {mesh: [bytes a rank]}) beside rank 0's prediction at
-    each mesh."""
+    each mesh, (c) phase 35a's pipelined step at each of its meshes in
+    fake mode, its collectives by kind and by crossing a pod held equal
+    to rank 0's (``p35``: {mesh: those})."""
     t0 = time.perf_counter()
     proc, path = predictor
     try:
@@ -4032,6 +4456,18 @@ def dryrun_phase(torch, smi, predictor, plain: dict, p31: dict,
     if fake != real:
         raise AssertionError("phase 34: the dry run's collectives are not "
                              "those of phase 31's real step")
+    for mesh, real35 in p35.items():
+        fake35 = {k: (d["count"], d["bytes"]) for k, d in
+                  pred[f"p35 {mesh}"]["collectives"].items()}
+        real35 = {k: (d["count"], d["bytes"]) for k, d in real35.items()}
+        log(f"dry run (phase 34c) phase 35a's pipelined step at (pod, data, "
+            f"model) {mesh}, (count, bytes) by kind and pod: fake "
+            f"{json.dumps(fake35)}, rank 0 of the real step "
+            f"{json.dumps(real35)}; predicted peak "
+            f"{pred[f'p35 {mesh}']['peak'] / 2**30:.3f} GiB")
+        if fake35 != real35:
+            raise AssertionError(f"phase 34: the dry run's collectives are "
+                                 f"not those of phase 35a's step at {mesh}")
     log(f"dry run (phase 34) took {time.perf_counter() - t0:.1f} s (waiting "
         f"for the predictions included)")
 
@@ -4082,7 +4518,7 @@ def main() -> int:
 
 
 def phases(torch, smi, predictor) -> int:
-    """Phases 2-34 (``main`` made the setup and started the
+    """Phases 2-35 (``main`` made the setup and started the
     predictions)."""
     from repro_torch.core import best_throughput, scenarios, solve
     from repro_torch.kernels import _build, ops, ref
@@ -4524,16 +4960,19 @@ def phases(torch, smi, predictor) -> int:
     for k, n in shard_launches.items():
         train_launches[k] += n
     serve_launches = sharded_serve(torch, smi, SERVED["lm"], ranked["33"])
-    log(f"sharded phases 31-33 took {time.perf_counter() - t_shard:.1f} s")
+    pod_launches, p35_collectives = pod_mesh_phase(torch, smi, plain_train,
+                                                   ranked["35"])
+    log(f"rank phases 31-33 and 35 took {time.perf_counter() - t_shard:.1f} "
+        f"s")
 
     # -------------------------------------------------------------- dry run
     dryrun_phase(torch, smi, predictor, plain_train, p31_collectives,
-                 p32_peaks)
+                 p32_peaks, p35_collectives)
 
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
-                enc_launches, pipe_launches, serve_launches)
+                enc_launches, pipe_launches, serve_launches, pod_launches)
     rows = []
     for name in REPLACES:
         t = timings[name]

@@ -4,21 +4,26 @@ weights (counterpart of ``src/repro/launch/dryrun.py``).
 The reference lowers and compiles each cell on 512 forced host devices
 and never runs it.  PyTorch runs eagerly and compiles nothing, so here
 each cell runs the port's own step once, as rank 0 of a fake process
-group (``torch.testing``'s ``FakeStore`` backend: every collective
-returns at once) of 256 ranks, inside ``FakeTensorMode``, where no
-tensor holds storage.  DTensor takes its real decisions on the real
+group (``torch.testing``'s ``FakeStore`` backend: every collective and
+point-to-point op returns at once) of 256 ranks, or 512 for the
+multi-pod mesh, inside ``FakeTensorMode``, where no tensor holds
+storage.  DTensor takes its real decisions on the real
 ``DeviceMesh`` and issues its real collectives; only their data is
 absent.  For each cell this harness
 
-  1. builds the production mesh (16 x 16 ``(data, model)``; the
-     multi-pod 2 x 16 x 16 mesh is ROADMAP queue 1, item 12c: ``--mesh
-     multi`` and ``--mesh both`` exit 2, and nothing is recorded),
+  1. builds the production mesh (16 x 16 ``(data, model)``, or the
+     multi-pod 2 x 16 x 16 ``(pod, data, model)``),
   2. builds the state and inputs from ``launch.specs.input_specs``
-     (``specs.materialize``: each rank's shards only, no storage),
+     (``specs.materialize``: each rank's shards only, no storage; on
+     the multi-pod mesh rank 0's, pod 0's stage),
   3. runs the step once (``make_train_step`` with ``grad_accum=4``, or
-     the prefill or decode step) under ``MemTracker`` (memory, per
-     rank), ``FlopCounterMode`` (FLOPs, per rank) and the collective
-     recorder (``hlo_analysis.CollectiveRecorder``),
+     the prefill or decode step; on the multi-pod mesh the pipelined
+     steps over ``PipelineConfig.even(n_layers, 2, mb)``, 8 microbatches
+     for training and 1 for serving, the moe family on its GShard
+     route, as the reference's ``_build_step``) under ``MemTracker``
+     (memory, per rank), ``FlopCounterMode`` (FLOPs, per rank) and the
+     collective recorder (``hlo_analysis.CollectiveRecorder``, which
+     marks each collective crossing pods or not),
   4. records the analytic cost model's roofline terms
      (``launch/analytic.py:cell_cost`` with ``roofline_from``, the H100's
      peaks), as the reference does (``dryrun.py:280-321``),
@@ -33,7 +38,8 @@ token whole, as the port's steps take them), ``output_mb`` its outputs
 ``MemTracker`` holds after any op of the step (the inputs included) and
 ``temp_mb`` the peak less the inputs.  In place of ``xla_raw``,
 ``counted`` holds what the run counted: its FLOPs and its collectives'
-wire bytes, per rank.
+wire bytes, per rank; ``collectives_by_pod`` splits each kind's count
+and bytes into the ops whose group crosses a pod and the others.
 A decode cell attends over the whole cache (``pos`` = seq - 1).  The
 serving cells take the registered config's route (``attn_impl``, the
 plain one), as the reference's do.
@@ -41,6 +47,8 @@ plain one), as the reference's do.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
       --mesh single
+  python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
+      --mesh multi
   python -m repro_torch.launch.dryrun --all --mesh single [--force] \\
       [--out runs/dryrun]
 
@@ -57,9 +65,8 @@ from pathlib import Path
 GRAD_ACCUM = 4       # the reference's: 4x smaller activation working set
 TRAIN_ATTN_CHUNK = 1024   # the reference's flash block size for train
 WORLD = 256          # the single-pod mesh's ranks
+MULTI_WORLD = 512    # the multi-pod mesh's
 CELL_TIMEOUT_S = 3600     # a cell of a sweep, in its own process
-MULTI_POD = ("the multi-pod (pod, data, model) mesh is not ported (ROADMAP "
-             "queue 1, item 12c)")
 
 
 @contextlib.contextmanager
@@ -79,9 +86,16 @@ def fake_group(world: int):
         dist.destroy_process_group()
 
 
-def _build_step(cfg, shape, grad_accum: int):
+def _build_step(cfg, shape, grad_accum: int, pcfg=None, mesh=None):
     from ..optim import OptConfig
+    from ..runtime import pipeline as PL
     from ..runtime import steps as S
+    if pcfg is not None:
+        if shape.kind == "train":
+            return PL.make_pipeline_train_step(cfg, pcfg, OptConfig(), mesh)
+        if shape.kind == "prefill":
+            return PL.make_pipeline_prefill_step(cfg, pcfg, mesh)
+        return PL.make_pipeline_decode_step(cfg, pcfg, mesh)
     if shape.kind == "train":
         return S.make_train_step(cfg, OptConfig(), grad_accum=grad_accum)
     if shape.kind == "prefill":
@@ -89,24 +103,34 @@ def _build_step(cfg, shape, grad_accum: int):
     return S.make_decode_step(cfg)
 
 
-def cell_args(cfg, shape, ctx, mesh, device, zeros: bool = False) -> tuple:
+def cell_args(cfg, shape, ctx, mesh, device, zeros: bool = False,
+              pcfg=None) -> tuple:
     """The step's arguments for ``shape`` from ``specs.input_specs``: the
     state or model as DTensors of this rank's shards (plain tensors
-    without a mesh), the batch or token whole and the cache's ``pos`` the
-    int seq - 1.  Uninitialised (no storage in ``FakeTensorMode``), or
+    without a mesh; with ``pcfg``, this rank's stage on its pod's
+    sub-mesh), the batch or token whole and the cache's ``pos`` the int
+    seq - 1.  Uninitialised (no storage in ``FakeTensorMode``), or
     zero-filled with ``zeros``."""
     from ..models import lm
     from . import specs as SP
-    cell = SP.materialize(SP.input_specs(cfg, shape, ctx), mesh, device,
+    from .mesh import stage_mesh
+    cell = SP.materialize(SP.input_specs(cfg, shape, ctx, pcfg),
+                          mesh if pcfg is None else stage_mesh(mesh), device,
                           zeros=zeros, pos=shape.seq - 1,
                           whole=("batch", "inputs", "token", "count",
                                  "step"))
+
+    def built(params):
+        model = lm.LM(cfg, params)
+        if pcfg is not None:
+            model.pod_mesh = mesh
+        return model
     if shape.kind == "train":
         st = cell["state"]
-        model = lm.LM(cfg, st["params"]).requires_grad_(True)
+        model = built(st["params"]).requires_grad_(True)
         return ({"model": model, "opt": st["opt"], "step": st["step"]},
                 cell["batch"])
-    model = lm.LM(cfg, cell["params"])
+    model = built(cell["params"])
     if shape.kind == "prefill":
         return model, cell["inputs"]
     return model, cell["token"], cell["cache"]
@@ -165,9 +189,10 @@ def _peak_mode(mt):
 
 
 def measure(cfg, shape, mesh, *, device="cpu", fake: bool = True,
-            grad_accum: int = GRAD_ACCUM) -> dict:
+            grad_accum: int = GRAD_ACCUM, pcfg=None) -> dict:
     """One step of the cell ``shape`` (a ``specs.ShapeSpec``) on ``mesh``
-    (None: one device), as this rank runs it: inside ``FakeTensorMode``
+    (None: one device; with ``pcfg`` the pipelined step on a ``(pod,
+    data, model)`` mesh), as this rank runs it: inside ``FakeTensorMode``
     with ``fake`` (nothing allocated), else on zero-filled tensors →
     {"lower_s", "compile_s", "memory" (bytes), "flops", "collectives" (a
     ``CollectiveSummary``)}.  Run on a real group and on a fake one of
@@ -177,17 +202,21 @@ def measure(cfg, shape, mesh, *, device="cpu", fake: bool = True,
     from torch.utils.flop_counter import FlopCounterMode
     from ..sharding.api import MeshContext, use_mesh_context
     from .hlo_analysis import CollectiveRecorder
+    from .mesh import stage_mesh
     ctx = None if mesh is None else MeshContext(mesh)
+    if pcfg is not None:
+        stage_mesh(mesh)              # sliced here, outside the counting
     t0 = time.perf_counter()
     mode = FakeTensorMode() if fake else contextlib.nullcontext()
-    with mode, use_mesh_context(mesh):
-        step = _build_step(cfg, shape, grad_accum)
-        args = cell_args(cfg, shape, ctx, mesh, device, zeros=not fake)
+    with mode, use_mesh_context(mesh if pcfg is None else None):
+        step = _build_step(cfg, shape, grad_accum, pcfg, mesh)
+        args = cell_args(cfg, shape, ctx, mesh, device, zeros=not fake,
+                         pcfg=pcfg)
         lower_s = time.perf_counter() - t0
         arg_bytes = local_bytes(args)
         mt = MemTracker()
         mt.track_external(*(m for m in _tensors(args)))
-        rec = CollectiveRecorder()
+        rec = CollectiveRecorder(_pod_size(mesh))
         t1 = time.perf_counter()
         peak = _peak_mode(mt)
         with mt, peak, FlopCounterMode(display=False) as fc, rec:
@@ -201,24 +230,35 @@ def measure(cfg, shape, mesh, *, device="cpu", fake: bool = True,
             "flops": fc.get_total_flops(), "collectives": rec.summary}
 
 
+def _pod_size(mesh) -> int | None:
+    """The ranks of one pod of a ``(pod, data, model)`` mesh (None for
+    another mesh): a collective's group crosses pods when its ranks lie
+    in more than one such block."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    return mesh.size() // mesh.size(0) if "pod" in names else None
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              microbatches: int = 8, donate: bool = True) -> dict:
-    """The cell's record (the reference's keys; ``microbatches`` and
-    ``donate`` are taken for its signature: the multi-pod mesh they
-    serve is not ported, and an eager step has nothing to donate)."""
+    """The cell's record (the reference's keys; ``donate`` is taken for
+    its signature: an eager step has nothing to donate).  The multi-pod
+    cell runs the pipelined step of pod 0's rank 0, ``microbatches`` for
+    training."""
     from .. import configs
+    from ..runtime.pipeline import PipelineConfig
     from . import specs as SP
     from .analytic import cell_cost
     from .mesh import make_production_mesh
     from .roofline import model_flops, roofline_from
 
-    if multi_pod:
-        raise NotImplementedError(MULTI_POD)
     cfg = configs.get(arch)
     shape = SP.SHAPES[shape_name]
     if shape.kind == "train":
         cfg = cfg.replace(attn_chunk=TRAIN_ATTN_CHUNK)
-    rec: dict = {"arch": arch, "shape": shape_name, "mesh": "16x16",
+    if multi_pod and cfg.family == "moe":
+        cfg = cfg.replace(moe_impl="gshard")      # as the reference's cell
+    rec: dict = {"arch": arch, "shape": shape_name,
+                 "mesh": "2x16x16" if multi_pod else "16x16",
                  "family": cfg.family, "kind": shape.kind}
 
     ok, why = SP.cell_supported(cfg, shape_name)
@@ -228,15 +268,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     t0 = time.time()
     try:
-        with fake_group(WORLD):
-            mesh = make_production_mesh()
+        pcfg = PipelineConfig.even(
+            cfg.n_layers, 2, microbatches if shape.kind == "train" else 1) \
+            if multi_pod else None
+        with fake_group(MULTI_WORLD if multi_pod else WORLD):
+            mesh = make_production_mesh(multi_pod)
             n_chips = mesh.size()
-            got = measure(cfg, shape, mesh)
+            got = measure(cfg, shape, mesh, pcfg=pcfg)
         coll = got["collectives"]
         axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         cost = cell_cost(cfg, shape, n_chips=n_chips,
                          dp=axes.get("data", 1), tp=axes.get("model", 1),
-                         multi_pod=False, pcfg=None)
+                         multi_pod=multi_pod, pcfg=pcfg)
         mflops = model_flops(cfg, shape)
         rl = roofline_from(cost.flops_total / n_chips,
                            cost.hbm_bytes_per_dev,
@@ -255,6 +298,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                     "temp_mb": mem["temp"] / 1e6,
                     "peak_mb": mem["peak"] / 1e6},
             collectives=coll.by_kind(),
+            collectives_by_pod=coll.by_kind_and_pod(),
             wire_ici_per_dev=cost.wire_ici_per_dev,
             wire_dcn_per_dev=cost.wire_dcn_per_dev,
             counted={"flops_per_dev": float(got["flops"]),
@@ -278,12 +322,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
 
 def main() -> int:
-    # the multi-pod meshes are refused before anything heavy is imported
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--mesh", default="single")
-    mesh = pre.parse_known_args()[0].mesh
-    if mesh in ("multi", "both"):
-        pre.exit(2, f"--mesh {mesh}: {MULTI_POD}; run --mesh single\n")
     from .. import configs
     from . import specs as SP
 
@@ -291,7 +329,7 @@ def main() -> int:
     ap.add_argument("--arch", choices=list(configs.ARCH_NAMES))
     ap.add_argument("--shape", choices=list(SP.SHAPES))
     ap.add_argument("--mesh", choices=("single", "multi", "both"),
-                    default="single")
+                    default="both")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--microbatches", type=int, default=8)
@@ -305,11 +343,13 @@ def main() -> int:
     shapes = list(SP.SHAPES) if (args.all or not args.shape) \
         else [args.shape]
 
-    cells = [(a, s) for a in archs for s in shapes]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    cells = [(a, s, m) for a in archs for s in shapes for m in meshes]
     single_cell = len(cells) == 1
     failures = 0
-    for arch, shape in cells:
-        tag = f"{arch}__{shape}__single"
+    for arch, shape, multi in cells:
+        tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
         path = out / f"{tag}.json"
         if path.exists() and not args.force:
             rec = json.loads(path.read_text())
@@ -317,7 +357,7 @@ def main() -> int:
             failures += rec["status"] == "failed"
             continue
         if single_cell:
-            rec = run_cell(arch, shape, False, args.microbatches)
+            rec = run_cell(arch, shape, multi, args.microbatches)
             path.write_text(json.dumps(rec, indent=1))
         else:
             # subprocess isolation: a hard crash in one cell must not
@@ -328,8 +368,10 @@ def main() -> int:
             try:
                 cp = subprocess.run(
                     [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", arch, "--shape", shape, "--mesh", "single",
-                     "--out", str(out)] + (["--force"] if args.force else []),
+                     "--arch", arch, "--shape", shape, "--mesh",
+                     "multi" if multi else "single", "--out", str(out),
+                     "--microbatches", str(args.microbatches)]
+                    + (["--force"] if args.force else []),
                     capture_output=True, text=True, timeout=CELL_TIMEOUT_S)
                 err = cp.stderr.strip()
                 err = "hard crash: " + err.splitlines()[-1][:200] if err \
@@ -338,7 +380,8 @@ def main() -> int:
                 # a straggler is a failed cell, not the end of the sweep
                 err = f"timed out after {CELL_TIMEOUT_S} s"
             if not path.exists():
-                rec = {"arch": arch, "shape": shape, "mesh": "16x16",
+                rec = {"arch": arch, "shape": shape,
+                       "mesh": "2x16x16" if multi else "16x16",
                        "status": "failed", "error": err,
                        "wall_s": round(time.time() - t0, 1)}
                 path.write_text(json.dumps(rec, indent=1))

@@ -14,8 +14,11 @@ calls (``all_reduce`` inside the steps' local functions), each under
 the reference's kind name (send/recv as ``collective-permute``), with
 its result bytes and its process group's size.  It works the same on a
 real group and on a fake one inside ``FakeTensorMode`` (the dry run).
-The port's meshes of ranks have no pod axis (ROADMAP queue 1, item
-12c), so no group crosses a pod: ``crosses_pod`` is False.
+Given the ranks of a pod (``pod_size``: a ``(pod, data, model)`` mesh's
+pods are blocks of that many consecutive ranks), it marks each
+collective whose group's global ranks lie in more than one pod, and each
+send or receive whose peer lies in another, as ``crosses_pod`` (the
+reference's DCN); without it none crosses.
 
 Wire-byte model per device (ring/bidirectional algorithms), the
 reference's ``_wire_bytes``:
@@ -94,6 +97,18 @@ class CollectiveSummary:
             d["wire"] += o.wire_bytes
         return out
 
+    def by_kind_and_pod(self) -> dict[str, dict]:
+        """``by_kind``'s count and bytes, each kind split in two:
+        ``<kind>/crossing`` the ops whose group crosses a pod,
+        ``<kind>/within`` the others."""
+        out: dict[str, dict] = {}
+        for o in self.ops:
+            key = f"{o.kind}/{'crossing' if o.crosses_pod else 'within'}"
+            d = out.setdefault(key, {"count": 0, "bytes": 0})
+            d["count"] += 1
+            d["bytes"] += o.result_bytes
+        return out
+
 
 def _wire_bytes(kind: str, result_bytes: int, s: int) -> int:
     if s <= 1:
@@ -119,33 +134,51 @@ def _tensor_bytes(x) -> int:
     return 0
 
 
-def _group_size(args, kwargs) -> int:
-    """The size of the op's process group: a functional op names it
-    (``group_name``), a c10d op passes the ``ProcessGroup``."""
+def _group(args, kwargs):
+    """The op's process group: a functional op names it (``group_name``),
+    a c10d op passes the ``ProcessGroup`` (boxed, in the dispatcher) →
+    it, or None."""
+    import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
     for a in (*args, *kwargs.values()):
         if isinstance(a, str):
             try:
-                return _resolve_process_group(a).size()
+                return _resolve_process_group(a)
             except (KeyError, ValueError, RuntimeError):
                 continue
-        size = getattr(a, "size", None)
-        if callable(size) and not isinstance(a, torch.Tensor):
+        if isinstance(a, dist.ProcessGroup):
+            return a
+        if isinstance(a, torch.ScriptObject):
             try:
-                return int(size())
-            except (TypeError, RuntimeError):
+                return dist.ProcessGroup.unbox(a)
+            except RuntimeError:        # another boxed class (a ReduceOp)
                 continue
-    return 1
+    return None
+
+
+def _crosses(group, name: str, args, pod_size: int | None) -> bool:
+    """Whether the op's group spans more than one pod; for a send or a
+    receive (whose third argument is the peer's rank in the group),
+    whether the peer lies in another pod than this rank."""
+    import torch.distributed as dist
+    if pod_size is None or group is None:
+        return False
+    ranks = dist.get_process_group_ranks(group)
+    if name in ("send", "recv_"):
+        ranks = [dist.get_rank(), ranks[args[2]]]
+    return len({r // pod_size for r in ranks}) > 1
 
 
 class CollectiveRecorder(TorchDispatchMode):
     """``with CollectiveRecorder() as rec: step(...)`` → ``rec.summary``,
     every collective the step issued, in order; ops of no bytes (a
-    barrier) are skipped, as the reference's parser skips them."""
+    barrier) are skipped, as the reference's parser skips them.  With
+    ``pod_size`` each is marked crossing pods or not."""
 
-    def __init__(self):
+    def __init__(self, pod_size: int | None = None):
         super().__init__()
         self.summary = CollectiveSummary()
+        self.pod_size = pod_size
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -160,9 +193,11 @@ class CollectiveRecorder(TorchDispatchMode):
                     res = out
                 rb = _tensor_bytes(res)
                 if rb:
-                    s = _group_size(args, kwargs)
+                    group = _group(args, kwargs)
+                    s = 1 if group is None else group.size()
                     self.summary.ops.append(CollectiveOp(
                         kind=kind, result_bytes=rb, group_size=s,
-                        crosses_pod=False,
+                        crosses_pod=_crosses(group, name, args,
+                                             self.pod_size),
                         wire_bytes=_wire_bytes(kind, rb, s)))
         return out

@@ -18,9 +18,16 @@ real device: ``spawn_ranks`` starts them as processes of one command
 the CPU, NCCL on ``cuda:{local rank}``) and ``make_host_mesh`` inside a
 rank gives their ``DeviceMesh``.  The rendezvous is a ``FileStore`` in a
 fresh temporary directory (``REPRO_TORCH_STORE``), or ``torchrun``'s
-``MASTER_ADDR``/``MASTER_PORT``: never a fixed port.  Pods with data or
-model axes (the reference's ``(pod, data, model)`` mesh) are not ported
-(ROADMAP queue 1, item 12c).
+``MASTER_ADDR``/``MASTER_PORT``: never a fixed port.
+
+The reference's ``(pod, data, model)`` mesh is ranks too
+(``pod_mesh``): rank ``r`` sits at ``(r // (data·model), (r // model) %
+data, r % model)``, so a pod's ranks are contiguous.  Each rank holds
+one stage of the pod pipeline, sharded on its pod's ``(data, model)``
+sub-mesh (``stage_mesh``), and an activation crosses to the next stage
+as a point-to-point send to the rank at the same ``(data, model)``
+point of the next pod (``pod_neighbours``).  With one pod the ranks'
+mesh stays the ``(data, model)`` one.
 """
 from __future__ import annotations
 
@@ -36,7 +43,6 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from ..models.blocks_adapter import choose_pipeline_cuts
 from ..models.cnn.zoo import resolve_device
-from ..runtime.pipeline import PipelineConfig, place_stages
 
 
 @dataclass(frozen=True)
@@ -54,17 +60,16 @@ def make_host_mesh(n_pods: int = 1, data: int = 1, model: int = 1,
     """``n_pods`` stages on ``device``'s kind (``cuda`` unless the caller
     names another): on the card, stage ``k`` on ``cuda:{k % count}``, so
     that one card holds every stage and four cards one each; on the CPU
-    every stage on the CPU.  For ranks (``data`` x ``model`` > 1, or one
-    pod in a process that is a rank) → the ranks' ``(data, model)``
-    ``DeviceMesh`` instead (``rank_mesh``)."""
-    if n_pods > 1 and data * model > 1:
-        raise NotImplementedError(
-            f"pods {n_pods} with data {data} x model {model}: the (pod, "
-            "data, model) mesh is not ported (ROADMAP queue 1, item 12c)")
+    every stage on the CPU.  For ranks (``data`` x ``model`` > 1, or a
+    process that is a rank) → the ranks' ``DeviceMesh`` instead: ``(pod,
+    data, model)`` with several pods (``pod_mesh``), else ``(data,
+    model)`` (``rank_mesh``)."""
     if n_pods < 1:
         raise ValueError(f"n_pods {n_pods}")
-    if data * model > 1 or (n_pods == 1 and (in_rank()
-                                             or dist.is_initialized())):
+    ranks = data * model > 1 or in_rank() or dist.is_initialized()
+    if n_pods > 1 and ranks:
+        return pod_mesh(n_pods, data, model, device)
+    if ranks:
         return rank_mesh(data, model, device)
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -75,15 +80,67 @@ def make_host_mesh(n_pods: int = 1, data: int = 1, model: int = 1,
 
 
 def make_production_mesh(multi_pod: bool = False, device_type: str = "cpu"):
-    """The reference's single-pod ``(data, model)`` mesh, 16 x 16, over
-    the 256 ranks of the current process group (the dry run's fake
-    one); the multi-pod 2 x 16 x 16 mesh is item 12c, not ported."""
+    """The reference's production mesh over the ranks of the current
+    process group (the dry run's fake one): ``(data, model)`` 16 x 16
+    over 256, or with ``multi_pod`` ``(pod, data, model)`` 2 x 16 x 16
+    over 512."""
     if multi_pod:
-        raise NotImplementedError(
-            "the multi-pod (pod, data, model) mesh is not ported (ROADMAP "
-            "queue 1, item 12c)")
+        return init_device_mesh(device_type, (2, 16, 16),
+                                mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(device_type, (16, 16),
                             mesh_dim_names=("data", "model"))
+
+
+def pod_mesh(n_pods: int, data: int, model: int, device=None):
+    """The ranks' ``(pod, data, model)`` ``DeviceMesh``, rank ``r`` at
+    ``(r // (data·model), (r // model) % data, r % model)``, joining the
+    group first if this process has not.  The pod group makes its first
+    collective here, with every rank in it: NCCL asks that of a group's
+    first batched point-to-point call, which the pipeline's hops are."""
+    dev = join(device)
+    world = dist.get_world_size()
+    if world != n_pods * data * model:
+        raise ValueError(f"pods {n_pods} x data {data} x model {model} is "
+                         f"not the {world} ranks of the group")
+    mesh = init_device_mesh(dev.type, (n_pods, data, model),
+                            mesh_dim_names=("pod", "data", "model"))
+    dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group("pod"))
+    return mesh
+
+
+def is_pod_mesh(mesh) -> bool:
+    """Whether ``mesh`` is the ranks' ``(pod, data, model)`` mesh."""
+    return "pod" in (getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def stage_mesh(mesh):
+    """A pod mesh's ``(data, model)`` sub-mesh of this rank's pod: where
+    its stage's tensors live.  Sliced once and kept on the mesh, so a
+    step that asks for it again runs no tensor op for it (the dry run
+    counts every tensor a step makes)."""
+    sub = getattr(mesh, "_repro_stage_mesh", None)
+    if sub is None:
+        sub = mesh._repro_stage_mesh = mesh["data", "model"]
+    return sub
+
+
+def pod_index(mesh) -> int:
+    """This rank's pod, the stage it runs."""
+    return mesh.get_local_rank("pod")
+
+
+def pod_rank(mesh, k: int) -> int:
+    """The global rank at this rank's ``(data, model)`` point of pod
+    ``k``."""
+    return dist.get_global_rank(mesh.get_group("pod"), k)
+
+
+def pod_neighbours(mesh) -> tuple[int | None, int | None]:
+    """The global ranks at this rank's ``(data, model)`` point of the
+    pods before and after its own (None past either end)."""
+    k, n = pod_index(mesh), mesh.size(0)
+    return (pod_rank(mesh, k - 1) if k > 0 else None,
+            pod_rank(mesh, k + 1) if k < n - 1 else None)
 
 
 def in_rank() -> bool:
@@ -98,6 +155,9 @@ def join(device=None) -> torch.device:
     ``MASTER_ADDR``/``MASTER_PORT``): gloo on the CPU, NCCL on
     ``cuda:{LOCAL_RANK}``, which becomes the current device → this
     rank's device."""
+    if not in_rank():
+        raise RuntimeError("not a rank: start the ranks with spawn_ranks "
+                           "or torchrun (RANK and WORLD_SIZE unset)")
     dev = resolve_device(device)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     if dev.type == "cuda":
@@ -168,20 +228,24 @@ def spawn_ranks(cmd: list[str], world: int, env: dict | None = None,
 
 
 def plan_pipeline(cfg, model, pods: int, microbatches: int, *, seq: int,
-                  batch: int, auto_partition: bool, train: bool):
-    """``model`` placed on ``pods`` stages on its device's kind →
-    (PipelineConfig, mesh).  The cuts are even, or with
-    ``auto_partition`` ParetoPipe's for ``seq`` and ``batch`` (training
-    or serving), printed as the reference's launcher prints them."""
+                  batch: int, auto_partition: bool, train: bool, mesh=None):
+    """``model`` placed on ``pods`` stages → (PipelineConfig, mesh): on
+    ``mesh`` (a rank's ``pod_mesh``) when one is given, else on its
+    device's kind.  The cuts are even, or with ``auto_partition``
+    ParetoPipe's for ``seq`` and ``batch`` (training or serving), printed
+    as the reference's launcher prints them (by rank 0 alone)."""
+    from ..runtime.pipeline import PipelineConfig, place_stages
     if auto_partition:
         cuts, pick, _ = choose_pipeline_cuts(cfg, seq, pods, batch=batch,
                                              train=train)
-        print(f"[paretopipe] cuts={cuts} predicted latency="
-              f"{pick.latency_s*1e3:.2f}ms thr={pick.throughput:.1f}/s",
-              flush=True)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(f"[paretopipe] cuts={cuts} predicted latency="
+                  f"{pick.latency_s*1e3:.2f}ms thr={pick.throughput:.1f}/s",
+                  flush=True)
         pcfg = PipelineConfig(pods, microbatches, cuts)
     else:
         pcfg = PipelineConfig.even(cfg.n_layers, pods, microbatches)
-    mesh = make_host_mesh(pods, device=model.device)
+    if mesh is None:
+        mesh = make_host_mesh(pods, device=model.device)
     place_stages(cfg, model, pcfg, mesh)
     return pcfg, mesh

@@ -26,7 +26,11 @@ starts the ranks (``launch.mesh.spawn_ranks``), or is one of them under
 shards (``lm.shard_params``), the steps split the batch over ``data``
 and run the kernels on each rank's shards, and the cache stays sharded
 (``lm.cache_names``).  Rank 0 alone prints.  More ranks than cards is an
-error; pods with data or model axes are item 12c, not ported.
+error.  ``--pods K`` with ``--data-par``/``--model-par`` serves on K x D
+x M ranks, the ``(pod, data, model)`` mesh: pod 0 embeds, each pod's
+stage runs sharded on its ``(data, model)`` sub-mesh and keeps its own
+cache, the last pod's greedy tokens are broadcast to every rank; its
+tokens equal the one-process pipelined serve's.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --new-tokens 4
@@ -52,6 +56,8 @@ error; pods with data or model axes are item 12c, not ported.
       --device cpu --pods 2 --auto-partition             # pipelined
   python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
       --device cpu --data-par 2 --model-par 2 --batch 4  # 4 gloo ranks
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
+      --device cpu --pods 2 --model-par 2 --batch 4      # (2, 1, 2)
 
 ``main`` prints the reference's lines and returns the numbers.
 """
@@ -73,6 +79,7 @@ from ..runtime.pipeline import (make_pipeline_decode_step,
 from ..runtime.steps import make_decode_step, make_prefill_step
 from ..sharding.api import use_mesh_context
 from .mesh import in_rank, make_host_mesh, plan_pipeline, spawn_ranks
+from .train import mesh_name, ranks_of
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -91,16 +98,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--data-par", type=int, default=1)
     ap.add_argument("--model-par", type=int, default=1)
     args = ap.parse_args(argv)
-    world = args.data_par * args.model_par
-    if args.pods > 1 and world > 1:
-        ap.error(f"--pods {args.pods} with --data-par {args.data_par} "
-                 f"--model-par {args.model_par}: the (pod, data, model) mesh "
-                 "is not ported (ROADMAP queue 1, item 12c)")
+    world = ranks_of(args)
     if world > 1 and torch.device(args.device).type == "cuda" \
             and not in_rank() and world > torch.cuda.device_count():
-        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
-                 f"{world} ranks need {world} cards, one a rank; this "
-                 f"machine has {torch.cuda.device_count()}")
+        ap.error(f"{mesh_name(args)}: {world} ranks need {world} cards, one "
+                 f"a rank; this machine has {torch.cuda.device_count()}")
     if args.new_tokens < 2:
         ap.error("--new-tokens must be at least 2 (one warm-up decode step)")
     if args.auto_partition and args.pods <= 1:
@@ -179,7 +181,7 @@ def main(argv=None) -> dict:
     starts the ranks, each this command, and exits with their code (0 →
     {"arch", "ranks"})."""
     args = parse_args(argv)
-    world = args.data_par * args.model_par
+    world = ranks_of(args)
     if world > 1 and not in_rank():
         cmd = [sys.executable, "-m", "repro_torch.launch.serve",
                *(sys.argv[1:] if argv is None else argv)]
@@ -189,20 +191,21 @@ def main(argv=None) -> dict:
         return {"arch": args.arch, "ranks": world}
     ranks = None
     if world > 1 or in_rank():
-        ranks = make_host_mesh(1, args.data_par, args.model_par, args.device)
+        ranks = make_host_mesh(args.pods, args.data_par, args.model_par,
+                               args.device)
     cfg, model, inputs, cache_len = setup(args)
     pcfg, steps = None, None
-    if ranks is not None:
-        with use_mesh_context(ranks) as ctx:
-            lm.shard_params(cfg, model, ctx)
-            steps = (make_prefill_step(cfg, cache_len), make_decode_step(cfg))
-    elif args.pods > 1:
+    if args.pods > 1:
         pcfg, mesh = plan_pipeline(cfg, model, args.pods, 1,
                                    seq=args.prompt_len, batch=args.batch,
                                    auto_partition=args.auto_partition,
-                                   train=False)
+                                   train=False, mesh=ranks)
         steps = (make_pipeline_prefill_step(cfg, pcfg, mesh, cache_len),
                  make_pipeline_decode_step(cfg, pcfg, mesh))
+    elif ranks is not None:
+        with use_mesh_context(ranks) as ctx:
+            lm.shard_params(cfg, model, ctx)
+            steps = (make_prefill_step(cfg, cache_len), make_decode_step(cfg))
     res = serve(cfg, model, inputs, cache_len, args.new_tokens, steps)
     B, S = args.batch, args.prompt_len
     n_dec = res["decode_steps"]
@@ -215,8 +218,7 @@ def main(argv=None) -> dict:
         (lambda *a, **k: None)
     say(f"arch={cfg.name} batch={B} prompt={S} device={model.device}"
         + ("" if pcfg is None else f" pods={args.pods} cuts={pcfg.cuts}")
-        + ("" if ranks is None else
-           f" mesh=(data {args.data_par}, model {args.model_par})"))
+        + ("" if ranks is None else f" mesh={mesh_name(args)}"))
     say(f"prefill latency: {res['prefill_s'] * 1e3:.1f} ms "
         f"({prefill_tok_s:.0f} tok/s)")
     say(f"decode: {ms_per_token:.2f} ms/token "

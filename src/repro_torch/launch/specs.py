@@ -19,21 +19,28 @@ unsplit ``layers`` dim); the moments keyed by parameter name in
 reference device's bytes of each leaf; the cache as ``models.lm``
 builds it (``lm.cache_names``: the self-attention k/v by
 ``kv_cache_names``, split along the sequence where ``model`` does not
-divide the kv heads).  A pipelined spec (``pcfg``) needs the ``(pod,
-data, model)`` mesh, which is not ported: ROADMAP queue 1, item 12c.
+divide the kv heads).  A pipelined spec (``pcfg``, on the ``(pod, data,
+model)`` mesh) is the rank's own stage, as ``runtime.pipeline`` places
+it: its pod's layers (the others' blocks empty), the pod-replicated
+parts whole, the cache ``{"stage": its layers' cache, "pos"}``, each
+leaf laid out on the pod's ``(data, model)`` sub-mesh.  The stages'
+blocks, stacked in the reference's (K, l_max, ...) layout with ``pod``
+on the stage dim, are the reference's pipelined specs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..data.pipeline import make_batch_specs
 from ..models import lm
 from ..models.common import (DTYPES, AbstractBuilder, LeafSpec,
                              abstract_params, named_leaves)
 from ..models.config import ArchConfig
-from ..sharding.api import Shard, use_mesh_context
+from ..sharding.api import MeshContext, Shard, use_mesh_context
 
 
 @dataclass(frozen=True)
@@ -61,11 +68,21 @@ def cell_supported(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
     return True, ""
 
 
-def _no_pipeline(pcfg) -> None:
-    if pcfg is not None:
-        raise NotImplementedError(
-            "pipelined specs need the (pod, data, model) mesh, which is not "
-            "ported (ROADMAP queue 1, item 12c)")
+def stage_of(ctx, cfg, pcfg, pod: int | None = None):
+    """The context and layers of a pipelined spec's stage → (the pod's
+    ``(data, model)`` context, the layers of ``pod``: by default the
+    rank's own on a ``DeviceMesh``, else pod 0); (ctx, None) without
+    ``pcfg``."""
+    if pcfg is None:
+        return ctx, None
+    mesh = ctx.mesh
+    if isinstance(mesh, DeviceMesh):
+        sub = MeshContext(mesh["data", "model"])
+        pod = mesh.get_local_rank("pod") if pod is None else pod
+    else:
+        sub = MeshContext(SimpleNamespace(axis_names=ctx.axis_names[1:],
+                                          devices=mesh.devices[0]))
+    return sub, pcfg.ranges(cfg.n_layers)[pod or 0]
 
 
 def _leaf(ctx, shape, dtype, axes) -> LeafSpec:
@@ -87,27 +104,34 @@ def spec_of(placements: tuple, axis_names: tuple, ndim: int) -> tuple:
 # --------------------------------------------------------------------------- #
 # Param / optimizer / cache specs
 # --------------------------------------------------------------------------- #
-def param_specs(cfg: ArchConfig, ctx, pcfg=None) -> dict:
+def param_specs(cfg: ArchConfig, ctx, pcfg=None, pod=None) -> dict:
     """The parameter tree (``lm.build_params``' layout) of ``LeafSpec``s
-    in ``cfg.dtype``."""
-    _no_pipeline(pcfg)
-    return abstract_params(cfg, ctx)
+    in ``cfg.dtype``; with ``pcfg`` a stage's (``stage_of``)."""
+    sub, layers = stage_of(ctx, cfg, pcfg, pod)
+    tree = abstract_params(cfg, sub)
+    if layers is not None:
+        key = "dec_layers" if cfg.family == "encdec" else "layers"
+        tree[key] = [b if i in layers else {}
+                     for i, b in enumerate(tree[key])]
+    return tree
 
 
-def train_state_specs(cfg: ArchConfig, ctx, pcfg=None) -> dict:
+def train_state_specs(cfg: ArchConfig, ctx, pcfg=None, pod=None) -> dict:
     """The train state's specs in the port's layout: ``params`` (the
     module's tree), ``opt`` (fp32 moments ``m``, ``v`` keyed by parameter
-    name in ZeRO-1's placements, and ``count``) and ``step``."""
+    name in ZeRO-1's placements, and ``count``) and ``step``; with
+    ``pcfg`` a stage's."""
     from ..runtime.steps import zero1_placements
-    params = param_specs(cfg, ctx, pcfg)
-    z1 = None if ctx is None else zero1_placements(cfg, ctx)
+    params = param_specs(cfg, ctx, pcfg, pod)
+    sub = stage_of(ctx, cfg, pcfg, pod)[0]
+    z1 = None if ctx is None else zero1_placements(cfg, sub)
 
     def f32_zero1(name, s):
         if z1 is None:
             return LeafSpec(s.shape, torch.float32)
         pl = z1[name]
         return LeafSpec(s.shape, torch.float32,
-                        spec_of(pl, ctx.axis_names, len(s.shape)), pl)
+                        spec_of(pl, sub.axis_names, len(s.shape)), pl)
 
     named = list(named_leaves(params))
     scalar = _leaf(ctx, (), torch.int32, ())
@@ -118,14 +142,17 @@ def train_state_specs(cfg: ArchConfig, ctx, pcfg=None) -> dict:
             "step": scalar}
 
 
-def cache_specs(cfg: ArchConfig, B: int, S: int, ctx, pcfg=None) -> dict:
+def cache_specs(cfg: ArchConfig, B: int, S: int, ctx, pcfg=None,
+                pod=None) -> dict:
     """The decode step's cache (``lm.forward_prefill``'s layout, a cache
     of ``S`` positions), each leaf laid out by ``lm.cache_names``;
     ``pos`` is the reference's int32 scalar (the port's steps take it as
-    a Python int, which ``materialize`` puts in its place)."""
-    _no_pipeline(pcfg)
+    a Python int, which ``materialize`` puts in its place).  With
+    ``pcfg`` a stage's: ``{"stage": its layers' leaves, "pos"}``."""
+    sub, layers = stage_of(ctx, cfg, pcfg, pod)
+    layers = range(cfg.n_layers) if layers is None else layers
     dt = DTYPES[cfg.dtype]
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    L, KV, hd = len(layers), cfg.n_kv_heads, cfg.hd
     shapes: dict[str, tuple] = {}
     if cfg.family in ("dense", "vlm", "moe", "encdec"):
         shapes["k"] = shapes["v"] = (L, B, S, KV, hd)
@@ -138,21 +165,23 @@ def cache_specs(cfg: ArchConfig, B: int, S: int, ctx, pcfg=None) -> dict:
         shapes["conv"] = (L, B, cfg.ssm_conv - 1,
                           cfg.d_inner + 2 * cfg.ssm_state)
         shapes["h"] = (L, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-        shapes["ak"] = shapes["av"] = (cfg.n_attn_apps, B, S, KV, hd)
+        shapes["ak"] = shapes["av"] = (lm.n_apps(cfg, layers), B, S, KV, hd)
     if not shapes:
         raise ValueError(cfg.family)
-    with use_mesh_context(None if ctx is None else ctx.mesh):
-        out = {k: _leaf(ctx, shape, torch.float32 if k == "h" else dt,
+    with use_mesh_context(None if sub is None else sub.mesh):
+        out = {k: _leaf(sub, shape, torch.float32 if k == "h" else dt,
                         lm.cache_names(cfg, k))
                for k, shape in shapes.items()}
-    out["pos"] = _leaf(ctx, (), torch.int32, ())
-    return out
+    pos = _leaf(ctx, (), torch.int32, ())
+    return {"stage": out, "pos": pos} if pcfg is not None else \
+        {**out, "pos": pos}
 
 
 def input_specs(cfg: ArchConfig, shape_name: str | ShapeSpec, ctx,
-                pcfg=None) -> dict:
+                pcfg=None, pod=None) -> dict:
     """All inputs of the cell's step (a name of ``SHAPES``, or a shape of
-    one's own), as ``LeafSpec``s:
+    one's own), as ``LeafSpec``s (with ``pcfg``, of pod ``pod``'s stage:
+    ``stage_of``):
 
     train  → {"state": ..., "batch": ...}
     prefill→ {"params": ..., "inputs": ...}
@@ -160,18 +189,18 @@ def input_specs(cfg: ArchConfig, shape_name: str | ShapeSpec, ctx,
     """
     sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     if sh.kind == "train":
-        return {"state": train_state_specs(cfg, ctx, pcfg),
+        return {"state": train_state_specs(cfg, ctx, pcfg, pod),
                 "batch": make_batch_specs(cfg, sh.batch, sh.seq, ctx,
                                           "train")}
     if sh.kind == "prefill":
-        return {"params": param_specs(cfg, ctx, pcfg),
+        return {"params": param_specs(cfg, ctx, pcfg, pod),
                 "inputs": make_batch_specs(cfg, sh.batch, sh.seq, ctx,
                                            "prefill")}
     # decode: one new token against a cache of sh.seq
-    return {"params": param_specs(cfg, ctx, pcfg),
+    return {"params": param_specs(cfg, ctx, pcfg, pod),
             "token": _leaf(ctx, (sh.batch, 1), torch.int32,
                            ("batch", "seq")),
-            "cache": cache_specs(cfg, sh.batch, sh.seq, ctx, pcfg)}
+            "cache": cache_specs(cfg, sh.batch, sh.seq, ctx, pcfg, pod)}
 
 
 # --------------------------------------------------------------------------- #

@@ -31,6 +31,11 @@ apart, so equal lines are equal bits.
   python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
       --device cpu --data-par 2 --model-par 2 --steps 16 --batch 4 \
       --seq 32
+  # the pod pipeline over ranks: 4 ranks at (pod 2, data 2, model 1),
+  # each pod's stage sharded on its (data, model) sub-mesh:
+  python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
+      --device cpu --pods 2 --data-par 2 --microbatches 2 \
+      --auto-partition --steps 16 --batch 4 --seq 32
 
 ``--data-par D --model-par M`` (D x M > 1) trains on a ``(data, model)``
 mesh of D x M ranks (``runtime.steps`` under ``sharding.api``): the batch
@@ -49,10 +54,13 @@ cards is an error, never a smaller mesh or the CPU.
 ``--microbatches`` (4 by default) and even cuts, or with
 ``--auto-partition`` the cuts ``models.blocks_adapter`` picks, printed as
 the reference prints them; its checkpoints hold the reference's
-pipeline layout.  Pods with data or model axes are not ported (ROADMAP
-queue 1, item 12c), and the pipelined step takes no gradient
-compression: asking for either is an error, never ignored (the
-reference ignores ``--compress-grads`` under ``--pods``).
+pipeline layout.  In one process the stages sit on the cards in turn;
+with ``--data-par``/``--model-par`` (or in a rank) the command runs K x
+D x M ranks on the ``(pod, data, model)`` mesh, each pod's stage sharded
+on its ``(data, model)`` sub-mesh, and a checkpoint of either restores
+in the other.  The pipelined step takes no gradient compression: asking
+for it is an error, never ignored (the reference ignores
+``--compress-grads`` under ``--pods``).
 """
 from __future__ import annotations
 
@@ -71,7 +79,7 @@ from ..models import lm
 from ..models.cnn.zoo import resolve_device
 from ..optim import CompressionConfig, OptConfig, cosine_schedule
 from ..runtime.edge import apply_numerics
-from ..runtime.pipeline import make_pipeline_train_step
+from ..runtime.pipeline import make_pipeline_train_step, stage_context
 from ..runtime.steps import (make_train_step, reference_layouts,
                              reference_state, state_from_reference,
                              train_state)
@@ -112,11 +120,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    world = args.data_par * args.model_par
-    if args.pods > 1 and world > 1:
-        ap.error(f"--pods {args.pods} with --data-par {args.data_par} "
-                 f"--model-par {args.model_par}: the (pod, data, model) mesh "
-                 "is not ported (ROADMAP queue 1, item 12c)")
+    world = ranks_of(args)
     if args.pods > 1 and args.compress_grads:
         ap.error(f"--compress-grads with --pods {args.pods}: the pipelined "
                  "step takes no gradient compression, as the reference's "
@@ -125,9 +129,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "12b)")
     if world > 1 and torch.device(args.device).type == "cuda" \
             and not in_rank() and world > torch.cuda.device_count():
-        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: "
-                 f"{world} ranks need {world} cards, one a rank; this "
-                 f"machine has {torch.cuda.device_count()}")
+        ap.error(f"{mesh_name(args)}: {world} ranks need {world} cards, one "
+                 f"a rank; this machine has {torch.cuda.device_count()}")
     if args.pods <= 1 and args.microbatches is not None:
         ap.error(f"--microbatches {args.microbatches} without --pods > 1: "
                  "microbatches are the pod pipeline's (runtime/pipeline.py, "
@@ -139,6 +142,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.pods > 1 and args.microbatches is None:
         args.microbatches = 4
     return args
+
+
+def ranks_of(args) -> int:
+    """The ranks a command of ``--pods``/``--data-par``/``--model-par``
+    runs in: pods x data x model when the data and model axes are on,
+    else 1 (one process, the pods' stages on the cards in turn)."""
+    axes = args.data_par * args.model_par
+    return args.pods * axes if axes > 1 else 1
+
+
+def mesh_name(args) -> str:
+    """The launcher's words for the ranks' mesh."""
+    axes = f"data {args.data_par}, model {args.model_par}"
+    return f"(pod {args.pods}, {axes})" if args.pods > 1 else f"({axes})"
 
 
 def set_numerics() -> None:
@@ -159,10 +176,12 @@ def setup(args: argparse.Namespace):
     draws) placed on the stages, the pipelined step, and ``pipe`` =
     (PipelineConfig, mesh), else None.  In a rank of ``--data-par`` x
     ``--model-par`` the same on the ranks' mesh: this rank's card (or
-    the CPU), the weights' shards, the sharded step."""
+    the CPU), the weights' shards, the sharded step; with ``--pods`` on
+    the ``(pod, data, model)`` mesh, this rank's pod's stage."""
     mesh = None
     if args.data_par * args.model_par > 1 or in_rank():
-        mesh = make_host_mesh(1, args.data_par, args.model_par, args.device)
+        mesh = make_host_mesh(args.pods, args.data_par, args.model_par,
+                              args.device)
         dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
             if mesh.device_type == "cuda" else torch.device("cpu")
     else:
@@ -186,9 +205,12 @@ def setup(args: argparse.Namespace):
                     make_train_step(cfg, opt, comp), data, None)
     pcfg, mesh = plan_pipeline(cfg, model, args.pods, args.microbatches,
                                seq=args.seq, batch=args.batch,
-                               auto_partition=args.auto_partition, train=True)
-    return (cfg, train_state(model), make_pipeline_train_step(
-        cfg, pcfg, opt, mesh), data, (pcfg, mesh))
+                               auto_partition=args.auto_partition, train=True,
+                               mesh=mesh)
+    with use_mesh_context(stage_context(mesh)):
+        state = train_state(model)
+    return (cfg, state, make_pipeline_train_step(cfg, pcfg, opt, mesh), data,
+            (pcfg, mesh))
 
 
 def main(argv=None) -> dict:
@@ -198,7 +220,7 @@ def main(argv=None) -> dict:
     ranks, each this command, and exits with their code (0 → {"arch",
     "ranks"})."""
     args = parse_args(argv)
-    world = args.data_par * args.model_par
+    world = ranks_of(args)
     if world > 1 and not in_rank():
         cmd = [sys.executable, "-m", "repro_torch.launch.train",
                *(sys.argv[1:] if argv is None else argv)]
@@ -217,8 +239,9 @@ def main(argv=None) -> dict:
     start = 0
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
-        layouts = None if ranks is None else reference_layouts(
-            cfg, MeshContext(ranks), CompressionConfig(
+        # the pod mesh's ranks read whole leaves and keep their stage's
+        layouts = None if ranks is None or pcfg is not None else \
+            reference_layouts(cfg, MeshContext(ranks), CompressionConfig(
                 enabled=args.compress_grads))
         restored, manifest = mgr.restore(layouts)
         if restored is not None:

@@ -170,6 +170,9 @@ class LM(nn.Module):
         self.final_norm = Leaves(tree["final_norm"])
         for name in ("lm_head", "shared", "enc_final_norm"):
             setattr(self, name, Leaves(tree[name]) if name in tree else None)
+        # the ranks' pod mesh, once ``runtime.pipeline.place_stages`` has
+        # kept one stage of it here
+        self.pod_mesh = None
 
     @property
     def device(self) -> torch.device:

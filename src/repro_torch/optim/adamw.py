@@ -130,12 +130,16 @@ def _reference_ndim(name: str, p: torch.Tensor) -> int:
 @torch.no_grad()
 def apply_gradients(params: Mapping[str, torch.Tensor],
                     grads: Mapping[str, torch.Tensor], state: dict,
-                    cfg: OptConfig) -> tuple[dict, dict]:
+                    cfg: OptConfig, gnorm: torch.Tensor | None = None
+                    ) -> tuple[dict, dict]:
     """One AdamW step: ``params`` and ``state``'s moments updated in
     place → (the state with its new count, metrics ``{"grad_norm",
-    "lr"}``, fp32 device tensors)."""
+    "lr"}``, fp32 device tensors).  ``gnorm`` is the gradient's global
+    norm where the caller knows more of it than ``grads`` (a pipeline
+    rank's stage): ``global_norm(grads)`` by default."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0) \
         if cfg.clip_norm > 0 else 1.0
     lr = cfg.lr_at(count)

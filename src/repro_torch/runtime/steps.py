@@ -38,18 +38,19 @@ import torch
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from ..launch.mesh import is_pod_mesh, stage_mesh
 from ..models import lm
 from ..models.common import (chunked_cross_entropy, param_placements,
                              param_shapes, param_specs)
 from ..optim import (CompressionConfig, OptConfig, apply_gradients,
                      compress_gradients, init_error_state, init_opt_state)
 from ..optim.adamw import reference_leaf
-from ..sharding.api import (Layout, Replicate, Shard, full, get_context,
-                            is_dtensor, on_shards, shard_start,
-                            to_placements, use_mesh_context, whole_along,
+from ..sharding.api import (Layout, MeshContext, Replicate, Shard, full,
+                            get_context, greedy_tokens, is_dtensor,
+                            split_batch, to_placements, use_mesh_context,
                             zero1_spec)
-from .pipeline import (PipelineConfig, place_stages, repack_params,
-                       unpack_params)
+from .pipeline import (PipelineConfig, gather_named, place_stages,
+                       repack_params, unpack_params)
 
 
 def loss_fn(cfg, model: lm.LM, batch: dict):
@@ -152,17 +153,6 @@ def make_train_step(cfg, opt: OptConfig,
     return train_step
 
 
-def split_batch(ctx, b: dict) -> dict:
-    """Each tensor of ``b``, whole on every rank, split over ``data``
-    along its leading (batch) dim under ``ctx``; ``b`` itself without a
-    mesh."""
-    if ctx is None:
-        return b
-    return {k: distribute_tensor(v, ctx.mesh, ctx.placements(
-        ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)),
-        src_data_rank=None) for k, v in b.items()}
-
-
 def _scope(ctx):
     """``_mesh_scope(ctx)``, or nothing without a mesh."""
     return contextlib.nullcontext() if ctx is None else _mesh_scope(ctx)
@@ -212,42 +202,6 @@ def make_decode_step(cfg, with_logits: bool = False):
 def _greedy(logits, cache, with_logits: bool):
     tok = full(greedy_tokens(logits))
     return (tok, cache, full(logits)) if with_logits else (tok, cache)
-
-
-def greedy_tokens(logits):
-    """The argmax of the last dim as int32.  Of a DTensor on each rank's
-    shards: where a mesh dim splits the vocabulary, each rank's best of
-    its slice and the slices' best, the first among equal maxima as
-    ``argmax`` takes it (an all-gather of (B, 1) values and indices over
-    that dim, not of the logits)."""
-    if not is_dtensor(logits):
-        return logits.argmax(dim=-1).to(torch.int32)
-    import torch.distributed as dist
-    last = logits.ndim - 1
-    lp = whole_along(logits)
-    split = [md for md, p in enumerate(lp) if p == Shard(last)]
-    out = tuple(Replicate() if p == Shard(last) else p for p in lp)
-    start = shard_start(logits, last)
-    group = logits.device_mesh.get_group(split[0]) if split else None
-
-    def local(lg):
-        best, idx = lg.max(dim=-1)
-        idx = (idx + start).to(torch.int32)
-        if group is None:
-            return idx
-        n = dist.get_world_size(group)
-        # all_gather_single is all_gather_into_tensor's newer name
-        gather = getattr(dist, "all_gather_single",
-                         dist.all_gather_into_tensor)
-        every = []
-        for t in (best, idx):
-            dst = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
-                              device=t.device)
-            gather(dst, t.contiguous(), group=group)
-            every.append(dst.view(n, *t.shape))
-        pick = every[0].argmax(dim=0, keepdim=True)
-        return every[1].gather(0, pick)[0]
-    return on_shards(local, out, (logits,), (lp,))
 
 
 def init_train_state(cfg, generator: torch.Generator,
@@ -327,14 +281,21 @@ def reference_state(state: dict, pcfg: PipelineConfig | None = None,
     (``pcfg``) has its layers, and their moments, in the reference's
     pipeline layout (K, l_max, ...), zero pads included.  Under a mesh
     every rank gathers; only a rank that ``keep``s the tree (the one
-    that writes it) copies it to the host, the others get None."""
+    that writes it) copies it to the host, the others get None.  On the
+    ranks' pod mesh each stage's leaves come from their pod, and rank 0
+    keeps them."""
+    model = state["model"]
+    pods = model.pod_mesh
+
     def tree_of(named):
+        if pods is not None:
+            named = gather_named(model.cfg, pcfg, pods, named, keep)
         tree = lm.reference_tree(named, keep)
         if pcfg is None or not keep:
             return tree
         return _relaid(tree, lambda t: repack_params(
             t, pcfg, next(_leaves(t)).shape[0]))
-    tree = {"params": tree_of(dict(state["model"].named_parameters())),
+    tree = {"params": tree_of(dict(model.named_parameters())),
             "opt": {"m": tree_of(state["opt"]["m"]),
                     "v": tree_of(state["opt"]["v"]),
                     "count": state["opt"]["count"]},
@@ -358,7 +319,9 @@ def state_from_reference(cfg, tree: dict, device=None,
     """The inverse of ``reference_state``: a reference-layout state (a
     checkpoint's, of either package) as a port state on ``device``, its
     model trainable; a pipelined one (``pcfg``, its layers in the
-    reference's pipeline layout) with its stages placed on ``mesh``.
+    reference's pipeline layout) with its stages placed on ``mesh``; on
+    the ranks' pod mesh each rank keeps its stage and the pod-replicated
+    leaves, the moments in ZeRO-1's placements on its pod's sub-mesh.
     Under a mesh (``sharding.api.use_mesh_context``) every rank keeps
     its shards: the parameters in their placements, the moments and the
     error feedback in ZeRO-1's; leaves already placed there (a
@@ -378,6 +341,20 @@ def state_from_reference(cfg, tree: dict, device=None,
              "step": torch.as_tensor(tree["step"]).to(dev)}
     if "err" in tree:
         state["err"] = lm.named_from_reference(cfg, named(tree["err"]), dev)
+    if pcfg is not None and is_pod_mesh(mesh):
+        place_stages(cfg, model, pcfg, mesh)
+        sub = stage_mesh(mesh)
+        z1 = zero1_placements(cfg, MeshContext(sub))
+        own = dict(model.named_parameters())
+        for part in (state["opt"]["m"], state["opt"]["v"],
+                     state.get("err", {})):
+            for n in list(part):
+                if n in own:
+                    part[n] = distribute_tensor(part[n], sub, z1[n],
+                                                src_data_rank=None)
+                else:
+                    del part[n]
+        return state
     z1 = _placed(model)
     if z1 is not None:
         mesh = get_context().mesh

@@ -32,7 +32,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 # logical axis -> preferred mesh axis (None = replicate)
 RULES: dict[str, str | None] = {
@@ -439,3 +441,49 @@ def replica_rank(t) -> bool:
     coord = t.device_mesh.get_coordinate()
     return all(c == 0 for c, p in zip(coord, t.placements)
                if not isinstance(p, (Shard, Partial)))
+
+
+def split_batch(ctx, b: dict) -> dict:
+    """Each tensor of ``b``, whole on every rank, split over ``data``
+    along its leading (batch) dim under ``ctx``; ``b`` itself without a
+    mesh."""
+    if ctx is None:
+        return b
+    return {k: distribute_tensor(v, ctx.mesh, ctx.placements(
+        ("batch",) + (None,) * (v.ndim - 1), tuple(v.shape)),
+        src_data_rank=None) for k, v in b.items()}
+
+
+def greedy_tokens(logits):
+    """The argmax of the last dim as int32.  Of a DTensor on each rank's
+    shards: where a mesh dim splits the vocabulary, each rank's best of
+    its slice and the slices' best, the first among equal maxima as
+    ``argmax`` takes it (an all-gather of (B, 1) values and indices over
+    that dim, not of the logits)."""
+    if not is_dtensor(logits):
+        return logits.argmax(dim=-1).to(torch.int32)
+    last = logits.ndim - 1
+    lp = whole_along(logits)
+    split = [md for md, p in enumerate(lp) if p == Shard(last)]
+    out = tuple(Replicate() if p == Shard(last) else p for p in lp)
+    start = shard_start(logits, last)
+    group = logits.device_mesh.get_group(split[0]) if split else None
+
+    def local(lg):
+        best, idx = lg.max(dim=-1)
+        idx = (idx + start).to(torch.int32)
+        if group is None:
+            return idx
+        n = dist.get_world_size(group)
+        # all_gather_single is all_gather_into_tensor's newer name
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        every = []
+        for t in (best, idx):
+            dst = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            gather(dst, t.contiguous(), group=group)
+            every.append(dst.view(n, *t.shape))
+        pick = every[0].argmax(dim=0, keepdim=True)
+        return every[1].gather(0, pick)[0]
+    return on_shards(local, out, (logits,), (lp,))

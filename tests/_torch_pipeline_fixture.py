@@ -7,31 +7,68 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def run_reference(mode: str, out_dir: pathlib.Path, *extra: str) -> dict:
+def _env() -> dict:
+    """The reference's environment: 8 forced host devices, and one hash
+    seed, so that every run draws the same weights (its ``InitBuilder``
+    hashes each leaf's path)."""
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                PYTHONHASHSEED="0")
+
+
+def run_reference(mode: str, out_dir: pathlib.Path, *extra: str,
+                  inputs=None, then=None, parts: int = 1) -> dict:
     """→ {case: tree} of the reference's ``mode`` run ("train" or
-    "serve"), each leaf a numpy array."""
-    path = out_dir / f"{mode}.npz"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    cp = subprocess.run(
-        [sys.executable, str(ROOT / "tests" / "_torch_pipeline_ref.py"), mode,
-         str(path), *extra], env=env, capture_output=True, text=True,
-        timeout=600)
-    assert cp.returncode == 0, cp.stdout + "\n" + cp.stderr
+    "serve"), each leaf a numpy array, in ``parts`` processes that share
+    its cases out (every ``parts``-th a process).  With ``inputs`` each
+    process first writes its cases' weights and batches to
+    ``inputs(i)``, and ``then()`` is called as soon as all are in (while
+    the reference compiles its steps)."""
+    procs, logs = [], []
+    try:
+        for i in range(parts):
+            env = dict(_env(), REF_PART=f"{i}/{parts}")
+            if inputs is not None:
+                env["REF_INPUTS"] = str(inputs(i))
+            logs.append(open(out_dir / f"{mode}.{i}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "tests" /
+                                     "_torch_pipeline_ref.py"),
+                 mode, str(out_dir / f"{mode}.{i}.npz"), *extra], env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        if inputs is not None:
+            def waiting():
+                return [i for i in range(parts) if not inputs(i).exists()]
+            while waiting() and all(p.poll() is None for p in procs):
+                time.sleep(0.1)
+            if not waiting():
+                then()
+        for proc, log in zip(procs, logs):
+            code = proc.wait(timeout=600)
+            log.seek(0)
+            assert code == 0, log.read()
+    finally:
+        for proc, log in zip(procs, logs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     tree: dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            *parents, leaf = key.split("/")
-            node = tree
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[key]
+    for i in range(parts):
+        with np.load(out_dir / f"{mode}.{i}.npz") as z:
+            for key in z.files:
+                *parents, leaf = key.split("/")
+                node = tree
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = z[key]
     return tree
 
 
@@ -87,12 +124,34 @@ def gradients(m_tree, grad_norm, opt):
             for p, v in leaves(m_tree)}
 
 
+def assert_matches_reference(metrics: dict, m_tree: dict, ref: dict,
+                             opt) -> None:
+    """A pipelined train step's metrics (floats) and first moment (in the
+    reference's pipeline layout) against the reference's step: the CE
+    within ``CE_TOL``, the gradient norm within 1e-4 relative, every
+    gradient leaf (pad layers included) within ``GRAD_FRAC`` of its
+    largest magnitude."""
+    ce, rce = float(metrics["ce"]), float(ref["metrics"]["ce"])
+    assert abs(ce - rce) <= CE_TOL, (ce, rce)
+    gn, rgn = float(metrics["grad_norm"]), float(ref["metrics"]["grad_norm"])
+    assert abs(gn - rgn) <= 1e-4 * rgn, (gn, rgn)
+    got = gradients(m_tree, gn, opt)
+    want = gradients(ref["m"], rgn, opt)
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        assert got[path].shape == w.shape, path
+        big = np.abs(w).max()
+        if big == 0:
+            assert not got[path].any(), path
+        else:
+            err = np.abs(got[path] - w).max()
+            assert err <= GRAD_FRAC * big, (path, err, big)
+
+
 def check_train_case(ref, arch, depth, cuts):
-    """One pipelined train step of the port against the reference's: the
-    CE within ``CE_TOL``, every gradient leaf in the reference's pipeline
-    layout (pad layers included) within ``GRAD_FRAC`` of its largest
-    magnitude, the gradient norm within 1e-4 relative; and the CE that
-    of the port's unpipelined loss (the MoE's without its aux term)."""
+    """One pipelined train step of the port against the reference's
+    (``assert_matches_reference``), and its CE that of the port's
+    unpipelined loss (the MoE's without its aux term)."""
     import torch
     from repro_torch.optim import OptConfig
     from repro_torch.runtime import steps
@@ -107,20 +166,8 @@ def check_train_case(ref, arch, depth, cuts):
     state, metrics = make_pipeline_train_step(cfg, pcfg, opt, mesh)(
         steps.train_state(model), batch)
     ce = metrics["ce"].item()
-    rce = float(ref["metrics"]["ce"])
-    assert abs(ce - rce) <= CE_TOL, (ce, rce)
     assert abs(ce - plain_ce) <= CE_TOL, (ce, plain_ce)
     assert metrics["loss"].item() == ce
-    gn, rgn = metrics["grad_norm"].item(), float(ref["metrics"]["grad_norm"])
-    assert abs(gn - rgn) <= 1e-4 * rgn, (gn, rgn)
-    got = gradients(steps.reference_state(state, pcfg)["opt"]["m"], gn, opt)
-    want = gradients(ref["m"], rgn, opt)
-    assert sorted(got) == sorted(want)
-    for path, w in want.items():
-        assert got[path].shape == w.shape, path
-        big = np.abs(w).max()
-        if big == 0:
-            assert not got[path].any(), path
-        else:
-            err = np.abs(got[path] - w).max()
-            assert err <= GRAD_FRAC * big, (path, err, big)
+    assert_matches_reference({k: v.item() for k, v in metrics.items()},
+                             steps.reference_state(state, pcfg)["opt"]["m"],
+                             ref, opt)

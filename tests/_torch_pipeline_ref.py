@@ -15,7 +15,14 @@ that way; ROADMAP queue 3).  Nothing of the reference changes here.
 
 Each case's weights (``lm.build_params`` from ``PRNGKey(0)``, fp32), its
 batch and the reference's results go into one npz, keys joined by
-``/``:
+``/``.  The reference's ``InitBuilder`` folds ``hash(path)`` into the key,
+and Python salts ``str`` hashes per process, so the weights are those of
+the process's ``PYTHONHASHSEED`` (``_torch_pipeline_fixture`` fixes it).
+With ``REF_INPUTS`` set in the environment, the run first writes just
+its cases' ``<case>/params/...`` and ``<case>/batch/...`` (or
+``<case>/inputs/...``) there, for the port to start from while the
+reference compiles and runs its steps.  With ``REF_PART=i/n`` the run
+takes every n-th of its cases, from the i-th.
   train: for the cases of one kind of cut, ``<case>/params/...`` (the
          plain layout), ``<case>/batch/...``, ``<case>/metrics/...`` of
          one pipelined train step and ``<case>/m/...``, its first AdamW
@@ -27,6 +34,7 @@ batch and the reference's results go into one npz, keys joined by
          tokens and cache and those of two decode steps
          (``prefill/...``, ``decode0/...``, ``decode1/...``).
 """
+import os
 import sys
 
 import jax
@@ -89,8 +97,13 @@ def put(out, prefix, tree):
         out[prefix] = np.asarray(tree)
 
 
+def part(cases):
+    i, n = map(int, os.environ.get("REF_PART", "0/1").split("/"))
+    return cases[i::n]
+
+
 def train(out, kind, ckpt_dir):
-    for case, arch, depth, cuts in TRAIN_CASES:
+    for case, arch, depth, cuts in part(TRAIN_CASES):
         if not case.endswith(f"-{kind}"):
             continue
         cfg = config(arch, depth)
@@ -122,8 +135,22 @@ def train(out, kind, ckpt_dir):
         print(case, float(metrics["ce"]), flush=True)
 
 
+def inputs(out, mode, kind):
+    train_ = mode == "train"
+    cases = [c for c in TRAIN_CASES if c[0].endswith(f"-{kind}")] \
+        if train_ else SERVE_CASES
+    for case, arch, depth, _ in part(cases):
+        cfg = config(arch, depth)
+        put(out, f"{case}/params", lm.build_params(
+            cfg, InitBuilder(jax.random.PRNGKey(0), jnp.float32)))
+        batch = next(SyntheticLM(cfg, DataConfig(
+            batch=4, seq=32 if train_ else PROMPT)))
+        put(out, f"{case}/{'batch' if train_ else 'inputs'}",
+            {k: v for k, v in batch.items() if train_ or k != "targets"})
+
+
 def serve(out):
-    for case, arch, depth, cuts in SERVE_CASES:
+    for case, arch, depth, cuts in part(SERVE_CASES):
         cfg = config(arch, depth)
         params = lm.build_params(cfg, InitBuilder(jax.random.PRNGKey(0),
                                                   jnp.float32))
@@ -155,6 +182,12 @@ if __name__ == "__main__":
     MESH = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 3)
     result: dict = {}
+    if os.environ.get("REF_INPUTS"):
+        drawn: dict = {}
+        inputs(drawn, mode, sys.argv[3] if len(sys.argv) > 3 else "")
+        np.savez(os.environ["REF_INPUTS"] + ".tmp.npz", **drawn)
+        os.replace(os.environ["REF_INPUTS"] + ".tmp.npz",
+                   os.environ["REF_INPUTS"])
     if mode == "train":
         train(result, sys.argv[3], sys.argv[4] if len(sys.argv) > 4 else None)
     else:

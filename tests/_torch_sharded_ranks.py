@@ -31,7 +31,26 @@ the same serve in this process without a mesh.  A case with ``"kind":
 "dryrun"`` ({"case", "arch", "mesh", "shape": [kind, seq, batch],
 "accum"}) runs ``launch.dryrun.measure`` on real, zero-filled tensors:
 ``<case>/flops``, ``<case>/peak`` and ``<case>/coll/<kind>/{count,bytes}``
-of rank 0.
+of rank 0; with "pcfg": [stages, microbatches, cuts] on the ``(pod,
+data, model)`` mesh "mesh", its pipelined step, its collectives split
+``<case>/pod/<kind>/<crossing|within>/{count,bytes}``.
+
+The pod mesh's cases run on ``launch.mesh.pod_mesh`` ("mesh": [pods,
+data, model]; a mesh of fewer ranks than the group's takes its first
+ones, and the others sit the case out).  ``"kind": "pod-train"``
+({"case", "arch", "depth", "cuts", "mesh", "weights": a reference npz
+of ``_torch_pipeline_ref.py``'s train mode}) runs one pipelined train
+step (2 microbatches) of the case's weights and batch:
+``<case>/metrics/...`` and ``<case>/m/...``, the first moment gathered
+to rank 0 in the reference's pipeline layout.  ``"kind": "pod-serve"``
+({"case", "arch", "depth", "cuts", "mesh", "weights": its serve mode's
+npz, and "from": the npz's case, if not "case"}) runs the pipelined
+prefill (a cache of 18) and two greedy decode steps:
+``<case>/<step>/tokens`` and ``<case>/<step>/cache/...`` (the
+reference's layout, gathered to rank 0) for ``prefill``, ``decode0``
+and ``decode1``, and ``<case>/placements/<leaf>`` of rank 0's stage
+cache.  ``"kind": "cli-serve"`` ({"case", "argv"}) runs
+``launch.serve.main(argv)`` in every rank: ``<case>/tokens`` of rank 0.
 """
 import copy
 import json
@@ -175,18 +194,114 @@ def serve(case, out):
 def dryrun(case, out):
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.runtime.pipeline import PipelineConfig
     c = case["case"]
     kind, seq, batch = case["shape"]
     cfg = configs.reduced(case["arch"])
-    mesh = make_host_mesh(1, *case["mesh"], "cpu")
+    pcfg = None
+    if case.get("pcfg"):
+        n, mb, cuts = case["pcfg"]
+        pcfg = PipelineConfig(n, mb, tuple(cuts))
+        mesh = pod_mesh(case["mesh"])
+    else:
+        mesh = make_host_mesh(1, *case["mesh"], "cpu")
     got = D.measure(cfg, ShapeSpec(c, seq, batch, kind), mesh, fake=False,
-                    grad_accum=case["accum"])
+                    grad_accum=case["accum"], pcfg=pcfg)
     if dist.get_rank() == 0:
         out[f"{c}/flops"] = np.array(got["flops"])
         out[f"{c}/peak"] = np.array(got["memory"]["peak"])
         for k, d in got["collectives"].by_kind().items():
             out[f"{c}/coll/{k}/count"] = np.array(d["count"])
             out[f"{c}/coll/{k}/bytes"] = np.array(d["bytes"])
+        for k, d in got["collectives"].by_kind_and_pod().items():
+            out[f"{c}/pod/{k}/count"] = np.array(d["count"])
+            out[f"{c}/pod/{k}/bytes"] = np.array(d["bytes"])
+
+
+MESHES: dict = {}
+
+
+def pod_mesh(shape):
+    """The group's ``(pod, data, model)`` mesh of ``shape``, made once; on
+    fewer ranks than the group's, its first ones (None on the others)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import mesh as M
+    shape = tuple(shape)
+    if shape not in MESHES:
+        n = int(np.prod(shape))
+        if n == dist.get_world_size():
+            MESHES[shape] = M.pod_mesh(*shape, "cpu")
+        else:
+            mesh = DeviceMesh("cpu", torch.arange(n).view(*shape),
+                              mesh_dim_names=("pod", "data", "model"))
+            MESHES[shape] = mesh if mesh.get_coordinate() is not None \
+                else None
+    return MESHES[shape]
+
+
+def pod_case(case, key):
+    from repro_torch.runtime.pipeline import PipelineConfig
+    cfg = configs.reduced(case["arch"])
+    if case["depth"] is not None:
+        cfg = cfg.replace(n_layers=case["depth"])
+    mb = 2 if case["kind"] == "pod-train" else 1
+    pcfg = PipelineConfig.even(cfg.n_layers, 2, mb) if case["cuts"] is None \
+        else PipelineConfig(2, mb, tuple(case["cuts"]))
+    src = case.get("from", case["case"])
+    with np.load(case["weights"]) as z:
+        model = lm.from_reference(cfg, nested(z, f"{src}/params"), "cpu")
+        data = {k: torch.from_numpy(np.array(v)) for k, v in
+                nested(z, f"{src}/{key}").items()}
+    return cfg, pcfg, model, data
+
+
+def pod_train(case, out):
+    from repro_torch.runtime import pipeline as PL
+    mesh = pod_mesh(case["mesh"])
+    if mesh is None:
+        return
+    c = case["case"]
+    cfg, pcfg, model, batch = pod_case(case, "batch")
+    PL.place_stages(cfg, model, pcfg, mesh)
+    with use_mesh_context(PL.stage_context(mesh)):
+        state = steps.train_state(model)
+    state, m = PL.make_pipeline_train_step(cfg, pcfg, OptConfig(lr=LR),
+                                           mesh)(state, batch)
+    ref = steps.reference_state(state, pcfg, keep=dist.get_rank() == 0)
+    if ref is not None:
+        put(out, f"{c}/metrics", {k: v.item() for k, v in m.items()})
+        put(out, f"{c}/m", ref["opt"]["m"])
+
+
+def pod_serve(case, out):
+    from repro_torch.runtime import pipeline as PL
+    mesh = pod_mesh(case["mesh"])
+    if mesh is None:
+        return
+    c = case["case"]
+    cfg, pcfg, model, inputs = pod_case(case, "inputs")
+    PL.place_stages(cfg, model, pcfg, mesh)
+    prefill = PL.make_pipeline_prefill_step(cfg, pcfg, mesh, cache_len=18)
+    decode = PL.make_pipeline_decode_step(cfg, pcfg, mesh)
+    lead = dist.get_rank() == 0
+    tok, cache = prefill(model, inputs)
+    if lead:
+        for k, t in cache["stage"].items():
+            out[f"{c}/placements/{k}"] = np.array(str(t.placements))
+    for step in ("prefill", "decode0", "decode1"):
+        if step != "prefill":
+            tok, cache = decode(model, tok, cache)
+        got = PL.reference_cache(cfg, pcfg, cache, mesh, keep=lead)
+        if lead:
+            out[f"{c}/{step}/tokens"] = tok.numpy()
+            put(out, f"{c}/{step}/cache", {k: v for k, v in got.items()})
+
+
+def cli_serve(case, out):
+    from repro_torch.launch import serve as SV
+    res = SV.main(case["argv"])
+    if dist.get_rank() == 0:
+        out[f"{case['case']}/tokens"] = res["tokens"].numpy()
 
 
 def main(cases_path, out_path):
@@ -196,8 +311,9 @@ def main(cases_path, out_path):
     out: dict = {}
     join("cpu")
     for case in cases:
-        {"serve": serve, "dryrun": dryrun}.get(case.get("kind"), run)(
-            case, out)
+        {"serve": serve, "dryrun": dryrun, "pod-train": pod_train,
+         "pod-serve": pod_serve, "cli-serve": cli_serve}.get(
+            case.get("kind"), run)(case, out)
     if dist.get_rank() == 0:
         np.savez(out_path, **out)
     dist.barrier()

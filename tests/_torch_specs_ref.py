@@ -1,7 +1,7 @@
 """The JAX reference's dry-run input specs of every single-pod cell, for
 ``tests/test_torch_specs.py``.
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=256 JAX_PLATFORMS=cpu \\
+    XLA_FLAGS=--xla_force_host_platform_device_count=512 JAX_PLATFORMS=cpu \\
         python tests/_torch_specs_ref.py OUT.json
 
 On the reference's 16 x 16 ``(data, model)`` mesh (``AxisType.Auto``
@@ -10,7 +10,12 @@ axes, under ``use_mesh_context``) each arch × shape cell's
 ``launch/specs.py:input_specs``: {"arch/shape": {"supported", "reason",
 "leaves": {path: [shape, dtype, spec]}}}, the path's keys joined by
 ``/``, the spec one entry a tensor dim (None, a mesh axis, or a list of
-them).  Nothing of the reference changes here.
+them).  Under "pipelined/arch/shape", for one arch of each family,
+the same of the pipelined specs (``input_specs(..., pcfg)``) on the
+multi-pod 2 x 16 x 16 ``(pod, data, model)`` mesh, ``pcfg`` the
+reference dry run's (``PipelineConfig.even(n_layers, 2, mb)``, 8
+microbatches for training, 1 for serving).  Nothing of the reference
+changes here.
 """
 import json
 import sys
@@ -19,7 +24,11 @@ import jax
 
 import repro.configs as configs
 from repro.launch import specs as SP
+from repro.runtime.pipeline import PipelineConfig
 from repro.sharding.api import use_mesh_context
+
+PIPELINED = ("qwen3-1.7b", "phi-3-vision-4.2b", "qwen3-moe-30b-a3b",
+             "falcon-mamba-7b", "zamba2-7b", "whisper-small")
 
 
 def _spec(s, ndim):
@@ -38,21 +47,36 @@ def _leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+def _record(cfg, shape, ctx, pcfg=None):
+    ok, why = SP.cell_supported(cfg, shape)
+    rec = {"supported": ok, "reason": why, "leaves": {}}
+    if ok:
+        for p, s in _leaves(SP.input_specs(cfg, shape, ctx, pcfg)):
+            rec["leaves"][p] = [list(s.shape), str(s.dtype),
+                                _spec(s, len(s.shape))]
+    return rec
+
+
 def main(path):
-    mesh = jax.make_mesh((16, 16), ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    auto = jax.sharding.AxisType.Auto
+    devices = jax.devices()
+    mesh = jax.make_mesh((16, 16), ("data", "model"), axis_types=(auto,) * 2,
+                         devices=devices[:256])
     out = {}
     with use_mesh_context(mesh) as ctx:
         for arch in configs.ARCH_NAMES:
             cfg = configs.get(arch)
             for shape in SP.SHAPES:
-                ok, why = SP.cell_supported(cfg, shape)
-                rec = {"supported": ok, "reason": why, "leaves": {}}
-                if ok:
-                    for p, s in _leaves(SP.input_specs(cfg, shape, ctx)):
-                        rec["leaves"][p] = [list(s.shape), str(s.dtype),
-                                            _spec(s, len(s.shape))]
-                out[f"{arch}/{shape}"] = rec
+                out[f"{arch}/{shape}"] = _record(cfg, shape, ctx)
+    multi = jax.make_mesh((2, 16, 16), ("pod", "data", "model"),
+                          axis_types=(auto,) * 3)
+    with use_mesh_context(multi) as ctx:
+        for arch in PIPELINED:
+            cfg = configs.get(arch)
+            for shape in SP.SHAPES:
+                mb = 8 if SP.SHAPES[shape].kind == "train" else 1
+                out[f"pipelined/{arch}/{shape}"] = _record(
+                    cfg, shape, ctx, PipelineConfig.even(cfg.n_layers, 2, mb))
     with open(path, "w") as f:
         json.dump(out, f)
 

@@ -3,10 +3,13 @@
 Fake against real: for each family's reduced config, one train cell
 (seq 32, batch 4; the dense one with ``grad_accum=2``), one prefill cell
 (seq 32, batch 4) and one decode cell (a cache of 32, batch 4) at (data
-2, model 2).  ``measure`` runs each step once as rank 0 of a fake
-4-rank group inside ``FakeTensorMode`` in this process, and on real,
-zero-filled tensors in four gloo ranks (``_torch_sharded_ranks.py``,
-meanwhile); rank 0's collectives (count and bytes by kind), FLOPs
+2, model 2), and the dense config's three pipelined cells at (pod 2,
+data 1, model 2), cut after layer 1 (training over 2 microbatches).
+``measure`` runs each step once as rank 0 of a fake 4-rank group
+inside ``FakeTensorMode`` in this process, and on real, zero-filled
+tensors in four gloo ranks (``_torch_sharded_ranks.py``, meanwhile);
+rank 0's collectives (count and bytes by kind, and for the pipelined
+cells by kind and by crossing a pod or not), FLOPs
 (``FlopCounterMode``) and ``MemTracker`` peak must be equal, and no
 fake group may be left after each.
 
@@ -14,9 +17,11 @@ The CLI: ``--arch whisper-small --shape decode_32k --mesh single``
 writes a record with status ``ok`` on the full-size 16 x 16 mesh (256
 fake ranks); a rerun prints ``[cached]``; ``long_500k`` on a
 pure-attention arch is ``skipped`` with the reference's reason; ``--mesh
-multi`` and ``--mesh both`` exit 2 naming item 12c and record nothing;
-in a sweep a cell that runs past its time is recorded as failed and the
-sweep goes on.
+multi`` records the same cell on the 2 x 16 x 16 ``(pod, data, model)``
+mesh (512 fake ranks, pod 0's stage) with status ``ok`` and collectives
+crossing the pods, and ``--mesh both`` records both cells; in a sweep a
+cell that runs past its time is recorded as failed and the sweep goes
+on.
 """
 import json
 import os
@@ -40,23 +45,35 @@ FAMILIES = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
             "hybrid": "zamba2-7b", "encdec": "whisper-small"}
 KINDS = {"train": (32, 4), "prefill": (32, 4), "decode": (32, 4)}
 CASES = [f"{fam}-{kind}" for fam in FAMILIES for kind in KINDS]
+# the pipelined cells: (pod 2, data 1, model 2), cut after layer 1
+POD_MESH = (2, 1, 2)
+POD_CASES = [f"pod-{kind}" for kind in KINDS]
+
+
+def _pcfg(kind):
+    from repro_torch.runtime.pipeline import PipelineConfig
+    return PipelineConfig(2, 2 if kind == "train" else 1, (1,))
 
 
 def _accum(case: str) -> int:
     return 2 if case == "dense-train" else 1
 
 
-def _fake(arch, kind, accum) -> dict:
+def _fake(arch, kind, accum, pcfg=None) -> dict:
     seq, batch = KINDS[kind]
     with D.fake_group(4):
-        mesh = init_device_mesh("cpu", (2, 2),
-                                mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh("cpu", POD_MESH,
+                                mesh_dim_names=("pod", "data", "model")) \
+            if pcfg else init_device_mesh("cpu", (2, 2),
+                                          mesh_dim_names=("data", "model"))
         got = D.measure(configs.reduced(arch),
                         ShapeSpec(kind, seq, batch, kind), mesh,
-                        grad_accum=accum)
+                        grad_accum=accum, pcfg=pcfg)
+    summary = got["collectives"]
     return {"flops": got["flops"], "peak": got["memory"]["peak"],
             "coll": {k: {"count": d["count"], "bytes": d["bytes"]}
-                     for k, d in got["collectives"].by_kind().items()}}
+                     for k, d in summary.by_kind().items()},
+            "pod": summary.by_kind_and_pod()}
 
 
 @pytest.fixture(scope="module")
@@ -67,27 +84,44 @@ def runs(tmp_path_factory):
               "mesh": [2, 2], "shape": [kind, *KINDS[kind]],
               "accum": _accum(f"{fam}-{kind}")}
              for fam, arch in FAMILIES.items() for kind in KINDS]
+    cases += [{"case": f"pod-{kind}", "kind": "dryrun",
+               "arch": FAMILIES["dense"], "mesh": list(POD_MESH),
+               "shape": [kind, *KINDS[kind]], "accum": 1,
+               "pcfg": [2, _pcfg(kind).microbatches, [1]]} for kind in KINDS]
     with ThreadPoolExecutor(2) as pool:
         real = [pool.submit(run_ranks, cases[i::2], 4, tmp, f"dryrun{i}")
                 for i in range(2)]
         fake = {}
-        for case in CASES:
+        for case in CASES + POD_CASES:
             fam, kind = case.split("-")
-            fake[case] = _fake(FAMILIES[fam], kind, _accum(case))
+            pcfg = _pcfg(kind) if fam == "pod" else None
+            fake[case] = _fake(FAMILIES.get(fam, FAMILIES["dense"]), kind,
+                               1 if pcfg else _accum(case), pcfg)
             fake[case]["left"] = dist.is_initialized()
         return fake, {k: v for r in real for k, v in r.result().items()}
 
 
-@pytest.mark.parametrize("case", CASES)
+def _counted(tree: dict) -> dict:
+    return {k: {"count": int(d["count"]), "bytes": int(d["bytes"])}
+            for k, d in tree.items()}
+
+
+@pytest.mark.parametrize("case", CASES + POD_CASES)
 def test_fake_step_counts_what_the_real_one_does(runs, case):
     got, want = runs[0][case], runs[1][case]
     assert not got["left"]
     assert got["flops"] == int(want["flops"]) > 0
     assert got["peak"] == int(want["peak"]) > 0
-    assert got["coll"] == {k: {"count": int(d["count"]),
-                               "bytes": int(d["bytes"])}
-                           for k, d in want["coll"].items()}, case
+    assert got["coll"] == _counted(want["coll"]), case
     assert got["coll"], case
+    if case in POD_CASES:
+        pod = {f"{k}/{side}": d for k, sides in want["pod"].items()
+               for side, d in sides.items()}
+        assert got["pod"] == _counted(pod), case
+        # the hops cross the pods; the model axis's collectives do not
+        assert got["pod"]["collective-permute/crossing"]["count"] > 0, case
+        assert not any(k.startswith("collective-permute/within")
+                       for k in got["pod"]), case
 
 
 def _cli(*args, cwd):
@@ -124,27 +158,43 @@ def test_cli_records_a_cell_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("mesh", ["multi", "both"])
-def test_cli_multi_pod_mesh_is_item_12c(tmp_path, mesh):
-    cp = _cli("--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh",
-              mesh, "--out", str(tmp_path / "runs"), cwd=tmp_path)
-    assert cp.returncode == 2
-    assert "item 12c" in cp.stderr
-    assert not list((tmp_path / "runs").glob("*.json")) \
-        if (tmp_path / "runs").exists() else True
+def test_cli_multi_pod_mesh_records_ok(tmp_path, mesh):
+    out = tmp_path / "runs"
+    cp = _cli("--arch", "whisper-small", "--shape", "decode_32k", "--mesh",
+              mesh, "--out", str(out), cwd=tmp_path)
+    assert cp.returncode == 0, cp.stdout + cp.stderr
+    tags = {"multi": ["multi"], "both": ["multi", "single"]}[mesh]
+    assert sorted(p.name for p in out.glob("*.json")) \
+        == [f"whisper-small__decode_32k__{t}.json" for t in tags]
+    rec = json.loads((out / "whisper-small__decode_32k__multi.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec
+    assert (rec["mesh"], rec["n_chips"], rec["kind"]) == ("2x16x16", 512,
+                                                          "decode")
+    assert rec["memory"]["peak_mb"] > rec["memory"]["args_mb"] > 0
+    pod = rec["collectives_by_pod"]
+    assert pod["collective-permute/crossing"]["bytes"] > 0
+    assert rec["counted"]["wire_dcn_per_dev"] > 0
+    assert rec["counted"]["wire_ici_per_dev"] > 0
+    assert f"[ok     ] whisper-small__decode_32k__multi" in cp.stdout
 
 
 def test_run_cell_leaves_no_process_group(monkeypatch):
     """A cell that fails inside its fake group (here the step itself) is
-    recorded as failed, and the group is gone."""
+    recorded as failed, and the group is gone, on either mesh."""
+    worlds = []
+
     def boom(*a, **k):
-        assert dist.is_initialized() and dist.get_world_size() == D.WORLD
+        assert dist.is_initialized()
+        worlds.append(dist.get_world_size())
         raise RuntimeError("boom")
     monkeypatch.setattr(D, "measure", boom)
-    rec = D.run_cell("falcon-mamba-7b", "long_500k", False)
-    assert rec["status"] == "failed" and "boom" in rec["error"], rec
-    assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        D.run_cell("falcon-mamba-7b", "long_500k", True)
+    for multi in (False, True):
+        rec = D.run_cell("falcon-mamba-7b", "long_500k", multi)
+        assert rec["status"] == "failed" and "boom" in rec["error"], rec
+        assert rec["mesh"] == ("2x16x16" if multi else "16x16")
+        assert not dist.is_initialized()
+    assert worlds == [D.WORLD, D.MULTI_WORLD]
 
 
 def test_sweep_records_a_timed_out_cell_and_goes_on(tmp_path, monkeypatch):

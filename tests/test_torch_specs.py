@@ -12,7 +12,13 @@ moments (keyed by parameter name) gathered into the reference's
 leaves.  A moment whose reference leaf puts ``data`` on that ``layers``
 axis (ZeRO-1's first divisible dim, for a depth that divides 16) has no
 per-block counterpart; there each rank must hold the reference
-device's bytes of it (``runtime.steps.zero1_placements``' rule).
+device's bytes of it (``runtime.steps.zero1_placements``' rule).  The
+pipelined specs on the 2 x 16 x 16 ``(pod, data, model)`` mesh, for one
+arch of each family: the union over the two pods of each pod's stage
+(``input_specs(..., pcfg, pod)``), its blocks and cache leaves stacked
+in the reference's (K, l_max, ...) layout with ``pod`` on the stage
+dim, is the reference's pipelined ``input_specs``, the moments by the
+same rule.
 
 The copies: ``roofline.model_flops`` equal for every arch × shape,
 ``roofline_from`` the reference's terms with the H100's constants in
@@ -41,9 +47,10 @@ from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import report as R
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import specs as SP
-from repro_torch.models.common import named_leaves
+from repro_torch.models.common import LeafSpec, named_leaves
 from repro_torch.models.lm import STACKS
 from repro_torch.optim.adamw import reference_leaf
+from repro_torch.runtime.pipeline import n_attn_slots
 from repro_torch.sharding import api as S
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -58,7 +65,7 @@ def reference(tmp_path_factory):
          str(out)],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                  JAX_PLATFORMS="cpu",
-                 XLA_FLAGS="--xla_force_host_platform_device_count=256"),
+                 XLA_FLAGS="--xla_force_host_platform_device_count=512"),
         capture_output=True, text=True, timeout=300)
     assert cp.returncode == 0, cp.stderr
     return json.loads(out.read_text())
@@ -77,7 +84,7 @@ def _split(spec) -> int:
     n = 1
     for e in spec:
         for a in ([] if e is None else [e] if isinstance(e, str) else e):
-            n *= MESH[a]
+            n *= {**MESH, "pod": 2}[a]
     return n
 
 
@@ -85,11 +92,12 @@ def _dtype(t) -> str:
     return str(t).replace("torch.", "")
 
 
-def port_leaves(cfg, shape: str) -> dict:
+def port_leaves(cfg, shape: str, cell: dict | None = None) -> dict:
     """{reference path: (shape, dtype, spec, bytes a rank)} of the port's
-    ``input_specs``: stacked trees stacked, moments gathered by their
-    reference leaf."""
-    cell = SP.input_specs(cfg, shape, _ctx())
+    ``input_specs`` (or of ``cell``, a tree of them): stacked trees
+    stacked, moments gathered by their reference leaf."""
+    if cell is None:
+        cell = SP.input_specs(cfg, shape, _ctx())
     out: dict = {}
 
     def put(path, shp, dtype, spec, per_rank):
@@ -154,7 +162,8 @@ def test_cell_supported_matches_reference(reference):
             want = reference[f"{arch}/{shape}"]
             assert (ok, why) == (want["supported"], want["reason"]), \
                 (arch, shape)
-    assert len(reference) == 40
+    assert len([k for k in reference if not k.startswith("pipelined/")]) \
+        == 40
     assert SP.SHAPES == {k: SP.ShapeSpec(*v.__dict__.values())
                          for k, v in RS.SHAPES.items()}
 
@@ -178,6 +187,86 @@ def test_input_specs_match_reference(reference, arch):
                 assert per_rank == math.prod(shp) * 4 // _split(spec), \
                     (arch, shape, path)
             else:
+                assert gspec == spec, (arch, shape, path, gspec, spec)
+
+
+def _pod_ctx():
+    return S.MeshContext(SimpleNamespace(
+        axis_names=("pod", *MESH), devices=np.empty((2, 16, 16), object)))
+
+
+def pipelined_leaves(cfg, shape: str, pcfg) -> dict:
+    """``port_leaves`` of the union of the two pods' stages: each pod's
+    own blocks and cache leaves laid end to end, zero-padded to l_max a
+    pod, on a (K, l_max, ...) stack whose stage dim is ``pod``."""
+    _, counts, l_max = pcfg.layout(cfg.n_layers)
+    cells = [SP.input_specs(cfg, shape, _pod_ctx(), pcfg, pod=k)
+             for k in range(2)]
+    key = "dec_layers" if cfg.family == "encdec" else "layers"
+
+    def union(tree, other):
+        """pod 0's tree with the stack's blocks of pod 1 in its gaps, and
+        its stage cache stacked on a leading stage dim."""
+        out = {}
+        for name, v in tree.items():
+            if name == key:
+                out[name] = [a or b for a, b in zip(v, other[name])]
+            elif name == "stage":
+                out.update(stage_cache(v, other["stage"]))
+            elif isinstance(v, dict) and name not in ("m", "v"):
+                out[name] = union(v, other[name])
+            elif name in ("m", "v"):
+                out[name] = {**v, **other[name]}
+            else:
+                out[name] = v
+        return out
+
+    def stage_cache(a, b):
+        out = {}
+        for name, leaf in a.items():
+            rows = n_attn_slots(cfg, l_max) if name in ("ak", "av") \
+                else l_max
+            spec = ("pod", *(leaf.spec or (None,) * len(leaf.shape)))
+            out[name] = LeafSpec((2, rows, *leaf.shape[1:]), leaf.dtype,
+                                 spec)
+            assert b[name].spec == leaf.spec, name
+        return out
+    got = port_leaves(cfg, shape, union(*cells))
+    # the stacks: (K, l_max, ...) with the stage on ``pod``
+    for path, (shp, dtype, spec, per_rank) in list(got.items()):
+        parts = path.split("/")
+        if key in parts and shp[0] == cfg.n_layers:
+            got[path] = ([2, int(l_max), *shp[1:]], dtype,
+                         None if spec is None else ["pod", *spec],
+                         per_rank)
+    return got
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "phi-3-vision-4.2b",
+                                  "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                                  "zamba2-7b", "whisper-small"])
+def test_pipelined_specs_match_reference(reference, arch):
+    from repro_torch.runtime.pipeline import PipelineConfig
+    cfg = configs.get(arch)
+    for shape, sh in SP.SHAPES.items():
+        want = reference[f"pipelined/{arch}/{shape}"]
+        if not want["supported"]:
+            continue
+        pcfg = PipelineConfig.even(cfg.n_layers, 2,
+                                   8 if sh.kind == "train" else 1)
+        got = pipelined_leaves(cfg, shape, pcfg)
+        assert sorted(got) == sorted(want["leaves"]), (arch, shape)
+        for path, (shp, dtype, spec) in want["leaves"].items():
+            gshp, gdtype, gspec, per_rank = got[path]
+            assert (gshp, gdtype) == (shp, dtype), (arch, shape, path)
+            moment = path.split("/")[1:2] == ["opt"] and \
+                path.split("/")[2] in ("m", "v")
+            if moment and spec and spec[0] == "pod" and spec[1] is not None:
+                # ZeRO-1 on the reference's layers axis: a rank of each pod
+                # (l_max layers here) holds the reference device's bytes
+                assert per_rank == 2 * (math.prod(shp) * 4 // _split(spec)), \
+                    (arch, shape, path)
+            elif not moment or gspec is not None:
                 assert gspec == spec, (arch, shape, path, gspec, spec)
 
 

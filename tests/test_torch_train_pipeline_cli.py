@@ -4,8 +4,11 @@ the CPU: ``python -m repro_torch.launch.train --pods 2 --microbatches 2
 (its cuts and the planner's predictions, from the reference's own
 planner here), trains, and a run that crashes itself resumes from its
 pipelined checkpoint with the uninterrupted run's losses bit for bit;
-the data and model axes and gradient compression under ``--pods`` are
-refused.  ``launch.serve --pods`` serves the unpipelined tokens.
+with ``--data-par 2`` or ``--model-par 2`` the same command runs four
+gloo ranks on the ``(pod, data, model)`` mesh, rank 0 alone printing,
+its first loss the one-process run's; gradient compression under
+``--pods`` is refused.  ``launch.serve --pods`` serves the unpipelined
+tokens.
 """
 import os
 import pathlib
@@ -61,15 +64,25 @@ def test_pipelined_crash_restart_drill_is_bit_exact(tmp_path):
         == (tmp_path / "b" / last[-1] / "arrays.npz").read_bytes()
 
 
-@pytest.mark.parametrize("flags,reason", [
-    (["--data-par", "2"], "item 12c"),
-    (["--model-par", "2"], "item 12c"),
-    (["--compress-grads"], "--compress-grads with --pods 2"),
-])
-def test_pipeline_refuses_what_it_does_not_run(flags, reason):
-    cp = _train(*ARGS, *flags)
+@pytest.mark.parametrize("flags", [["--data-par", "2"],
+                                   ["--model-par", "2"]])
+def test_pipeline_runs_on_the_pod_mesh(flags):
+    short = ["--steps", "2", "--batch", "4"]
+    one = _train(*ARGS, *short)
+    ranks = _train(*ARGS, *short, *flags)
+    assert ranks.returncode == 0, ranks.stdout + ranks.stderr
+    assert ranks.stdout.count("[paretopipe] cuts=(1,)") == 1
+    assert ranks.stdout.count("[done] 2 steps") == 1
+    got, want = _losses(ranks.stdout), _losses(one.stdout)
+    assert sorted(got) == sorted(want) == [0, 1]
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * float(want[0])
+
+
+def test_pipeline_refuses_what_it_does_not_run():
+    cp = _train(*ARGS, "--compress-grads")
     assert cp.returncode == 2, cp.stdout + cp.stderr
-    assert reason in cp.stderr and "step" not in cp.stdout
+    assert "--compress-grads with --pods 2" in cp.stderr
+    assert "step" not in cp.stdout
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-7b"])
