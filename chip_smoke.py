@@ -7,9 +7,10 @@ Run from the repository root with no arguments:
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. setup   — print torch's version and the card (``nvidia-smi``), turn
-             TF32 off and cuDNN deterministic, build the three CUDA sources
-             of ``src/repro_torch/kernels/csrc`` with nvcc, in parallel;
+1. setup   — print torch's version and the card (``nvidia-smi``), read
+             each card's idle draw for phase 36, turn TF32 off and cuDNN
+             deterministic, build the three CUDA sources of
+             ``src/repro_torch/kernels/csrc`` with nvcc, in parallel;
 2. plan    — MobileNetV2 (224x224, 10 classes, batch 8) on the
              ``pi_chain4`` scenario with one codec per hop (int8, fp8,
              topk); the port's own ``solve`` picks the cuts;
@@ -292,7 +293,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 28. pipeline serve — the pod pipeline (``runtime.pipeline``; every
              stage on the one card) through ``launch.serve --pods``:
              qwen3-1.7b at 2 stages (the ParetoPipe cuts for serving,
-             (1,)) and 4 (even), zamba2-7b at 2 (cuts (9,)), batch 8,
+             priced for a card a stage, (17,)) and 4 (even), zamba2-7b
+             at 2 (cuts (41,)), batch 8,
              prompt 1024, 8 new tokens, each beside
              its unpipelined serve in the same run: the kernels' launches
              equal, every token ``torch.equal``, and every step's logits
@@ -307,9 +309,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              largest; no kernel launched.
 30. pipeline train — phase 25's run through ``launch.train --pods 2
              --microbatches 4 --auto-partition``, one warm-up and three
-             timed steps: the cuts must be (7,); step ms, tokens/s and
-             peak printed beside phase 25's; the warm-up loss within 1e-2
-             of phase 25's on the same batch.
+             timed steps: the cuts must be (16,), priced for a card a
+             stage; step ms, tokens/s and each card's peak printed beside
+             phase 25's, and beside the planner's predicted step (its
+             pick's latency and throughput, as a GPipe step of the same
+             batch); the warm-up loss within 1e-2 of phase 25's on the
+             same batch.
 31. sharded parity — the data and model axes (``sharding.api``:
              DTensor on a ``(data, model)`` mesh of NCCL ranks, one card
              a rank, spawned from this script by
@@ -396,9 +401,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              step; no kernel launched; (c) with two or more cards, phase
              30's run on the ranks at (2, 1, 2) or (2, 1, 1) through
              ``launch.train``'s ``setup`` (one warm-up and three timed
-             steps): the cuts (7,), the warm-up loss within 1e-2 of phase
-             25's, the median step ms, tokens/s and each card's peak
-             printed beside phases 25, 30 and 32.
+             steps): the cuts (16,), priced for D x M cards a stage, the
+             warm-up loss within 1e-2 of phase 25's, the median step ms,
+             tokens/s and each card's peak printed beside phases 25, 30
+             and 32 and the planner's predicted step;
+36. card — the card as the planner's device, run right after the
+             setup: each card's name, power limit, total memory and idle
+             draw (``nvidia-smi power.draw`` before the first kernel) and
+             the timed stage hop (a decode step's activation to the next
+             stage's card plus one launch there, host to done: on one
+             card the launch and sync alone, with two or more cuda:0 ->
+             cuda:1) printed beside ``core.devices.H100_SXM``'s
+             constants; fails if ``H100_SXM.mem_bytes`` passes a card's
+             total memory, if the hop between cards is more than 3x off
+             ``H100_SXM.stage_overhead_s`` or if one card's launch and
+             sync passes it.
 
 The kernel table's LM rows count the launches of every LM serving path
 (phases 7, 11, 15, 19 and 21, the pipelined serves of phase 28,
@@ -549,8 +566,8 @@ PIPE_SERVE = (("lm", LM_ARGS + PIPE_NEW, (["--pods", "2", "--auto-partition"],
                                           ["--pods", "4"])),
               ("hybrid", HYB_ARGS + PIPE_NEW,
                (["--pods", "2", "--auto-partition"],)))
-PIPE_SERVE_CUTS = {("lm", 2): (1,), ("lm", 4): (7, 14, 21),
-                   ("hybrid", 2): (9,)}
+PIPE_SERVE_CUTS = {("lm", 2): (17,), ("lm", 4): (7, 14, 21),
+                   ("hybrid", 2): (41,)}
 # phase 29: the pipelined train step held to the card's plain step:
 # qwen3-1.7b at full width, 2 layers, fp32, batch 4 (four microbatches),
 # seq 256, cut after layer 1; every family's reduced config at 2 stages
@@ -558,11 +575,12 @@ PIPE_SERVE_CUTS = {("lm", 2): (1,), ("lm", 4): (7, 14, 21),
 # a gradient leaf within 1e-4 of its largest magnitude (phase 24's gates)
 PIPE_PARITY_B, PIPE_PARITY_M = 4, 4
 # phase 30: phase 25's run through the pod pipeline (2 stages, 4
-# microbatches of 2, the ParetoPipe cuts for training at seq 2048: (7,));
+# microbatches of 2, the ParetoPipe cuts for training at seq 2048, priced
+# for a card a stage: (16,));
 # the warm-up step's bf16 loss within 1e-2 of phase 25's on the same
 # batch (the microbatches' sums round in another order)
 PIPE_TRAIN_FLAGS = ["--pods", "2", "--microbatches", "4", "--auto-partition"]
-PIPE_TRAIN_CUTS, PIPE_TRAIN_LOSS_TOL = (7,), 1e-2
+PIPE_TRAIN_CUTS, PIPE_TRAIN_LOSS_TOL = (16,), 1e-2
 # phase 31: the sharded step held to the one-card step (phase 24's
 # gates; the moments of the full-width case within 1e-5 of their largest,
 # those of the reduced families within the gradients' 1e-4, and 2e-4 for
@@ -587,7 +605,7 @@ SHARD_SERVE_PARITY = (2, 8, 256, 4)
 # by phase 31's gates; (b) the serve parity case (layers, batch, prompt,
 # greedy decode steps): phase 33's, held by its 2e-4; (c) phase 30's run
 # on the ranks: phase 25's flags with --pods 2 --microbatches 4
-# --auto-partition, the cuts (7,) and the warm-up loss within phase 30's
+# --auto-partition, the cuts (16,) and the warm-up loss within phase 30's
 # 1e-2 of phase 25's
 POD_PARITY = (2, 8, 512, 2, (1,))
 POD_SERVE_PARITY = (2, 8, 256, 4)
@@ -599,6 +617,12 @@ SERVED: dict[str, dict] = {}
 # phase 30's numbers, and phase 32's median step ms by mesh, for phase 35
 PIPE30: dict = {}
 SHARD32: dict[str, float] = {}
+# phase 36: the stage hop timed (a decode step's activation of the LM
+# slice, LM_B x 1 x 2048 bf16, to the next stage's card plus one launch
+# there, host to done), this many times after as many warm-up hops; with
+# two cards its median within HOP_TOL x of H100_SXM.stage_overhead_s, on
+# one card (the launch and sync alone) below it
+HOP_N, HOP_WARM, HOP_D, HOP_TOL = 200, 100, 2048, 3.0
 # each slice's attention shapes (B, S, T, H, KV, hd, causal) and decode
 # positions
 HYB_FLASH = {"hybrid shared block": (HYB_B, HYB_S, HYB_S, 32, 32, 112, True)}
@@ -697,6 +721,82 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def smi_power_w(field: str) -> list[float]:
+    """``nvidia-smi``'s ``power.draw`` or ``power.limit`` of every card, in
+    W (a reading that is not a number raises)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [float(x) for x in out.stdout.split()]
+
+
+def stage_hop_ms(torch, src, dst) -> float:
+    """The median host-to-done ms of one stage hop from ``src`` to
+    ``dst``: the pipeline's ``y.to(next card)`` of a decode step's
+    activation, plus the next stage's first launch."""
+    y = torch.randn(LM_B, 1, HOP_D, device=src, dtype=torch.bfloat16)
+    times = []
+    for i in range(HOP_WARM + HOP_N):
+        torch.cuda.synchronize(src)
+        torch.cuda.synchronize(dst)
+        t0 = time.perf_counter()
+        z = y.to(dst) + 1
+        torch.cuda.synchronize(dst)
+        if i >= HOP_WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    del z
+    times.sort()
+    return times[len(times) // 2]
+
+
+def card_phase(torch, smi, idle_w: list[float]) -> None:
+    """Phase 36: the card as the planner's device.  Each card's name,
+    power limit, total memory and idle draw (``idle_w``, read before the
+    first kernel) and the stage hop printed beside ``H100_SXM``'s
+    constants; fails if ``H100_SXM`` believes in more memory than a card
+    has, if the hop between two cards is more than ``HOP_TOL`` x off
+    ``stage_overhead_s``, or if one card's launch and sync alone (a hop
+    whose ``y.to`` moves nothing, the stages sharing the card) passes
+    it."""
+    from repro_torch.core.devices import H100_SXM, NVLINK4
+    count = torch.cuda.device_count()
+    limits = smi_power_w("power.limit")
+    totals = [torch.cuda.get_device_properties(i).total_memory
+              for i in range(count)]
+    for i in range(count):
+        log(f"card (phase 36) cuda:{i} {torch.cuda.get_device_name(i)}: "
+            f"power limit {limits[i]:.2f} W (H100_SXM.active_w "
+            f"{H100_SXM.active_w}), total memory {totals[i]} B "
+            f"(H100_SXM.mem_bytes {H100_SXM.mem_bytes}), idle draw "
+            f"{idle_w[i]:.2f} W (H100_SXM.idle_w {H100_SXM.idle_w})")
+    const = H100_SXM.stage_overhead_s * 1e3
+    hop_bytes = LM_B * HOP_D * 2
+    cards = [torch.device("cuda", i) for i in range(min(count, 2))]
+    one = stage_hop_ms(torch, cards[0], cards[0])
+    log(f"  launch and sync on one card, cuda:0 -> cuda:0 (median of "
+        f"{HOP_N}): {one:.4f} ms (H100_SXM.stage_overhead_s {const:.4f} "
+        f"ms, a hop between cards)")
+    hop = None
+    if count > 1:
+        hop = stage_hop_ms(torch, *cards)
+        log(f"  stage hop cuda:0 -> cuda:1 ({hop_bytes} B, median of "
+            f"{HOP_N}): {hop:.4f} ms, {hop / const:.3f}x "
+            f"H100_SXM.stage_overhead_s (within {HOP_TOL}x); NVLINK4's "
+            f"bytes {NVLINK4.transfer_time(hop_bytes) * 1e3:.6f} ms")
+    log(f"  spec peaks, not read: {H100_SXM.flops_per_s:.4g} FLOP/s, "
+        f"{H100_SXM.mem_bw:.4g} B/s, NVLINK4 {NVLINK4.bw_bytes_per_s:.4g} "
+        f"B/s; on {smi}")
+    if H100_SXM.mem_bytes > min(totals):
+        raise AssertionError(f"H100_SXM.mem_bytes {H100_SXM.mem_bytes} "
+                             f"passes a card's total memory {min(totals)}")
+    if not one <= const:
+        raise AssertionError(f"one card's launch and sync {one:.4f} ms "
+                             f"passes H100_SXM's stage hop {const:.4f} ms")
+    if hop is not None and not 1 / HOP_TOL <= hop / const <= HOP_TOL:
+        raise AssertionError(f"the stage hop {hop:.4f} ms is more than "
+                             f"{HOP_TOL}x off H100_SXM's {const:.4f} ms")
 
 
 def is_kernel(key: str, name: str) -> bool:
@@ -2981,6 +3081,30 @@ def model_flops(cfg, n_params: int, B: int, S: int) -> float:
     return 6.0 * n_params * B * S + attn
 
 
+def planned_step(pcfg, mesh, B: int) -> dict:
+    """The planner's prediction for a pipelined training run of batch
+    ``B`` on ``mesh``: the pick that chose ``pcfg``'s cuts
+    (``pcfg.plan``, priced for the mesh's cards a stage by
+    ``launch.mesh.plan_pipeline``) → its cards a stage, latency (one
+    batch through every stage, no overlap), each stage's ms on the batch,
+    and the step: B / throughput (the slowest stage on the batch) times
+    GPipe's fill, (M + K - 1) / M."""
+    from repro_torch.launch.mesh import cards_per_pod
+    pick, K, M = pcfg.plan, pcfg.n_stages, pcfg.microbatches
+    return {"cards": cards_per_pod(mesh), "latency_ms": pick.latency_s * 1e3,
+            "stage_ms": [st.compute_s * 1e3 for st in pick.stages],
+            "step_ms": B / pick.throughput * 1e3 * (M + K - 1) / M}
+
+
+def plan_line(plan: dict, med: float) -> str:
+    """``planned_step``'s prediction beside the measured median step."""
+    return (f"the planner's prediction ({plan['cards']} H100 a stage): "
+            f"latency {plan['latency_ms']:.2f} ms, stages "
+            f"{[round(t, 2) for t in plan['stage_ms']]} ms on the batch, "
+            f"step {plan['step_ms']:.2f} ms; measured {med:.2f} ms, "
+            f"{med / plan['step_ms']:.2f}x the predicted step")
+
+
 def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
                 ) -> tuple[dict[str, int], dict]:
     """Phase 25: qwen3-1.7b at full width and depth through the launcher's
@@ -3031,7 +3155,9 @@ def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
         finally:
             step_mod.apply_gradients = apply
         torch.cuda.synchronize()
-        peak = peak_bytes(torch)
+        peaks = [torch.cuda.max_memory_allocated(i)
+                 for i in range(torch.cuda.device_count())]
+        peak = max(peaks)
         if len(losses) == n_steps:
             break
         log(f"{label}: the warm-up step's peak {peak / 2**30:.2f} GiB "
@@ -3078,8 +3204,10 @@ def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
     del state, step_fn, batch
     return launches, {"losses": losses, "step_ms": med, "batch": B,
                       "tokens_s": B * S / med * 1e3, "peak": peak,
-                      "flops": flops,
-                      "cuts": None if pipe is None else pipe[0].cuts}
+                      "peaks": peaks, "flops": flops,
+                      "cuts": None if pipe is None else pipe[0].cuts,
+                      "plan": None if pipe is None else planned_step(
+                          *pipe, B)}
 
 
 def resume_drill(torch, dev) -> None:
@@ -3468,7 +3596,7 @@ def pipeline_train_parity(torch, dev) -> None:
 
 def pipeline_train(torch, dev, smi, plain: dict) -> dict[str, int]:
     """Phase 30: phase 25's run through ``launch.train --pods 2
-    --microbatches 4 --auto-partition``: the ParetoPipe cuts (7,), the
+    --microbatches 4 --auto-partition``: the ParetoPipe cuts (16,), the
     step ms, tokens/s and peak beside phase 25's, its warm-up loss
     within ``PIPE_TRAIN_LOSS_TOL`` of phase 25's on the same batch → its
     launches (all 0)."""
@@ -3487,6 +3615,8 @@ def pipeline_train(torch, dev, smi, plain: dict) -> dict[str, int]:
         f"warm-up loss {st['losses'][0]:.6f} against "
         f"{plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
         f"{PIPE_TRAIN_LOSS_TOL})")
+    log(f"  peak GiB a card {[round(p / 2**30, 3) for p in st['peaks']]}; "
+        f"{plan_line(st['plan'], st['step_ms'])}")
     if st["batch"] != plain["batch"] or not diff <= PIPE_TRAIN_LOSS_TOL:
         raise AssertionError("pipelined train: the first loss is not the "
                              "unpipelined one")
@@ -3733,7 +3863,9 @@ def _train_on_mesh(flags: list[str], batch_size: int) -> list | None:
             "peak": torch.cuda.max_memory_allocated(),
             "launches": ops.launch_counts(),
             "params": state["model"].param_count(),
-            "cuts": None if pipe is None else list(pipe[0].cuts)}
+            "cuts": None if pipe is None else list(pipe[0].cuts),
+            "plan": None if pipe is None else planned_step(*pipe,
+                                                           args.batch)}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     del state, step_fn, batch
@@ -4232,6 +4364,7 @@ def pod_mesh_phase(torch, smi, plain: dict, res: dict
                           f"{PIPE30['tokens_s']:.0f} tokens/s, peak "
                           f"{PIPE30['peak'] / 2**30:.3f} GiB")
         beside += [f"phase 32 at {k} {v:.2f} ms" for k, v in SHARD32.items()]
+        log(f"  {plan_line(lead['plan'], med)}")
         log(f"  beside {'; '.join(beside)}; warm-up loss "
             f"{lead['losses'][0]:.6f} against phase 25's "
             f"{plain['losses'][0]:.6f} (|diff| {diff:.3e}, within "
@@ -4481,6 +4614,8 @@ def main() -> int:
 
     # ---------------------------------------------------------------- setup
     smi = nvidia_smi()
+    # phase 36's idle draw: before this process's first kernel
+    idle_w = smi_power_w("power.draw")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"card: {smi}")
@@ -4508,7 +4643,7 @@ def main() -> int:
              pred_path, str(torch.cuda.device_count())],
             stdout=pred_log, stderr=subprocess.STDOUT)
     try:
-        return phases(torch, smi, (predictor, pred_path))
+        return phases(torch, smi, idle_w, (predictor, pred_path))
     finally:
         if predictor.poll() is None:
             predictor.kill()
@@ -4517,9 +4652,9 @@ def main() -> int:
         shutil.rmtree(pred_dir, ignore_errors=True)
 
 
-def phases(torch, smi, predictor) -> int:
-    """Phases 2-35 (``main`` made the setup and started the
-    predictions)."""
+def phases(torch, smi, idle_w, predictor) -> int:
+    """Phases 36 and 2-35 (``main`` made the setup, read the idle draw
+    and started the predictions)."""
     from repro_torch.core import best_throughput, scenarios, solve
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models.cnn import zoo
@@ -4530,6 +4665,9 @@ def phases(torch, smi, predictor) -> int:
                 log("  ptxas " + line.split("ptxas info")[-1].strip(" :"))
         lib.library()
     dev = torch.device("cuda")
+
+    # ----------------------------------------------------------------- card
+    card_phase(torch, smi, idle_w)
 
     # ----------------------------------------------------------------- plan
     model = zoo.get("mobilenetv2", CLASSES).init(

@@ -21,8 +21,18 @@ only reading consistent with the reported seconds-scale batch times):
     depthwise-conv inefficiency, modelled per-block via ``Block.eff``.
   * RTX 4090: AlexNet ≈9 ms/batch → ~1.3 effective TFLOP/s at batch 8
     (launch-bound).  We use 1.5 + 5 ms per-stage overhead.
-  * TPU v5e (the scale target): 197 TFLOP/s bf16 peak, 819 GB/s HBM,
-    ~50 GB/s/link ICI; DCN between pods ~25 GB/s per host pair.
+  * TPU v5e (the reference's scale target): 197 TFLOP/s bf16 peak, 819
+    GB/s HBM, ~50 GB/s/link ICI; DCN between pods ~25 GB/s per host
+    pair.  The port keeps these as the reference's copies
+    (``scenarios.REGISTRY`` must equal the reference's); no launcher of
+    the port prices with them.
+  * NVIDIA H100 SXM (the port's card, ``H100_SXM``): the spec peaks
+    ``launch.roofline`` uses (989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
+    NVLink 4 at 450 GB/s one way) and four constants read on the card
+    (total memory, power limit, idle draw, one stage hop), each re-read
+    by ``chip_smoke.py``'s phase 36.  ``h100_pod``/``NVLINK4`` are what
+    ``models.blocks_adapter.choose_pipeline_cuts`` prices the LM
+    pipeline's stages and hops with.
 """
 from __future__ import annotations
 
@@ -347,6 +357,8 @@ HOST_CPU = DeviceProfile(
 )
 
 # One TPU v5e chip (peak specs; roofline constants of the assignment).
+# The reference's copy: no launcher of the port prices with it (the LM
+# pipeline's stages are H100s, ``H100_SXM`` below).
 TPU_V5E_CHIP = DeviceProfile(
     name="tpu_v5e", flops_per_s=197e12, mem_bytes=16 * GiB, mem_bw=819e9,
     stage_overhead_s=2e-6, idle_w=60.0, active_w=170.0,
@@ -355,7 +367,9 @@ TPU_V5E_CHIP = DeviceProfile(
 
 def tpu_pod(n_chips: int = 256, name: str | None = None) -> DeviceProfile:
     """A whole pod as one pipeline 'device' (chips cooperate via TP/DP
-    inside the stage; the partitioner places layer ranges on pods)."""
+    inside the stage; the partitioner places layer ranges on pods).  The
+    reference's copy, kept for ``scenarios.pods``; the port's stages are
+    ``h100_pod``s."""
     return DeviceProfile(
         name=name or f"v5e_pod{n_chips}",
         flops_per_s=TPU_V5E_CHIP.flops_per_s * n_chips,
@@ -364,6 +378,48 @@ def tpu_pod(n_chips: int = 256, name: str | None = None) -> DeviceProfile:
         stage_overhead_s=5e-6,
         idle_w=TPU_V5E_CHIP.idle_w * n_chips,
         active_w=TPU_V5E_CHIP.active_w * n_chips,
+    )
+
+
+# One NVIDIA H100 SXM, the card the port's pipeline stages run on.  The
+# peaks are spec-sheet figures (``launch.roofline`` reads them from here:
+# dense bf16 on the tensor cores, HBM3), as ``TPU_V5E_CHIP``'s are.  The
+# other four were read on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit by ``chip_smoke.py``'s ``card_phase`` (phase 36), which reads
+# them again beside these on every run:
+#   mem_bytes         ``torch.cuda.get_device_properties(0).total_memory``
+#                     (phase 36 fails if a card has less: a planner that
+#                     believes in more memory would place stages that do
+#                     not fit);
+#   stage_overhead_s  one stage hop between two cards of a four-card
+#                     host, timed from the host to done: the pipeline's
+#                     ``y.to(next card)`` of a decode step's activation
+#                     (8 x 1 x 2048 bf16, cuda:0 -> cuda:1) plus one
+#                     launch there, the median of 200: 0.0596 ms.  Phase
+#                     36 fails if a run with two cards reads the hop more
+#                     than 3x off it, or if one card's launch and sync
+#                     alone (its ``y.to`` moves nothing) passes it;
+#   active_w          the card's power limit (``nvidia-smi power.limit``);
+#   idle_w            ``nvidia-smi power.draw`` before the first kernel.
+H100_SXM = DeviceProfile(
+    name="h100_sxm", flops_per_s=989e12, mem_bytes=85_017_493_504,
+    mem_bw=3.35e12, stage_overhead_s=59.6e-6, idle_w=69.41, active_w=700.0,
+)
+
+
+def h100_pod(n_cards: int = 1, name: str | None = None) -> DeviceProfile:
+    """A pod's D·M cards as one pipeline 'device' (they run the stage's
+    data and model axes; the partitioner places layer ranges on pods),
+    the counterpart of ``tpu_pod``.  A hop's fixed cost is the card's
+    one stage hop, whatever the pod's size."""
+    return DeviceProfile(
+        name=name or f"h100_pod{n_cards}",
+        flops_per_s=H100_SXM.flops_per_s * n_cards,
+        mem_bytes=H100_SXM.mem_bytes * n_cards,
+        mem_bw=H100_SXM.mem_bw * n_cards,
+        stage_overhead_s=H100_SXM.stage_overhead_s,
+        idle_w=H100_SXM.idle_w * n_cards,
+        active_w=H100_SXM.active_w * n_cards,
     )
 
 
@@ -398,3 +454,17 @@ DCN = Link("dcn", rtt_s=20e-6, bw_bytes_per_s=25e9, per_msg_overhead_s=5e-6,
            energy_per_byte_j=5e-11)
 DCN_CONGESTED = Link("dcn_congested", rtt_s=2e-3, bw_bytes_per_s=2.5e9,
                      per_msg_overhead_s=5e-6, energy_per_byte_j=5e-11)
+# ICI_V5E, DCN and DCN_CONGESTED are the reference's copies: no launcher
+# of the port prices with them.
+
+# The card's links, at ``launch.roofline``'s rates (its ``ICI_BW`` and
+# ``DCN_BW`` read them from here).  A hop's fixed cost is counted once,
+# in ``H100_SXM.stage_overhead_s``, which was timed over the whole hop,
+# so neither link adds a latency; their joules a byte are not measured
+# (the card's power readings cannot tell a copy's share apart).
+# NVLink 4 between cards of one host, one direction: the hop between
+# stages in every launcher run of the port.
+NVLINK4 = Link("nvlink4", rtt_s=0.0, bw_bytes_per_s=450e9)
+# Across nodes: InfiniBand NDR, one 400 Gb/s port a GPU (an assumption,
+# as the roofline's ``DCN_BW``; no two-node machine to read it on).
+IB_NDR = Link("ib_ndr", rtt_s=0.0, bw_bytes_per_s=50e9)

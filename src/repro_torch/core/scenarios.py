@@ -1,7 +1,9 @@
 """Named deployment scenarios (device chain + links).
 
 The paper's four experimental conditions plus the TPU-scale analogues the
-framework actually deploys on.  A ``Scenario`` is what the partitioner
+reference deploys on, and the port's own card chain (``card_pods``:
+H100s over NVLink, kept out of ``REGISTRY``, which stays equal to the
+reference's).  A ``Scenario`` is what the partitioner
 *and* the executable runtime consume: an ordered device chain with the
 links between consecutive devices.  Links may be static ``Link``s or
 time-varying ``LinkTrace``s — ``Scenario.at(t)`` resolves every trace to
@@ -224,6 +226,8 @@ def local_chain(k: int = 3, transport: str = "socket") -> Scenario:
 
 
 # --- TPU-scale analogues ----------------------------------------------------- #
+# The reference's copies: ``REGISTRY`` keeps them, no launcher of the port
+# prices with them (the port's stages are the cards below).
 def pods(n_pods: int = 2, chips_per_pod: int = 256,
          link: D.Link = D.DCN) -> Scenario:
     """n pods in a pipeline, DCN links between consecutive pods —
@@ -243,6 +247,18 @@ def chips_linear(n: int = 4, link: D.Link = D.ICI_V5E) -> Scenario:
     devs = tuple(dataclasses.replace(D.TPU_V5E_CHIP, name=f"chip{i}")
                  for i in range(n))
     return Scenario(f"chips{n}_ici", devs, (link,) * (n - 1))
+
+
+# --- the port's cards ---------------------------------------------------------- #
+def card_pods(n_pods: int = 2, cards_per_pod: int = 1) -> Scenario:
+    """n pods of ``cards_per_pod`` H100s in a pipeline, NVLink between
+    consecutive pods: the port's ``pod`` axis as a ParetoPipe device
+    chain (one card a stage on the host mesh, D·M on the ranks' pod
+    mesh), the counterpart of ``pods``."""
+    devs = tuple(D.h100_pod(cards_per_pod, name=f"pod{i}")
+                 for i in range(n_pods))
+    return Scenario(f"cards{n_pods}x{cards_per_pod}", devs,
+                    (D.NVLINK4,) * (n_pods - 1))
 
 
 REGISTRY = {

@@ -10,7 +10,8 @@ differentiates, so the backward crosses the stages on its own.  One
 process needs no collective, and it works where the ranks could not: on
 a machine with one card every stage shares it (two NCCL ranks on one
 device are refused).  ``plan_pipeline`` is the launchers' one way to a
-pipeline: its cuts, its mesh, the model placed.
+pipeline: its cuts (priced for the H100s its stages run on), its mesh,
+the model placed.
 
 The ``data`` and ``model`` axes are ``torch.distributed`` ranks, each a
 real device: ``spawn_ranks`` starts them as processes of one command
@@ -227,22 +228,35 @@ def spawn_ranks(cmd: list[str], world: int, env: dict | None = None,
     return next((c for c in own if c), 0) or (-9 if killed else 0)
 
 
+def cards_per_pod(mesh) -> int:
+    """The cards one pipeline stage runs on: ``data × model`` of the ranks'
+    ``(pod, data, model)`` mesh, else 1 (the host mesh, a card a
+    stage)."""
+    if mesh is not None and is_pod_mesh(mesh):
+        return mesh.size(1) * mesh.size(2)
+    return 1
+
+
 def plan_pipeline(cfg, model, pods: int, microbatches: int, *, seq: int,
                   batch: int, auto_partition: bool, train: bool, mesh=None):
     """``model`` placed on ``pods`` stages → (PipelineConfig, mesh): on
     ``mesh`` (a rank's ``pod_mesh``) when one is given, else on its
     device's kind.  The cuts are even, or with ``auto_partition``
-    ParetoPipe's for ``seq`` and ``batch`` (training or serving), printed
-    as the reference's launcher prints them (by rank 0 alone)."""
+    ParetoPipe's (its pick kept as the config's ``plan``), priced for ``cards_per_pod(mesh)`` H100s a stage (D·M
+    on a pod mesh, one on the host mesh) and NVLink between stages, and
+    printed with the plan's predicted latency and throughput as the
+    reference's launcher prints them (by rank 0 alone).  On a machine
+    with fewer cards than stages the stages share them, but the plan is
+    still priced for the mesh asked for, a card (or D·M) a stage."""
     from ..runtime.pipeline import PipelineConfig, place_stages
     if auto_partition:
-        cuts, pick, _ = choose_pipeline_cuts(cfg, seq, pods, batch=batch,
-                                             train=train)
+        cuts, pick, _ = choose_pipeline_cuts(
+            cfg, seq, pods, cards_per_pod(mesh), batch=batch, train=train)
         if not dist.is_initialized() or dist.get_rank() == 0:
             print(f"[paretopipe] cuts={cuts} predicted latency="
                   f"{pick.latency_s*1e3:.2f}ms thr={pick.throughput:.1f}/s",
                   flush=True)
-        pcfg = PipelineConfig(pods, microbatches, cuts)
+        pcfg = PipelineConfig(pods, microbatches, cuts, plan=pick)
     else:
         pcfg = PipelineConfig.even(cfg.n_layers, pods, microbatches)
     if mesh is None:

@@ -11,6 +11,8 @@ NDR, one 400 Gb/s port a GPU = 50 GB/s a GPU, and record the
 assumption here, as the reference records its DCN figure.  The names
 ``ICI_BW`` and ``DCN_BW`` keep the reference's: on the card the
 "inside a pod" links are NVLink, the "across pods" ones the network.
+All four are read from ``core.devices`` (``H100_SXM``, ``NVLINK4``,
+``IB_NDR``), the profile the pipeline planner prices with.
 
 All inputs are **per-device** quantities:
 
@@ -22,10 +24,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-PEAK_FLOPS = 989e12          # bf16 dense FLOP/s per GPU (H100 SXM)
-HBM_BW = 3.35e12             # bytes/s per GPU (HBM3)
-ICI_BW = 450e9               # bytes/s per GPU, one direction (NVLink 4)
-DCN_BW = 50e9                # bytes/s per GPU across nodes (assumed IB NDR)
+from ..core.devices import H100_SXM, IB_NDR, NVLINK4
+
+PEAK_FLOPS = H100_SXM.flops_per_s     # bf16 dense FLOP/s per GPU (989e12)
+HBM_BW = H100_SXM.mem_bw              # bytes/s per GPU (HBM3, 3.35e12)
+ICI_BW = NVLINK4.bw_bytes_per_s       # bytes/s per GPU, one way (450e9)
+DCN_BW = IB_NDR.bw_bytes_per_s        # bytes/s per GPU across nodes (50e9)
 
 
 @dataclass(frozen=True)

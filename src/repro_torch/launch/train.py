@@ -52,9 +52,11 @@ cards is an error, never a smaller mesh or the CPU.
 
 ``--pods K`` (K > 1) trains through ``runtime.pipeline`` with
 ``--microbatches`` (4 by default) and even cuts, or with
-``--auto-partition`` the cuts ``models.blocks_adapter`` picks, printed as
-the reference prints them; its checkpoints hold the reference's
-pipeline layout.  In one process the stages sit on the cards in turn;
+``--auto-partition`` the cuts ``models.blocks_adapter`` picks for the
+H100s the stages run on (one a stage, or a pod's D x M; qwen3-1.7b at
+seq 2048, batch 8: (16,) on 2 stages, (8, 16, 24) on 4), printed as
+the reference prints them, with the card's predicted latency and
+throughput; its checkpoints hold the reference's pipeline layout.  In one process the stages sit on the cards in turn;
 with ``--data-par``/``--model-par`` (or in a rank) the command runs K x
 D x M ranks on the ``(pod, data, model)`` mesh, each pod's stage sharded
 on its ``(data, model)`` sub-mesh, and a checkpoint of either restores

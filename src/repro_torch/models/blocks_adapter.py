@@ -9,14 +9,19 @@ weight bytes, and inter-block activation bytes — exactly what
 
 Costs come from the same formulas as the dry-run's analytic model
 (``launch.analytic``), so the partitioner and the roofline agree.  The
-port's ``core`` (``dp_front_kway``, ``best_throughput``, the ``pods``
-scenario) is a copy of the reference's, so the cuts it picks are the
-reference's: the pod chain is the reference's TPU model, and its
-predicted times are that model's, not a measurement of any card.
+port's ``core`` (``dp_front_kway``, ``best_throughput``) is a copy of
+the reference's; the chain it solves over is the port's own: pods of
+H100s joined by NVLink (``scenarios.card_pods``), the cards its stages
+run on.  The reference prices 256-chip TPU v5e pods over DCN
+(``scenarios.pods``); given that chain through ``scenario=``, the cuts,
+pick and front are the reference's.  The predicted times are the
+card's spec peaks over the block graph's FLOPs and bytes, not a
+measurement.
 """
 from __future__ import annotations
 
 from ..core.blocks import Block, BlockGraph
+from ..core.scenarios import Scenario
 from ..launch.analytic import (_layer_fwd_flops, _logit_flops,
                                _shared_block_flops)
 from .config import ArchConfig
@@ -74,17 +79,28 @@ def arch_block_graph(cfg: ArchConfig, seq: int, *, train: bool = False,
 
 
 def choose_pipeline_cuts(cfg: ArchConfig, seq: int, n_pods: int,
-                         chips_per_pod: int = 256, batch: int = 1,
+                         chips_per_pod: int = 1, batch: int = 1,
                          train: bool = True,
-                         objective: str = "throughput"):
+                         objective: str = "throughput", *,
+                         scenario: Scenario | None = None):
     """ParetoPipe-driven stage assignment: solve the k-way partition over
     the arch's block graph on the pod chain, return layer cut indices
-    usable by ``PipelineConfig`` (embed/head pinned to first/last pod)."""
+    usable by ``PipelineConfig`` (embed/head pinned to first/last pod).
+    The chain is ``card_pods(n_pods, chips_per_pod)``, the H100s a stage
+    runs on, or ``scenario`` when given: then of ``n_pods`` devices, with
+    ``chips_per_pod`` left at 1 (a chain is named one way or the other)."""
     from ..core import dp_front_kway, best_latency, best_throughput
-    from ..core.scenarios import pods
+    from ..core.scenarios import card_pods
 
+    if scenario is None:
+        scen = card_pods(n_pods, chips_per_pod)
+    elif chips_per_pod != 1 or len(scenario.devices) != n_pods:
+        raise ValueError(f"scenario {scenario.name!r} names the chain: "
+                         f"{len(scenario.devices)} pods, not {n_pods} of "
+                         f"{chips_per_pod} chips")
+    else:
+        scen = scenario
     graph = arch_block_graph(cfg, seq, train=train)
-    scen = pods(n_pods, chips_per_pod)
     front = dp_front_kway(graph, scen.devices, scen.links, batch=batch)
     pick = best_throughput(front) if objective == "throughput" \
         else best_latency(front)

@@ -66,7 +66,7 @@ from __future__ import annotations
 import contextlib
 import math
 import types
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -94,6 +94,9 @@ class PipelineConfig:
     n_stages: int
     microbatches: int
     cuts: tuple[int, ...]            # interior layer cuts, len = n_stages-1
+    # the ParetoPipe pick that chose the cuts (``launch.mesh.
+    # plan_pipeline``), None for cuts given; not part of the layout
+    plan: object = field(default=None, compare=False, repr=False)
 
     @staticmethod
     def even(n_layers: int, n_stages: int, microbatches: int) -> "PipelineConfig":

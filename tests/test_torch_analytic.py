@@ -1,7 +1,9 @@
 """The pipeline planner's parity: the port's copies of the reference's
 ``launch/analytic.py`` and ``models/blocks_adapter.py`` give the same
-numbers, block graphs and ParetoPipe cuts, exactly (``==``: the code
-paths are copies), for every registered arch, full and reduced."""
+numbers, block graphs and, on the reference's TPU pod chain, ParetoPipe
+cuts, exactly (``==``: the code paths are copies), for every registered
+arch, full and reduced; the cuts the card's phases run are those of the
+port's own chain, H100s over NVLink."""
 import dataclasses
 
 import pytest
@@ -13,6 +15,7 @@ from repro.models import blocks_adapter as RB
 from repro.runtime.pipeline import PipelineConfig as RPipelineConfig
 from repro_torch import configs
 from repro_torch.launch import analytic as A
+from repro_torch.core import scenarios as S
 from repro_torch.launch import specs as SP
 from repro_torch.models import blocks_adapter as B
 from repro_torch.runtime.pipeline import PipelineConfig
@@ -92,8 +95,8 @@ def test_pipeline_cuts_match_reference(name, red):
             for train, objective in ((True, "throughput"),
                                      (False, "latency")):
                 kw = dict(batch=8, train=train, objective=objective)
-                cuts, pick, front = B.choose_pipeline_cuts(cfg, seq, pods,
-                                                           **kw)
+                cuts, pick, front = B.choose_pipeline_cuts(
+                    cfg, seq, pods, **kw, scenario=S.pods(pods))
                 rcuts, rpick, rfront = RB.choose_pipeline_cuts(rcfg, seq,
                                                                pods, **kw)
                 assert cuts == rcuts, (pods, seq, train)
@@ -103,10 +106,20 @@ def test_pipeline_cuts_match_reference(name, red):
 
 
 def test_the_cards_cuts():
-    """The cuts the card's phases run: qwen3-1.7b trained at seq 2048 on
-    2 and 4 pods, served at 1024 on 2; zamba2-7b served at 1024."""
+    """The cuts the card's phases run, priced by default for a card a
+    stage (and for two, phase 35c's (2, 1, 2)): qwen3-1.7b trained at seq
+    2048 on 2 and 4 pods, served at 1024 on 2; zamba2-7b served at 1024.
+    Through the reference's TPU pod chain they are the reference's."""
     q, z = configs.get("qwen3-1.7b"), configs.get("zamba2-7b")
-    assert B.choose_pipeline_cuts(q, 2048, 2, batch=8)[0] == (7,)
-    assert B.choose_pipeline_cuts(q, 2048, 4, batch=8)[0] == (3, 6, 10)
-    assert B.choose_pipeline_cuts(q, 1024, 2, batch=8, train=False)[0] == (1,)
-    assert B.choose_pipeline_cuts(z, 1024, 2, batch=8, train=False)[0] == (9,)
+    cases = [((q, 2048, 2), {}, (16,), (7,)),
+             ((q, 2048, 4), {}, (8, 16, 24), (3, 6, 10)),
+             ((q, 1024, 2), {"train": False}, (17,), (1,)),
+             ((z, 1024, 2), {"train": False}, (41,), (9,))]
+    for args, kw, card, tpu in cases:
+        assert B.choose_pipeline_cuts(*args, batch=8, **kw)[0] == card
+        assert B.choose_pipeline_cuts(*args, 2, batch=8, **kw)[0] == card
+        assert B.choose_pipeline_cuts(*args, batch=8, **kw,
+                                      scenario=S.pods(args[2]))[0] == tpu
+        rcfg = RCFG.get(args[0].name)
+        assert RB.choose_pipeline_cuts(rcfg, *args[1:], batch=8,
+                                       **kw)[0] == tpu

@@ -1,8 +1,8 @@
 """The port's launchers through the pod pipeline, as a user runs them on
 the CPU: ``python -m repro_torch.launch.train --pods 2 --microbatches 2
 --auto-partition`` prints the reference launcher's ``[paretopipe]`` line
-(its cuts and the planner's predictions, from the reference's own
-planner here), trains, and a run that crashes itself resumes from its
+(its cuts and the planner's predictions for a card a stage, from the
+reference's own solver on the card's chain here), trains, and a run that crashes itself resumes from its
 pipelined checkpoint with the uninterrupted run's losses bit for bit;
 with ``--data-par 2`` or ``--model-par 2`` the same command runs four
 gloo ranks on the ``(pod, data, model)`` mesh, rank 0 alone printing,
@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from repro import configs as RCFG
-from repro.models.blocks_adapter import choose_pipeline_cuts as rcuts
 from repro_torch.launch import serve
+from test_torch_card_planning import paretopipe_line, reference_card_plan
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARGS = ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu", "--steps",
@@ -45,9 +45,8 @@ def _losses(out: str) -> dict[int, str]:
 def test_pipelined_crash_restart_drill_is_bit_exact(tmp_path):
     whole = _train(*ARGS, "--ckpt-dir", str(tmp_path / "a"))
     assert whole.returncode == 0, whole.stdout + whole.stderr
-    cuts, pick, _ = rcuts(RCFG.reduced("qwen3-1.7b"), 32, 2, batch=2)
-    line = (f"[paretopipe] cuts={cuts} predicted latency="
-            f"{pick.latency_s*1e3:.2f}ms thr={pick.throughput:.1f}/s")
+    line = paretopipe_line(*reference_card_plan(RCFG.reduced("qwen3-1.7b"),
+                                                32, 2, batch=2))
     assert whole.stdout.splitlines()[0] == line
     crashed = _train(*ARGS, "--ckpt-dir", str(tmp_path / "b"),
                      "--fail-at-step", "9")
