@@ -278,8 +278,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              printed (the batch halves if the warm-up passes 75 GiB);
 26. resume drill — ``python -m repro_torch.launch.train --reduced
              --device cuda`` as three processes of six steps:
-             uninterrupted, crashed at step 4 (exit 42), resumed from
-             step 4: the resumed
+             uninterrupted and crashed at step 4 (exit 42) side by side,
+             then resumed from step 4: the resumed
              losses must be the uninterrupted run's bit for bit; then a
              bf16 checkpoint of qwen3-1.7b at full width and 2 layers,
              after one step, restores every leaf ``torch.equal``;
@@ -355,7 +355,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              logits within phase 8's 2e-4, the tokens ``torch.equal``,
              the gathered k/v caches within 2e-4 and laid out by
              ``kv_cache_names``; then phase 7's serve (full width and
-             depth, bf16, batch 8, prompt 1024, 32 new tokens) through
+             depth, bf16, batch 8, prompt 1024) with phase 28's 8 new
+             tokens through
              ``launch.serve`` with ``--data-par D --model-par M`` in the
              ranks: prefill ms, decode ms/token and each card's peak
              beside phase 7's; each rank's flash, decode-attention and
@@ -415,12 +416,43 @@ Phases, each of which must pass (any failure raises and exits non-zero):
              constants; fails if ``H100_SXM.mem_bytes`` passes a card's
              total memory, if the hop between cards is more than 3x off
              ``H100_SXM.stage_overhead_s`` or if one card's launch and
-             sync passes it.
+             sync passes it;
+37. registry — run after phase 23 and before phase 24: the rest of the
+             dense and vlm registry on one card, smallest first:
+             starcoder2-3b (30 layers, d_model 3072, 24 / 2 heads of 128,
+             G = 12, GELU MLP), starcoder2-7b (32, 4608, 36 / 4, G = 9),
+             phi-3-vision-4.2b (32, 3072, 32 / 32 heads of 96; its
+             prompt of 1024 positions is the stub image's 576 patches and
+             448 tokens, as the reference's) and granite-20b (52,
+             6144, MQA 48 / 1, G = 48; about 40 GB of bf16 weights).  (a)
+             phase 6's checks at the shapes their serves give the kernels
+             (flash over each prefill; decode over each cache at
+             positions 0, 511, the first decode step's and the last
+             (1024-1031), with forced split counts; RMSNorm at every row
+             shape of the four paths), fp32 and bf16 within 2e-5 / 2e-2;
+             decode timed at each arch's last step and flash at
+             granite-20b's and phi-3-vision-4.2b's prefill, beside their
+             bound and SDPA; (b) for each arch ``serve.main`` at full
+             width and depth, bf16, batch 8, prompt 1024, 8 new tokens
+             (cache 1032; 1608 for the vlm), counters reset just before:
+             launches exactly ``lm_expect``'s (2 norms a layer, no
+             qk-norm), RMSNorm's those of its row shapes; prefill ms,
+             decode ms/token and peak printed; then phase 8's parity
+             (bf16 at full depth within 5e-2 with the same prefill
+             argmax but for near-ties: a row may differ only where the
+             plain route's two largest logits lie closer than the two
+             routes' logits do in that row, each such row printed; fp32,
+             TF32 off, 2 layers within 2e-4 with the same argmax and
+             final cache); granite-20b's bf16 routes at 4
+             layers against fp32 from the same weights, the kernel
+             route's mean error at most 1.1x the plain route's; each
+             model freed before the next, and at most 2 GiB left
+             allocated on the card after the last.
 
 The kernel table's LM rows count the launches of every LM serving path
-(phases 7, 11, 15, 19 and 21, the pipelined serves of phase 28,
-rank 0's sharded serve of phase 33, and rank 0's pod-mesh serves of
-phase 35b);
+(phases 7, 11, 15, 19, 21 and the four of phase 37, the pipelined
+serves of phase 28, rank 0's sharded serve of phase 33, and rank 0's
+pod-mesh serves of phase 35b);
 every row's ``train_launches`` counts those of the training slices
 (phases 25, 30 and 32; phase 35's, asserted 0 there), 0 for each:
 training runs the plain route.  The rows for the two scan entries carry their
@@ -597,8 +629,10 @@ SHARD_TRAIN_LOSS_TOL = 1e-2
 SHARD_TIMEOUT_S = 540
 # phase 33: the sharded serve's parity case (layers, batch, prompt, greedy
 # decode steps): qwen3-1.7b at full width, fp32, held to the one-card
-# serve within phase 8's 2e-4; its timing is phase 7's serve on the ranks
+# serve within phase 8's 2e-4; its timing is phase 7's serve on the ranks,
+# with phase 28's 8 new tokens
 SHARD_SERVE_PARITY = (2, 8, 256, 4)
+SHARD_SERVE_ARGS = LM_ARGS + PIPE_NEW
 # phase 35: the pod pipeline over ranks, each stage on its pod's (data,
 # model) sub-mesh.  (a) the train parity case (layers, batch, seq,
 # microbatches, cut): phase 31's, 2 microbatches, cut after layer 1, held
@@ -632,6 +666,16 @@ ENC_FLASH = {"whisper encoder": (ENC_B, 1500, 1500, 12, 12, 64, False),
              "whisper cross at decode": (ENC_B, 1, 1500, 12, 12, 64, False)}
 HYB_POSITIONS = (0, 1, 511, HYB_S + HYB_NEW - 1)
 ENC_POSITIONS = (0, 1, ENC_S + ENC_NEW - 1)
+# phase 37: the rest of the dense and vlm registry served at full width
+# and depth, smallest first, at the LM slice's batch and prompt with
+# phase 28's 8 new tokens (a vlm's cache also holds its 576 image
+# patches); granite-20b's bf16 routes also held against fp32 at 4 layers
+REG_ARCHS = ("starcoder2-3b", "starcoder2-7b", "phi-3-vision-4.2b",
+             "granite-20b")
+REG_B, REG_S, REG_NEW = LM_B, LM_S, 8
+REG_TRUTH_LAYERS = {"granite-20b": 4}
+# what the card may still hold once phase 37 has freed its models
+REG_LEFT_GIB = 2
 # the parts of a profiler kernel name that mark a matrix product (cuBLAS)
 GEMM_PARTS = ("nvjet", "gemm", "cutlass")
 LM_REPLACES = {
@@ -1758,15 +1802,22 @@ def check_lm_kernels(torch, ops, ref, dev, flash_cases=None,
     hd = 128
     # unless another slice's shapes were named: the slice's heads, ragged
     # S and T, every registry head dim (64 whisper, 96 phi-3-vision, 112
-    # zamba2, 128 the rest; 16 the reduced configs), granite-20b's MQA
-    # group, causal S < T
+    # zamba2, 128 the rest; 16 the reduced configs), the registry's query
+    # groups G = 9 (starcoder2-7b, 36 / 4), 12 (starcoder2-3b, 24 / 2)
+    # and 48 (granite-20b's MQA), causal S < T
     flash_cases = flash_cases or (
         lm_flash, (2, 1000, 1000, 16, 8, hd, True),
         (2, 64, 1500, 16, 8, hd, False), (1, 300, 300, 4, 2, 64, True),
         (1, 300, 300, 4, 4, 96, True), (1, 300, 300, 4, 4, 112, False),
         (2, 200, 200, 4, 2, 16, True), (1, 256, 256, 48, 1, hd, True),
+        (1, 300, 300, 36, 4, hd, True), (2, 200, 200, 24, 2, hd, True),
         (1, 77, 300, 4, 2, hd, True))
-    decode_cases = decode_cases or (lm_decode,)
+    # and decode at those groups (a ragged Smax each) and at
+    # phi-3-vision's 32 heads of 96 past position 1024
+    decode_cases = decode_cases or (
+        lm_decode, (2, 300, 36, 4, hd, (0, 150, 299)),
+        (2, 333, 24, 2, hd, (0, 1, 332)), (2, 1056, 48, 1, hd, (0, 1055)),
+        (2, 1111, 32, 32, 96, (0, 1025, 1110)))
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, T, h, kv, d, causal in flash_cases:
             q = randn((B, S, h, d), dtype)
@@ -1923,10 +1974,12 @@ def time_lm_kernels(torch, ops, ref, dev, heads=(16, 8)) -> dict[str, dict]:
 
 def rms_shapes(cfg, B: int, S: int, new: int) -> dict[tuple, int]:
     """Each row shape the serving path hands RMSNorm → its launches over
-    the slice: two prefills (d_model rows of every token, the q and k
-    heads' rows with qk-norm, the hybrid's d_inner rows; the final norm
-    of the last token) and ``new`` decode steps (the same for one
-    token)."""
+    the slice: two prefills (d_model rows of every position of the
+    prompt, a vlm's image patches among them: its synthetic prompt of
+    ``S`` positions is ``n_patches`` patches and ``S - n_patches``
+    tokens, as the reference's; the q and k heads' rows with qk-norm,
+    the hybrid's d_inner rows; the final norm of the last token) and
+    ``new`` decode steps (the same for one token)."""
     D, L = cfg.d_model, cfg.n_layers
     per_layer = 1 if cfg.family in ("ssm", "hybrid") else 2
     out: dict[tuple, int] = {}
@@ -2003,14 +2056,15 @@ def rms_counted(launches: dict[str, int], shapes: dict[tuple, int],
 
 
 def lm_expect(cfg, args) -> dict[str, int]:
-    """The LM kernels' launches on the dense serving path: two prefills
-    (warm-up + timed) and ``new_tokens`` decode steps (warm-up + the
-    timed rest); per prefill or step 4 norms a layer (ln1, ln2, q_norm,
-    k_norm) and the final one."""
+    """The LM kernels' launches on the dense, vlm and moe serving paths:
+    two prefills (warm-up + timed) and ``new_tokens`` decode steps
+    (warm-up + the timed rest); per prefill or step 2 norms a layer (ln1,
+    ln2), 2 more with qk-norm (q_norm, k_norm), and the final one."""
     steps = 2 + args.new_tokens
+    per_layer = 2 + 2 * cfg.qk_norm
     return {"flash_attention": 2 * cfg.n_layers,
             "decode_attention": cfg.n_layers * args.new_tokens,
-            "fused_rmsnorm": (4 * cfg.n_layers + 1) * steps}
+            "fused_rmsnorm": (per_layer * cfg.n_layers + 1) * steps}
 
 
 def ssm_expect(cfg, args) -> dict[str, int]:
@@ -2095,19 +2149,37 @@ def route_logits(lm, cfg, model, inputs, cache_len, feed):
     return out, cache
 
 
+def near_ties(kern, plain) -> list[tuple[int, float, float]]:
+    """The rows whose argmax differs between two routes' logits (B, 1, V)
+    → [(row, the plain route's gap between its two largest logits, the
+    routes' largest difference in that row)]."""
+    top = plain.float().topk(2, dim=-1).values
+    gap = (top[..., 0] - top[..., 1]).reshape(-1)
+    diff = (kern.float() - plain.float()).abs().amax(-1).reshape(-1)
+    rows = (kern.argmax(-1) != plain.argmax(-1)).reshape(-1)
+    return [(r, float(gap[r]), float(diff[r]))
+            for r in rows.nonzero().flatten().tolist()]
+
+
 def held_to(torch, gate, out, cache) -> dict[str, tuple]:
     """A kernel route's logits ``out`` and final ``cache`` against the
     plain route's in ``gate`` → {check: (max |diff| or the number of
     equal prefill argmaxes, whether the check fails)}; a ``tol`` of None
-    holds the logits to nothing."""
+    holds the logits to nothing.  ``gate["argmax"]`` True holds every
+    prefill argmax equal; ``"ties"`` lets a row's differ only where the
+    plain route's two largest logits lie closer than the routes do in
+    that row (a near-tie, which rounding may turn either way)."""
     tol, plain = gate["tol"], gate["plain"]
     res = {"logits": (
         max(float((a - b).abs().max()) for a, b in zip(out, plain)),
         tol is not None and not all(torch.allclose(a, b, rtol=tol, atol=tol)
                                     for a, b in zip(out, plain)))}
     agree = int((out[0].argmax(-1) == plain[0].argmax(-1)).sum())
-    res["argmax equal"] = (agree,
-                           gate["argmax"] and agree != out[0].shape[0])
+    if gate["argmax"] == "ties":
+        bad = any(gap >= d for _, gap, d in near_ties(out[0], plain[0]))
+    else:
+        bad = gate["argmax"] and agree != out[0].shape[0]
+    res["argmax equal"] = (agree, bad)
     for k, t in gate["cache_tol"].items():
         a, b = cache[k].float(), gate["plain_cache"][k].float()
         res[f"cache {k}"] = (float((a - b).abs().max()),
@@ -2120,7 +2192,8 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
     """Kernel route against the plain ``"xla"`` route on the same weights:
     prefill logits and 4 teacher-forced decode steps at full depth in the
     working dtype within ``bf16_tol`` (None: printed, not held; with the
-    same prefill argmax when ``bf16_argmax``, and each final-cache entry
+    same prefill argmax when ``bf16_argmax``, but for near-ties when it
+    is ``"ties"`` (``held_to``), and each final-cache entry
     named in ``bf16_cache_tol`` within its limit); then fp32, TF32 off,
     full width, ``fp32_layers`` layers (None: full depth), within 2e-4
     with the same argmax and final cache.  → the full-depth model, its
@@ -2148,7 +2221,11 @@ def parity(torch, serve, lm, dev, name, argv, bf16_tol, bf16_argmax,
             f"cache {', '.join(f'{k} {d:.3g}' for k, d in cache.items())} "
             f"(held: {', '.join(f'{k} {t}' for k, t in cache_tol.items())}"
             f"); prefill argmax agrees for {res['argmax equal'][0]} of "
-            f"{feed.shape[1]}")
+            f"{feed.shape[1]}"
+            + "".join(f"; row {r} differs: the plain route's top-2 gap "
+                      f"{gap:.4g}, the routes' largest difference there "
+                      f"{d:.4g}" for r, gap, d in near_ties(kern[0],
+                                                             plain[0])))
         failed = [k for k, (_, bad) in res.items() if bad]
         if failed:
             raise AssertionError(f"{name} parity ({label}): the routes "
@@ -2906,6 +2983,93 @@ def hybrid_encdec_phases(torch, ops, ref, serve, lm, dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 37: the rest of the dense and vlm registry
+# --------------------------------------------------------------------------- #
+def reg_args(arch: str) -> list[str]:
+    """Phase 37's serving flags for ``arch``."""
+    return ["--arch", arch, "--batch", str(REG_B), "--prompt-len",
+            str(REG_S), "--new-tokens", str(REG_NEW), "--seed", "0"]
+
+
+def registry_kernels(torch, ops, ref, dev):
+    """Phase 37a: phase 6's checks at the shapes the four archs' serves
+    give the kernels (flash over each prefill; decode over each cache at
+    positions 0, 511, the first decode step's and the last, with forced
+    split counts; RMSNorm at every row shape of the four paths), fp32 and
+    bf16 within 2e-5 / 2e-2; then decode timed at each arch's last step
+    and flash at granite-20b's and phi-3-vision-4.2b's prefill, beside
+    their bound and SDPA → (max |kernel - plain| per kernel, {arch: the
+    path's RMSNorm row shapes with their launches})."""
+    from repro_torch import configs
+    flash, decode, shapes = {}, {}, {}
+    for arch in REG_ARCHS:
+        cfg = configs.get(arch)
+        # a vlm's cache also takes its patches (serve.setup, as the
+        # reference's), though its prompt already holds them
+        smax = REG_S + REG_NEW + (cfg.n_patches if cfg.family == "vlm"
+                                  else 0)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        flash[arch] = (REG_B, REG_S, REG_S, *heads, True)
+        decode[arch] = (REG_B, smax, *heads,
+                        (0, 511, REG_S, REG_S + REG_NEW - 1))
+        shapes[arch] = rms_shapes(cfg, REG_B, REG_S, REG_NEW)
+    rows = sorted({sh for p in shapes.values() for sh in p})
+    err = check_lm_kernels(torch, ops, ref, dev, tuple(flash.values()),
+                           tuple(decode.values()), rows, "registry kernels")
+    log("registry kernels, timed (bf16):")
+    for arch in ("granite-20b", "phi-3-vision-4.2b"):
+        log(f" {arch} prefill:")
+        time_flash(torch, ops, ref, dev, *flash[arch])
+    for arch, (B, smax, H, KV, hd, positions) in decode.items():
+        log(f" {arch} decode:")
+        time_decode(torch, ops, ref, dev, B, smax, H, KV, hd, positions[-1])
+    return err, shapes
+
+
+def registry_phases(torch, ops, ref, serve, lm, dev):
+    """Phase 37 → (max |kernel - plain| at its shapes, {arch: the slice's
+    launch counts})."""
+    t_reg = time.perf_counter()
+    err, shapes = registry_kernels(torch, ops, ref, dev)
+    log(f"registry kernels (check-phase launches): "
+        f"{json.dumps(ops.launch_counts())}")
+    launched = {}
+    for arch in REG_ARCHS:
+        t_arch = time.perf_counter()
+        argv = reg_args(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched[arch] = serve_slice(torch, ops, serve, arch, argv, lm_expect)
+        rms_counted(launched[arch], shapes[arch], arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, model, inputs, cache_len, feed, gates = parity(
+            torch, serve, lm, dev, arch, argv, 5e-2, "ties")
+        del model, gates
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in REG_TRUTH_LAYERS:
+            truth(torch, lm, arch, cfg, inputs, cache_len, feed, dev,
+                  REG_TRUTH_LAYERS[arch])
+        del cfg, inputs, cache_len, feed
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch} (phase 37) took {time.perf_counter() - t_arch:.1f} s; "
+            f"the card holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+            f"after it")
+    left = torch.cuda.memory_allocated()
+    if left > REG_LEFT_GIB * 2**30:
+        raise AssertionError(f"phase 37 left {left} B allocated on the card")
+    log(f"registry phase 37 took {time.perf_counter() - t_reg:.1f} s; max "
+        f"|kernel - plain| at its shapes {json.dumps(err)}; the slices' "
+        f"launches "
+        + ", ".join(f"{a} flash {n['flash_attention']}, decode "
+                    f"{n['decode_attention']}, rmsnorm {n['fused_rmsnorm']}"
+                    for a, n in launched.items()))
+    return err, launched
+
+
+# --------------------------------------------------------------------------- #
 # Phases 24-27: training
 # --------------------------------------------------------------------------- #
 def train_pair(torch, steps, cfg, model_cpu, batch_cpu, dev, opt) -> list:
@@ -3212,8 +3376,9 @@ def train_slice(torch, dev, smi, extra=(), label="train slice (phase 25)"
 
 def resume_drill(torch, dev) -> None:
     """Phase 26: the launcher as a user runs it, three processes:
-    uninterrupted, crashed at a step (exit 42), resumed; the resumed
-    losses must be the uninterrupted run's, bit for bit.  Then a bf16
+    uninterrupted and crashed at a step (exit 42), side by side, then
+    resumed; the resumed losses must be the uninterrupted run's, bit for
+    bit.  Then a bf16
     checkpoint of qwen3-1.7b at full width and 2 layers, after one step,
     must restore every leaf ``torch.equal``."""
     import re
@@ -3236,9 +3401,13 @@ def resume_drill(torch, dev) -> None:
             r"^step +(\d+) loss (\S+)", cp.stdout, re.M)}
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".train_drill_") as d:
-        whole, ref = run(os.path.join(d, "a"))
-        crashed, _ = run(os.path.join(d, "b"), "--fail-at-step",
-                         str(DRILL_FAIL))
+        # the uninterrupted and the crashed run at once, each in its own
+        # checkpoint directory; then the resume
+        with ThreadPoolExecutor(2) as pool:
+            first = [pool.submit(run, os.path.join(d, "a")),
+                     pool.submit(run, os.path.join(d, "b"), "--fail-at-step",
+                                 str(DRILL_FAIL))]
+            (whole, ref), (crashed, _) = (f.result() for f in first)
         resumed, mine = run(os.path.join(d, "b"))
         for cp, rc in ((whole, 0), (crashed, 42), (resumed, 0)):
             if cp.returncode != rc:
@@ -4022,8 +4191,8 @@ def sharded_serve_rank(spec: dict) -> dict | None:
     del model, toks, logits, cache, whole
     gc.collect()
     torch.cuda.empty_cache()
-    argv = LM_ARGS + ["--device", "cuda", "--data-par", str(d),
-                      "--model-par", str(m)]
+    argv = SHARD_SERVE_ARGS + ["--device", "cuda", "--data-par", str(d),
+                               "--model-par", str(m)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4423,14 +4592,14 @@ def sharded_serve(torch, smi, plain: dict, res: dict) -> dict[str, int]:
         f"(2e-4: {p['cache_ok']}); cache placements {p['placements']} "
         f"(kv_cache_names: {p['names']}); {p['s']:.1f} s")
     lead = res["ranks"][0]
-    args = serve.parse_args(LM_ARGS)
+    args = serve.parse_args(SHARD_SERVE_ARGS)
     cfg = configs.get(TRAIN_ARCH)
     expect = {k: 0 for k in lead["launches"]}
     expect.update(lm_expect(cfg, args))
     log(f"sharded serve (phase 33) {TRAIN_ARCH} full width and depth, bf16, "
-        f"batch {LM_B}, prompt {LM_S}, {LM_NEW} new tokens at (data, "
-        f"model) {mesh} on {world} of {torch.cuda.device_count()} cards, "
-        f"{smi}: prefill {lead['prefill_ms']:.2f} ms, decode "
+        f"batch {LM_B}, prompt {LM_S}, {args.new_tokens} new tokens at "
+        f"(data, model) {mesh} on {world} of {torch.cuda.device_count()} "
+        f"cards, {smi}: prefill {lead['prefill_ms']:.2f} ms, decode "
         f"{lead['decode_ms']:.3f} ms/token (rank 0; slowest rank "
         f"{max(r['decode_ms'] for r in res['ranks']):.3f}); peak GiB a "
         f"card {[round(r['peak'] / 2**30, 3) for r in res['ranks']]}")
@@ -4653,8 +4822,8 @@ def main() -> int:
 
 
 def phases(torch, smi, idle_w, predictor) -> int:
-    """Phases 36 and 2-35 (``main`` made the setup, read the idle draw
-    and started the predictions)."""
+    """Phases 36, 2-23, 37 and 24-35 (``main`` made the setup, read the
+    idle draw and started the predictions)."""
     from repro_torch.core import best_throughput, scenarios, solve
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models.cnn import zoo
@@ -5052,6 +5221,11 @@ def phases(torch, smi, idle_w, predictor) -> int:
     new_err, hyb_launches, enc_launches = hybrid_encdec_phases(
         torch, ops, ref, serve, lm, dev)
 
+    # ---------------------------------------- the rest of the registry (37)
+    gc.collect()                       # the whisper model is unreferenced
+    torch.cuda.empty_cache()
+    reg_err, reg_launches = registry_phases(torch, ops, ref, serve, lm, dev)
+
     # ------------------------------------------------------------ training
     t_train = time.perf_counter()
     # the launcher's numerics from here on (TF32 off, cuDNN deterministic,
@@ -5110,7 +5284,8 @@ def phases(torch, smi, idle_w, predictor) -> int:
     # --------------------------------------------------------------- report
     # the LM kernels' launches over every LM serving path's run
     lm_paths = (lm_launches, ssm_launches, moe_launches, hyb_launches,
-                enc_launches, pipe_launches, serve_launches, pod_launches)
+                enc_launches, *reg_launches.values(), pipe_launches,
+                serve_launches, pod_launches)
     rows = []
     for name in REPLACES:
         t = timings[name]
@@ -5127,7 +5302,8 @@ def phases(torch, smi, idle_w, predictor) -> int:
             "replaces": LM_REPLACES[name],
             "launches": sum(path[name] for path in lm_paths),
             "train_launches": train_launches[name],
-            "max_abs_err": max(e[name] for e in (lm_err, moe_err, new_err)),
+            "max_abs_err": max(e[name] for e in (lm_err, moe_err, new_err,
+                                                 reg_err)),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

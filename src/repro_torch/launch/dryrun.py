@@ -23,7 +23,9 @@ absent.  For each cell this harness
      route, as the reference's ``_build_step``) under ``MemTracker``
      (memory, per rank), ``FlopCounterMode`` (FLOPs, per rank) and the
      collective recorder (``hlo_analysis.CollectiveRecorder``, which
-     marks each collective crossing pods or not),
+     marks each collective crossing pods or not), a CPU mesh moving a
+     ``Shard(i)`` to a ``Shard(j)`` by the card's all-to-all
+     (``card_redistribution``),
   4. records the analytic cost model's roofline terms
      (``launch/analytic.py:cell_cost`` with ``roofline_from``, the H100's
      peaks), as the reference does (``dryrun.py:280-321``),
@@ -84,6 +86,35 @@ def fake_group(world: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def card_redistribution(mesh):
+    """While open, DTensor moves a ``Shard(i)`` to a ``Shard(j)`` on one
+    dim of a CPU ``mesh`` as it does on the card's: one all-to-all
+    (``_dtensor.shard_dim_alltoall``).  On a CPU mesh torch's own rule
+    is an all-gather of the whole dim and a local chunk, for gloo's
+    sake; gloo runs the all-to-all too, to the same values.  So the
+    collectives a CPU sweep counts are those a CUDA mesh issues (the
+    hybrid's train step moves gradients of its Mamba-2 activations so).
+    A no-op for another mesh or none."""
+    from torch.distributed.tensor import placement_types
+    if mesh is None or mesh.device_type != "cpu":
+        yield
+        return
+    import torch
+    import torch.distributed._functional_collectives as funcol
+    original = placement_types.shard_dim_alltoall
+
+    def all_to_all(x, gather_dim, shard_dim, on_mesh, mesh_dim):
+        group = funcol._resolve_group((on_mesh, mesh_dim))
+        return torch.ops._dtensor.shard_dim_alltoall(
+            x, gather_dim, shard_dim, funcol._group_or_group_name(group))
+    placement_types.shard_dim_alltoall = all_to_all
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = original
 
 
 def _build_step(cfg, shape, grad_accum: int, pcfg=None, mesh=None):
@@ -219,7 +250,8 @@ def measure(cfg, shape, mesh, *, device="cpu", fake: bool = True,
         rec = CollectiveRecorder(_pod_size(mesh))
         t1 = time.perf_counter()
         peak = _peak_mode(mt)
-        with mt, peak, FlopCounterMode(display=False) as fc, rec:
+        with mt, peak, FlopCounterMode(display=False) as fc, rec, \
+                card_redistribution(mesh):
             out = step(*args)
         compile_s = time.perf_counter() - t1
         peak = max(peak.bytes, arg_bytes)

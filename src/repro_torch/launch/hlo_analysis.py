@@ -9,9 +9,11 @@ eagerly and has no HLO, so the port has no counterpart of the parser
 (``parse_collectives`` and its regexes): ``CollectiveRecorder``, a
 ``TorchDispatchMode``, records the same facts of every collective as
 the step issues it — the ``_c10d_functional`` ops DTensor's
-redistributions run and the ``c10d`` ops of ``torch.distributed``'s
-calls (``all_reduce`` inside the steps' local functions), each under
-the reference's kind name (send/recv as ``collective-permute``), with
+redistributions run, its ``_dtensor.shard_dim_alltoall`` (a
+``Shard(i)`` → ``Shard(j)`` move on one mesh dim, one op to a dispatch
+mode) and the ``c10d`` ops of ``torch.distributed``'s calls
+(``all_reduce`` inside the steps' local functions), each under the
+reference's kind name (send/recv as ``collective-permute``), with
 its result bytes and its process group's size.  It works the same on a
 real group and on a fake one inside ``FakeTensorMode`` (the dry run).
 Given the ranks of a pod (``pod_size``: a ``(pod, data, model)`` mesh's
@@ -53,7 +55,7 @@ KINDS = {
     "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
-    "alltoall_base_": "all-to-all",
+    "alltoall_base_": "all-to-all", "shard_dim_alltoall": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute",
     "broadcast": "broadcast", "broadcast_": "broadcast",
 }
@@ -183,7 +185,7 @@ class CollectiveRecorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace in ("_c10d_functional", "c10d"):
+        if func.namespace in ("_c10d_functional", "c10d", "_dtensor"):
             name = func.overloadpacket.__name__
             kind = KINDS.get(name)
             if kind is not None:

@@ -56,6 +56,7 @@ import resource
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Literal, Sequence
 
@@ -798,8 +799,7 @@ class _ProcessEngine:
         skeleton, state = ship_model(pipe.model)
         flags = numerics()
         child_ctrls = []
-        starts = []                           # (offset, start() blocked)
-        t_spawn = time.perf_counter()
+        procs = []
         for i in range(k):
             for m in range(r[i]):
                 parent_c, child_c = self._ctx.Pipe()
@@ -829,12 +829,24 @@ class _ProcessEngine:
                         "pace_s": pipe.stage_pace_s[i]}
                 name = (f"edge-worker{i}.{m}" if r[i] > 1
                         else f"edge-worker{i}")
-                p = self._ctx.Process(target=T._worker_main, args=(spec,),
-                                      daemon=True, name=name)
-                spec["t_spawn"] = t = time.perf_counter()
-                p.start()
-                starts.append((t - t_spawn, time.perf_counter() - t))
-                self._procs.append(p)
+                procs.append((spec, self._ctx.Process(
+                    target=T._worker_main, args=(spec,), daemon=True,
+                    name=name)))
+        t_spawn = time.perf_counter()
+
+        def start(spec_proc) -> tuple[float, float]:
+            """→ (offset, start() blocked)."""
+            spec, p = spec_proc
+            spec["t_spawn"] = t = time.perf_counter()
+            p.start()
+            return t - t_spawn, time.perf_counter() - t
+        # start() blocks while its child unpickles the spec, which imports
+        # torch: started together, the workers import it side by side
+        with ThreadPoolExecutor(len(procs)) as pool:
+            started = [pool.submit(start, sp) for sp in procs]
+        self._procs.extend(p for (_, p), f in zip(procs, started)
+                           if f.exception() is None)
+        starts = [f.result() for f in started]
         # parent's copies of shipped endpoints must go away, or a dead
         # worker's socket never reads as closed downstream
         for c in child_ctrls:

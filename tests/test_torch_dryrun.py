@@ -11,7 +11,9 @@ tensors in four gloo ranks (``_torch_sharded_ranks.py``, meanwhile);
 rank 0's collectives (count and bytes by kind, and for the pipelined
 cells by kind and by crossing a pod or not), FLOPs
 (``FlopCounterMode``) and ``MemTracker`` peak must be equal, and no
-fake group may be left after each.
+fake group may be left after each.  The hybrid's train cell is the one
+where torch's rule for a CPU mesh would count an all-gather for the
+card's all-to-all: ``measure`` counts the all-to-all.
 
 The CLI: ``--arch whisper-small --shape decode_32k --mesh single``
 writes a record with status ``ok`` on the full-size 16 x 16 mesh (256
@@ -23,6 +25,7 @@ crossing the pods, and ``--mesh both`` records both cells; in a sweep a
 cell that runs past its time is recorded as failed and the sweep goes
 on.
 """
+import contextlib
 import json
 import os
 import pathlib
@@ -122,6 +125,32 @@ def test_fake_step_counts_what_the_real_one_does(runs, case):
         assert got["pod"]["collective-permute/crossing"]["count"] > 0, case
         assert not any(k.startswith("collective-permute/within")
                        for k in got["pod"]), case
+
+
+def test_cpu_mesh_counts_the_cards_all_to_all(monkeypatch):
+    """The cell and the op where DTensor's rule on a CPU mesh is not the
+    card's: zamba2-7b's train step (the hybrid, reduced, at (data 2,
+    model 2)) moves gradients of its Mamba-2 activations from a
+    ``Shard`` of one dim to a ``Shard`` of another on the model dim.  On
+    a CUDA mesh that is one ``_dtensor.shard_dim_alltoall``; torch's own
+    rule on a CPU mesh is an all-gather of the whole dim and a chunk.
+    Inside ``measure`` the CPU mesh takes the card's all-to-all
+    (``card_redistribution``), so the inventory holds the all-to-alls
+    where torch's CPU rule would count all-gathers of twice their
+    bytes; nothing else moves."""
+    card = _fake(FAMILIES["hybrid"], "train", 1)
+    monkeypatch.setattr(D, "card_redistribution",
+                        lambda mesh: contextlib.nullcontext())
+    cpu = _fake(FAMILIES["hybrid"], "train", 1)
+    a2a = card["coll"].pop("all-to-all")
+    assert a2a["count"] > 0 and "all-to-all" not in cpu["coll"]
+    gathered = cpu["coll"].pop("all-gather")
+    assert gathered["count"] == card["coll"]["all-gather"]["count"] \
+        + a2a["count"]
+    assert gathered["bytes"] == card["coll"].pop("all-gather")["bytes"] \
+        + 2 * a2a["bytes"]
+    assert cpu["coll"] == card["coll"]
+    assert (cpu["flops"], cpu["peak"]) == (card["flops"], card["peak"])
 
 
 def _cli(*args, cwd):

@@ -201,6 +201,10 @@ def _randn(shape, dtype, cuda, seed):
     (2, 200, 200, 4, 2, 16, True),       # the reduced configs' head_dim
     (1, 300, 300, 4, 4, 112, True),      # zamba2's head_dim
     (1, 256, 256, 48, 1, 128, True),     # granite-20b's MQA group, G = 48
+    (1, 300, 300, 36, 4, 128, True),     # starcoder2-7b's group, G = 9
+    (2, 200, 200, 24, 2, 128, True),     # starcoder2-3b's group, G = 12
+    (8, 1024, 1024, 48, 1, 128, True),   # granite-20b's prefill
+    (8, 1024, 1024, 32, 32, 96, True),   # phi-3-vision-4.2b's prefill
     (2, 333, 333, 4, 2, 64, False),      # S not a multiple of 128
     (1, 77, 300, 4, 2, 128, True),       # causal, S < T, ragged
     (8, 1, 1500, 12, 12, 64, False),     # whisper's cross-attention decode
@@ -227,6 +231,10 @@ def test_flash_attention_kernel_matches_plain(B, S, T, H, KV, hd, causal,
     (2, 8, 1, 128, 256, 100),            # MQA, G = 8
     (2, 4, 4, 96, 77, 76),               # ragged Smax, full cache
     (8, 32, 32, 112, 1056, 1055),        # zamba2's shared block, decode
+    (2, 36, 4, 128, 300, 299),           # starcoder2-7b's group, G = 9
+    (2, 24, 2, 128, 333, 332),           # starcoder2-3b's group, G = 12
+    (8, 48, 1, 128, 1032, 1031),         # granite-20b's MQA, G = 48
+    (8, 32, 32, 96, 1608, 1031),         # phi-3-vision's, past 1024
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(B, H, KV, hd, Smax, pos,

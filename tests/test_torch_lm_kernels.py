@@ -57,6 +57,9 @@ def _close(mine: torch.Tensor, ref, dtype: str) -> None:
     (1, 128, 4, 4, 64, True),        # MHA
     (1, 128, 8, 1, 128, True),       # MQA, granite-style head_dim
     (2, 128, 4, 2, 96, False),       # GQA, phi3-vision head_dim
+    (1, 128, 36, 4, 128, True),      # starcoder2-7b's group, G = 9
+    (1, 128, 24, 2, 128, True),      # starcoder2-3b's group, G = 12
+    (1, 128, 48, 1, 128, True),      # granite-20b's MQA group, G = 48
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, dtype):
@@ -74,6 +77,10 @@ def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, dtype):
     (2, 4, 2, 64, 512, 317),
     (1, 8, 1, 128, 256, 0),          # first token
     (2, 4, 4, 96, 256, 255),         # full cache
+    (1, 36, 4, 128, 256, 200),       # starcoder2-7b's group, G = 9
+    (2, 24, 2, 128, 256, 129),       # starcoder2-3b's group, G = 12
+    (1, 48, 1, 128, 256, 255),       # granite-20b's MQA group, G = 48
+    (2, 32, 32, 96, 256, 131),       # phi-3-vision's 32 heads of 96 (MHA)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_pallas(B, H, KV, hd, Smax, pos, dtype):
